@@ -1,0 +1,409 @@
+#!/usr/bin/env python3
+"""Runs the PyTorch port (``src/repro_torch``) on one CUDA card and
+checks it.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (the script then exits non-zero
+and prints no result line):
+  1. the card's name and power limit, and the float32 matmul settings;
+  2. build the Hopper kernels from ``src/repro_torch/kernels/csrc`` (timed);
+  3. hold each kernel against its plain PyTorch version on the card at
+     the training path's shapes (max abs error must be 0: both copy), then
+     time kernel, plain version and the library call with CUDA events;
+  4. port on the card against port on the CPU, same start state and same
+     draws, small sizes: every replay row, counter and parameter agrees;
+  5. drive ``SpreezeTrainer.train`` at the reference's full widths
+     (hidden 256x256, batch 8192, capacity 262144, 16 envs x 32 steps,
+     4 updates a round, 4 rounds a megastep), with the launch counters
+     reset just before and read just after: each kernel must have been
+     launched exactly as often as the path implies;
+  6. time the layers of one round at full width (sampler chunk, ring
+     write, SAC update) with CUDA synchronisation around each.
+The line before the last is ``{"kernels": [...]}``; the last is
+``{"ok": true, "device": {...}}``.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+FIELD_WIDTHS = {"obs": 3, "act": 1, "rew": 1, "next_obs": 3, "done": 1,
+                "disc": 1}          # the six replay fields, Pendulum
+CAPACITY, ROUND_ROWS, BATCH = 262_144, 16 * 32, 8192
+
+
+def require(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def event_ms(fn, iters=200, warmup=20):
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_ring_write(rops, dev):
+    """Kernel vs plain version, every field width, mid-ring, wrapping and
+    windowed writes. Returns the max abs error over all cases."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(1)
+    worst = 0.0
+    cases = [(CAPACITY, 100_000, None), (CAPACITY, CAPACITY - 200, None),
+             # a 65536-row window of the ring that the write straddles
+             (65_536, 131_072 - 300, 131_072)]
+    for rows_local, ptr, lo in cases:
+        for width in sorted(set(FIELD_WIDTHS.values())):
+            data = torch.randn((rows_local, width), generator=g, device=dev)
+            batch = torch.randn((ROUND_ROWS, width), generator=g, device=dev)
+            p = torch.tensor(ptr, dtype=torch.int32, device=dev)
+            kw = ({} if lo is None else
+                  {"capacity": CAPACITY,
+                   "window_start": torch.tensor(lo, dtype=torch.int32,
+                                                device=dev)})
+            got = rops.ring_write(data.clone(), batch, p, **kw)
+            want = rops.ring_write_ref(data.clone(), batch, p, **kw)
+            require(not torch.equal(got, data), "ring_write wrote nothing")
+            worst = max(worst, float((got - want).abs().max()))
+    return worst
+
+
+def check_ring_gather(rops, dev):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(2)
+    worst = 0.0
+    for rows_local, lo in ((CAPACITY, None), (65_536, 131_072)):
+        base = 0 if lo is None else lo
+        for width in sorted(set(FIELD_WIDTHS.values())):
+            data = torch.randn((rows_local, width), generator=g, device=dev)
+            inside = torch.randint(base, base + rows_local, (BATCH - 64,),
+                                   generator=g, device=dev)
+            outside = torch.cat([
+                torch.full((16,), -1, device=dev),
+                torch.randint(0, base + 1, (16,), generator=g,
+                              device=dev) - 1,
+                torch.randint(base + rows_local, base + 2 * rows_local,
+                              (32,), generator=g, device=dev)])
+            idx = torch.cat([inside, outside]).to(torch.int32)
+            kw = {} if lo is None else {
+                "window_start": torch.tensor(lo, dtype=torch.int32,
+                                             device=dev)}
+            got = rops.ring_gather(data, idx, **kw)
+            want = rops.ring_gather_ref(data, idx, **kw)
+            require(not got[-64:].any(), "out-of-window rows not zero")
+            worst = max(worst, float((got - want).abs().max()))
+    return worst
+
+
+def time_ring_write(rops, dev):
+    """Times one round's ring write: the six fields, n = 512 rows each."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(3)
+    data = {k: torch.randn((CAPACITY, w), generator=g, device=dev)
+            for k, w in FIELD_WIDTHS.items()}
+    batch = {k: torch.randn((ROUND_ROWS, w), generator=g, device=dev)
+             for k, w in FIELD_WIDTHS.items()}
+    ptr = torch.tensor(100_000, dtype=torch.int32, device=dev)
+    dest = (100_000 + torch.arange(ROUND_ROWS, device=dev)) % CAPACITY
+
+    def kernel():
+        for k in data:
+            rops.ring_write(data[k], batch[k], ptr)
+
+    def plain():
+        for k in data:
+            rops.ring_write_ref(data[k], batch[k], ptr)
+
+    def library():
+        for k in data:
+            data[k].index_copy_(0, dest, batch[k])
+
+    floats = sum(FIELD_WIDTHS.values()) * ROUND_ROWS
+    # batch read once + rows written once + ptr read once per field
+    moved = 2 * floats * 4 + 4 * len(FIELD_WIDTHS)
+    return {"ms": event_ms(kernel), "plain_ms": event_ms(plain),
+            "library_ms": event_ms(library),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def time_ring_gather(rops, dev):
+    """Times one update's gather: the six fields, B = 8192 uniform rows."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(4)
+    data = {k: torch.randn((CAPACITY, w), generator=g, device=dev)
+            for k, w in FIELD_WIDTHS.items()}
+    idx = torch.randint(0, CAPACITY, (BATCH,), generator=g, device=dev,
+                        dtype=torch.int32)
+    idx_long = idx.long()
+
+    def kernel():
+        for v in data.values():
+            rops.ring_gather(v, idx)
+
+    def plain():
+        for v in data.values():
+            rops.ring_gather_ref(v, idx)
+
+    def library():
+        for v in data.values():
+            torch.index_select(v, 0, idx_long)
+
+    unique_rows = int(torch.unique(idx).numel())
+    width = sum(FIELD_WIDTHS.values())
+    # indices read once, each distinct source row read once, output
+    # written once
+    moved = BATCH * 4 + unique_rows * width * 4 + BATCH * width * 4
+    return {"ms": event_ms(kernel), "plain_ms": event_ms(plain),
+            "library_ms": event_ms(library),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+class HostDraws:
+    """Draws made on the CPU from a seed and then moved to ``device``, so
+    two trainers on different devices consume the same numbers."""
+
+    def __init__(self, env, seed, device):
+        import torch
+        self.env, self.device = env, device
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def _to(self, x):
+        return x.to(self.device)
+
+    def sampler_step(self, num_envs, act_dim):
+        import torch
+        eps = torch.randn((num_envs, act_dim), generator=self.gen)
+        reset = self.env.reset_draws(num_envs, self.gen)
+        return self._to(eps), {k: self._to(v) for k, v in reset.items()}
+
+    def update(self, replay, batch_size, act_dim):
+        import torch
+        raw = torch.randint(0, 2 ** 31 - 1, (batch_size,),
+                            generator=self.gen, dtype=torch.int32)
+        eps = self._to(torch.randn((2, batch_size, act_dim),
+                                   generator=self.gen))
+        return (self._to(raw) % torch.clamp(replay.size, min=1),
+                eps[0], eps[1])
+
+    def eval_reset(self, n):
+        return {k: self._to(v)
+                for k, v in self.env.reset_draws(n, self.gen).items()}
+
+
+def check_device_vs_cpu(dev):
+    """The port's megastep on the card (kernels) against the port on the
+    CPU (plain versions) from one start state with the same draws. The
+    CPU side is the one the test suite holds against the JAX package."""
+    import numpy as np
+    from repro_torch import interop
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import SpreezeConfig, SpreezeTrainer
+    from repro_torch.envs import make
+    from repro_torch.rl import AlgoHP
+
+    def cfg(device):
+        # capacity 100 is not a multiple of the 32 rows a round writes:
+        # writes wrap mid-batch, and sampling runs past the alignment
+        return SpreezeConfig(num_envs=4, chunk_len=8, batch_size=256,
+                             replay_capacity=100, warmup_frames=64,
+                             updates_per_round=2, rounds_per_dispatch=2,
+                             hp=AlgoHP(hidden=(64, 64)), seed=5,
+                             device=device)
+
+    cpu = SpreezeTrainer(cfg("cpu"), draws=HostDraws(make("pendulum"), 11,
+                                                     "cpu"))
+    gpu = SpreezeTrainer(cfg("cuda"), draws=HostDraws(make("pendulum"), 11,
+                                                      dev))
+    gpu.state = interop.algo_state_from_numpy(
+        interop.algo_state_to_numpy(cpu.state), dev)
+    gpu.env_states = interop.to_tensors(interop.to_numpy(cpu.env_states),
+                                        dev)
+    for tr in (cpu, gpu):
+        tr._warmup()
+        for _ in range(3):
+            tr.megastep()
+    # float32 on both devices; cuBLAS and the CPU BLAS sum in different
+    # orders, and 12 Adam steps carry that rounding into the parameters
+    rtol, atol = 1e-3, 1e-4
+    want = interop.replay_to_numpy(cpu.replay)
+    got = interop.replay_to_numpy(gpu.replay)
+    require(int(got["ptr"]) == int(want["ptr"]) and
+            int(got["size"]) == int(want["size"]), "ring counters differ")
+    worst = 0.0
+    for k in want["data"]:
+        np.testing.assert_allclose(got["data"][k], want["data"][k], rtol,
+                                   atol, err_msg=k)
+    w_state = interop.algo_state_to_numpy(cpu.state)
+    g_state = interop.algo_state_to_numpy(gpu.state)
+    for k in ("actor", "q", "q_target", "log_alpha"):
+        for a, b in zip(tree_leaves(w_state[k]), tree_leaves(g_state[k])):
+            np.testing.assert_allclose(b, a, rtol, atol, err_msg=k)
+            worst = max(worst, float(np.abs(a - b).max()))
+    for k in ("mean_rew", "critic_loss"):
+        np.testing.assert_allclose(
+            interop.to_numpy(gpu.last_metrics[k]),
+            interop.to_numpy(cpu.last_metrics[k]), rtol, atol, err_msg=k)
+    return worst, rtol, atol
+
+
+def run_main_path(rops, dev, megasteps=24):
+    """SpreezeTrainer.train at full width; counters reset just before."""
+    import math
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import SpreezeConfig, SpreezeTrainer
+    from repro_torch.rl import AlgoHP
+
+    cfg = SpreezeConfig(num_envs=16, batch_size=BATCH,
+                        replay_capacity=CAPACITY, warmup_frames=2048,
+                        chunk_len=32, updates_per_round=4,
+                        rounds_per_dispatch=4, eval_every_rounds=16,
+                        eval_episodes=4, seed=0,
+                        hp=AlgoHP(hidden=(256, 256)), device="cuda")
+    tr = SpreezeTrainer(cfg)
+    per_round = cfg.num_envs * cfg.chunk_len
+    warm_chunks = -(-cfg.warmup_frames // per_round)
+    rounds = megasteps * cfg.rounds_per_dispatch
+    rops.reset_launch_counts()
+    hist = tr.train(max_seconds=600.0,
+                    max_frames=warm_chunks * per_round + rounds * per_round)
+    launches = dict(rops.LAUNCH_COUNTS)
+    fields = len(tr.replay.data)
+    expect = {"ring_write": fields * (warm_chunks + rounds),
+              "ring_gather": fields * rounds * cfg.updates_per_round}
+    require(tr.total_updates == rounds * cfg.updates_per_round,
+            f"ran {tr.total_updates} updates, wanted "
+            f"{rounds * cfg.updates_per_round}")
+    require(launches == expect,
+            f"kernel launches {launches} != expected {expect}")
+    frames = tr.total_frames
+    require(int(tr.replay.size) == min(frames, CAPACITY) and
+            int(tr.replay.ptr) == frames % CAPACITY, "ring counters wrong")
+    for name in ("actor", "q", "q_target"):
+        for leaf in tree_leaves(getattr(tr.state, name)):
+            require(bool(torch.isfinite(leaf).all()), f"{name} not finite")
+    require(bool(torch.isfinite(tr.state.log_alpha)), "log_alpha")
+    for k, v in tr.last_metrics.items():
+        require(v.shape == (cfg.rounds_per_dispatch,) and
+                bool(torch.isfinite(v).all()), f"metric {k}")
+    require(len(hist.eval_returns) == rounds // cfg.eval_every_rounds and
+            all(math.isfinite(r) for r in hist.eval_returns),
+            f"eval returns {hist.eval_returns}")
+    return tr, hist, launches
+
+
+def time_layers(tr):
+    """Host wall time of each layer of one full-width round, with the
+    device synchronised around it (so each includes its launch cost)."""
+    import torch
+
+    def timed(fn, reps=8):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    chunk = {}
+
+    def sampler():
+        tr.env_states, chunk["flat"], _ = tr.sampler_chunk(tr.state.actor,
+                                                           tr.env_states)
+
+    out = {"sampler_chunk_ms": timed(sampler)}
+    out["ring_write_round_ms"] = timed(
+        lambda: tr.transfer.push(tr.replay, chunk["flat"]))
+    out["update_round_ms"] = timed(
+        lambda: tr.update_round(tr.state, tr.replay))
+    out["megastep_ms"] = timed(tr.megastep, reps=4)
+    return out
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device is available")
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import replay_ops as rops
+
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
+
+    t = time.perf_counter()
+    _build.load_kernels()
+    print(f"kernels built in {time.perf_counter() - t:.1f} s "
+          f"({_build.BUILD_DIR})", flush=True)
+
+    errs = {"ring_write": check_ring_write(rops, dev),
+            "ring_gather": check_ring_gather(rops, dev)}
+    for name, err in errs.items():
+        require(err == 0.0, f"{name} differs from its plain version: {err}")
+    timing = {"ring_write": time_ring_write(rops, dev),
+              "ring_gather": time_ring_gather(rops, dev)}
+    for name in errs:
+        print(f"{name}: max_abs_err {errs[name]} "
+              + " ".join(f"{k} {v:.5f}" for k, v in timing[name].items()),
+              flush=True)
+
+    worst, rtol, atol = check_device_vs_cpu(dev)
+    print(f"port on cuda vs port on cpu (3 megasteps, small): params max "
+          f"abs diff {worst:.3g} within rtol {rtol} atol {atol}", flush=True)
+
+    tr, hist, launches = run_main_path(rops, dev)
+    rates = {"sampling_hz": hist.sampling_hz, "update_hz": hist.update_hz,
+             "update_frame_hz": hist.update_frame_hz,
+             "wall_s": hist.wall_s, "eval_returns": hist.eval_returns,
+             "eval_blocked_s": hist.eval_blocked_s,
+             "launches": launches, "card": card}
+    print("main path: " + json.dumps(rates), flush=True)
+    print("layers: " + json.dumps({**time_layers(tr), "card": card}),
+          flush=True)
+
+    sources = {"ring_write": "src/repro/kernels/replay_ops.py:188",
+               "ring_gather": "src/repro/kernels/replay_ops.py:302"}
+    kernels = [{"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/ring_ops.cu",
+                "replaces": sources[name], "launches": launches[name],
+                "max_abs_err": errs[name], "ms": timing[name]["ms"],
+                "plain_ms": timing[name]["plain_ms"],
+                "bound_ms": timing[name]["bound_ms"], "bound_by": "bytes",
+                "library_ms": timing[name]["library_ms"]}
+               for name in ("ring_write", "ring_gather")]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

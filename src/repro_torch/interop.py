@@ -1,0 +1,88 @@
+"""Carrying state between the JAX package and the port, through numpy.
+
+The JAX package's ``AlgoState``, ``ReplayState`` and env states arrive
+as nested dicts and tuples (NamedTuples included) of numpy arrays, for
+example ``jax.tree.map(np.asarray, state)``; this module turns them into
+the port's tensors and back (env states, plain dicts of arrays, go
+through ``to_tensors`` / ``to_numpy`` as they are). The port keeps the
+JAX weight layout (``(in, out)`` matrices, the ensemble stacked on a
+leading axis), so every leaf maps one to one and no transpose is needed. Leaves keep their
+dtype, so a round trip is bitwise. This module imports neither JAX nor
+the JAX package: it only relies on the field order both sides share.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.replay.buffer import ReplayState
+from repro_torch.rl.base import AlgoState
+from repro_torch.train.optimizer import OptState
+
+
+def to_tensors(tree, device) -> Any:
+    """Nested mappings/tuples of arrays -> dicts/tuples of tensors."""
+    if isinstance(tree, Mapping):
+        return {k: to_tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_tensors(v, device) for v in tree)
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def to_numpy(tree) -> Any:
+    """Dicts/tuples of tensors -> the same nesting of numpy arrays."""
+    if isinstance(tree, Mapping):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_numpy(v) for v in tree)
+    return tree.detach().cpu().numpy()
+
+
+def _fields(obj, names) -> Dict[str, Any]:
+    """A NamedTuple, mapping or plain tuple in ``names`` order -> dict."""
+    if isinstance(obj, Mapping):
+        return {n: obj[n] for n in names}
+    if hasattr(obj, "_asdict"):
+        return {n: obj._asdict()[n] for n in names}
+    if len(obj) != len(names):
+        raise ValueError(f"expected {len(names)} fields {names}, got "
+                         f"{len(obj)}")
+    return dict(zip(names, obj))
+
+
+def _opt_state(obj, device) -> OptState:
+    return OptState(**{k: to_tensors(v, device)
+                       for k, v in _fields(obj, OptState._fields).items()})
+
+
+def algo_state_from_numpy(state, device) -> AlgoState:
+    f = _fields(state, AlgoState._fields)
+    opts = ("opt_actor", "opt_q", "opt_alpha")
+    return AlgoState(**{k: (_opt_state(v, device) if k in opts
+                            else to_tensors(v, device))
+                        for k, v in f.items()})
+
+
+def algo_state_to_numpy(state: AlgoState) -> Dict[str, Any]:
+    """-> dict of the ``AlgoState`` fields; optimizer states as
+    ``{"step", "mu", "nu"}`` dicts."""
+    out = {}
+    for k, v in state._asdict().items():
+        out[k] = ({n: to_numpy(x) for n, x in v._asdict().items()}
+                  if isinstance(v, OptState) else to_numpy(v))
+    return out
+
+
+def replay_from_numpy(replay, device) -> ReplayState:
+    f = _fields(replay, ReplayState._fields)
+    return ReplayState(data=to_tensors(f["data"], device),
+                       ptr=to_tensors(f["ptr"], device),
+                       size=to_tensors(f["size"], device))
+
+
+def replay_to_numpy(replay: ReplayState) -> Dict[str, Any]:
+    return {"data": to_numpy(replay.data), "ptr": to_numpy(replay.ptr),
+            "size": to_numpy(replay.size)}
+

@@ -1,0 +1,73 @@
+#!/usr/bin/env python3
+"""Where the port's megastep spends its time on the card.
+
+    python3 tools/profile_megastep.py
+
+Builds ``SpreezeTrainer`` at the reference's full widths (the
+configuration ``chip_smoke.py`` trains), warms it up, then runs two
+megasteps under ``torch.profiler`` and prints one JSON
+line: host wall time per megastep, device busy time (the summed
+duration of every device op; one stream, so they do not overlap), the
+device's idle share of the wall, device ops (kernels, copies, fills) per
+megastep, and the ops that take the most device time. Needs a CUDA
+device.
+"""
+import collections
+import json
+import os
+import subprocess
+import sys
+import time
+
+MEGASTEPS = 2
+
+
+def main():
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        sys.exit("profile_megastep: no CUDA device is available")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src"))
+    from repro_torch.core import SpreezeConfig, SpreezeTrainer
+    from repro_torch.rl import AlgoHP
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    tr = SpreezeTrainer(SpreezeConfig(hp=AlgoHP(hidden=(256, 256))))
+    tr._warmup()
+    for _ in range(2):
+        tr.megastep()
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(MEGASTEPS):
+            tr.megastep()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / MEGASTEPS
+
+    per_op = collections.Counter()
+    launches = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_op[e.name] += e.time_range.elapsed_us()
+            launches += 1
+    n = MEGASTEPS
+    busy_ms = sum(per_op.values()) / 1e3 / n
+    print(json.dumps({
+        "card": card, "megasteps": n,
+        "wall_ms_per_megastep": wall_ms,
+        "device_busy_ms_per_megastep": busy_ms,
+        "device_idle_share": 1 - busy_ms / wall_ms,
+        "device_ops_per_megastep": launches / n,
+        "top_device_ops_ms_per_megastep": {
+            k: v / 1e3 / n for k, v in per_op.most_common(12)}}))
+
+if __name__ == "__main__":
+    main()
