@@ -9,17 +9,21 @@ and prints no result line):
   1. the card's name and power limit, and the float32 matmul settings;
   2. build the Hopper kernels from ``src/repro_torch/kernels/csrc`` (timed);
   3. hold each kernel against its plain PyTorch version on the card at
-     the training path's shapes (max abs error must be 0: both copy), then
-     time kernel, plain version and the library call with CUDA events;
+     the training path's shapes (max abs error must be 0: the ring ops and
+     the scatter copy, the top-k selects), then time kernel, plain
+     version and the library call with CUDA events;
   4. port on the card against port on the CPU, same start state and same
-     draws, small sizes: every replay row, counter and parameter agrees;
+     draws, small sizes, uniform and prioritized replay: every replay
+     row, priority, counter and parameter agrees;
   5. drive ``SpreezeTrainer.train`` at the reference's full widths
      (hidden 256x256, batch 8192, capacity 262144, 16 envs x 32 steps,
-     4 updates a round, 4 rounds a megastep), with the launch counters
-     reset just before and read just after: each kernel must have been
-     launched exactly as often as the path implies;
+     4 updates a round, 4 rounds a megastep), once with uniform replay and
+     once with prioritized replay (alpha 0.6, beta 0.4), with the launch
+     counters reset just before each run and read just after: each kernel
+     must have been launched exactly as often as the path implies;
   6. time the layers of one round at full width (sampler chunk, ring
-     write, SAC update) with CUDA synchronisation around each.
+     write, SAC update) with CUDA synchronisation around each, for both
+     paths, and the parts of one PER update.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -33,6 +37,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FIELD_WIDTHS = {"obs": 3, "act": 1, "rew": 1, "next_obs": 3, "done": 1,
                 "disc": 1}          # the six replay fields, Pendulum
 CAPACITY, ROUND_ROWS, BATCH = 262_144, 16 * 32, 8192
+ALPHA = 0.6                          # SpreezeConfig.per_alpha
 
 
 def require(cond, msg):
@@ -177,6 +182,128 @@ def time_ring_gather(rops, dev):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
+def _per_pool(dev, g, rows, live, ties=()):
+    """A priority window with ``live`` written rows and a Gumbel field;
+    rows in ``ties`` share one priority and one Gumbel value among the
+    best scores."""
+    import torch
+    pri = torch.zeros(rows, device=dev)
+    pri[:live] = torch.rand(live, generator=g, device=dev) * 5 + 1e-3
+    u = torch.rand(rows, generator=g, device=dev).clamp_(min=1e-12)
+    gumbel = -torch.log(-torch.log(u))
+    if ties:
+        t = torch.tensor(ties, device=dev)
+        pri[t], gumbel[t] = 4.0, 30.0
+    return pri, gumbel
+
+
+def check_per_topk(rops, dev):
+    """Kernel vs plain version at the training path's shapes (rows
+    262144, k 8192): a full pool, fewer live rows than k, crafted ties
+    across tiles, and a window. Returns the max abs error over the finite
+    scores and all indices."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst = 0.0
+    ties = (7, 4095, 4096, 100_000, CAPACITY - 1)
+    for rows, live, lo, tie in ((CAPACITY, CAPACITY, None, ()),
+                                (CAPACITY, 5000, None, ()),
+                                (CAPACITY, CAPACITY, None, ties),
+                                (65_536, 65_536, 131_072, ())):
+        pri, gumbel = _per_pool(dev, g, rows, live, tie)
+        kw = {} if lo is None else {
+            "window_start": torch.tensor(lo, dtype=torch.int32,
+                                         device=dev)}
+        (gs, gi) = rops.per_topk(pri, gumbel, ALPHA, BATCH, **kw)
+        (ws, wi) = rops.per_topk_ref(pri, gumbel, ALPHA, BATCH, **kw)
+        fin = torch.isfinite(ws)
+        require(torch.equal(fin, torch.isfinite(gs)), "per_topk -inf slots")
+        require(bool(fin.sum() == min(live, BATCH)), "per_topk live count")
+        if tie:
+            require(gi[:len(tie)].tolist() == list(tie),
+                    "per_topk ties out of index order")
+        if live < BATCH:
+            require(bool((gi[live:] == rops.IDX_SENTINEL).all()),
+                    "per_topk -inf slots lack the sentinel")
+        worst = max(worst, float((gs[fin] - ws[fin]).abs().max()),
+                    float((gi.long() - wi.long()).abs().max()))
+    return worst
+
+
+def check_priority_scatter(rops, dev):
+    """Kernel vs plain version: a batch of draws with repeated indices
+    (the last write must win) and out-of-window ones, on the whole pool
+    and on a window."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(6)
+    worst = 0.0
+    for rows, lo in ((CAPACITY, 0), (65_536, 131_072)):
+        pri = torch.rand(rows, generator=g, device=dev)
+        idx = torch.cat([
+            torch.randint(lo, lo + rows, (BATCH // 2,), generator=g,
+                          device=dev),
+            torch.randint(lo, lo + 64, (BATCH // 2 - 8,), generator=g,
+                          device=dev),           # many repeats
+            torch.tensor([lo - 1, lo + rows, -1, 2**31 - 1, lo + 3,
+                          lo + 3, lo + 3, lo + 3], device=dev),
+        ]).to(torch.int32)
+        vals = torch.rand(BATCH, generator=g, device=dev) * 9
+        kw = {"window_start": torch.tensor(lo, dtype=torch.int32,
+                                           device=dev)}
+        got = rops.priority_scatter(pri.clone(), idx, vals, **kw)
+        want = rops.priority_scatter_ref(pri.clone(), idx, vals, **kw)
+        require(float(got[3]) == float(vals[-1]), "last write did not win")
+        worst = max(worst, float((got - want).abs().max()))
+    return worst
+
+
+def time_per_topk(rops, dev):
+    """Times one PER draw's selection: rows 262144 (a full pool), k 8192.
+    The library call is the score ops plus ``torch.topk(sorted=True)``."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(7)
+    pri, gumbel = _per_pool(dev, g, CAPACITY, CAPACITY)
+
+    def library():
+        s = torch.where(pri > 0.0,
+                        ALPHA * torch.log(torch.clamp(pri, min=1e-12)),
+                        float("-inf")) + gumbel
+        torch.topk(s, BATCH, sorted=True)
+
+    # both vectors read once, k scores and k indices written once
+    moved = 2 * CAPACITY * 4 + BATCH * 8
+    return {"ms": event_ms(lambda: rops.per_topk(pri, gumbel, ALPHA, BATCH)),
+            "plain_ms": event_ms(
+                lambda: rops.per_topk_ref(pri, gumbel, ALPHA, BATCH)),
+            "library_ms": event_ms(library),
+            "library": "score ops + torch.topk(sorted=True)",
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def time_priority_scatter(rops, dev):
+    """Times one update's re-prioritisation: k 8192 distinct drawn rows
+    (a full pool has no repeats) into the 262144-row priority vector. The
+    library call is ``index_put_``, for timing only (its winner on a
+    repeated index is unspecified)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(8)
+    pri = torch.rand(CAPACITY, generator=g, device=dev)
+    idx = torch.randperm(CAPACITY, generator=g, device=dev)[:BATCH].to(
+        torch.int32)
+    idx_long = idx.long()
+    vals = torch.rand(BATCH, generator=g, device=dev)
+    distinct = int(torch.unique(idx).numel())
+    # indices and values read once, each distinct row written once
+    moved = BATCH * 8 + distinct * 4
+    return {"ms": event_ms(lambda: rops.priority_scatter(pri, idx, vals)),
+            "plain_ms": event_ms(
+                lambda: rops.priority_scatter_ref(pri, idx, vals)),
+            "library_ms": event_ms(
+                lambda: pri.index_put_((idx_long,), vals)),
+            "library": "index_put_",
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
 class HostDraws:
     """Draws made on the CPU from a seed and then moved to ``device``, so
     two trainers on different devices consume the same numbers."""
@@ -204,15 +331,25 @@ class HostDraws:
         return (self._to(raw) % torch.clamp(replay.size, min=1),
                 eps[0], eps[1])
 
+    def per_update(self, capacity, batch_size, act_dim):
+        import torch
+        u = torch.rand((capacity,), generator=self.gen).clamp_(min=1e-12)
+        eps = self._to(torch.randn((2, batch_size, act_dim),
+                                   generator=self.gen))
+        return self._to(-torch.log(-torch.log(u))), eps[0], eps[1]
+
     def eval_reset(self, n):
         return {k: self._to(v)
                 for k, v in self.env.reset_draws(n, self.gen).items()}
 
 
-def check_device_vs_cpu(dev):
+def check_device_vs_cpu(dev, prioritized=False):
     """The port's megastep on the card (kernels) against the port on the
     CPU (plain versions) from one start state with the same draws. The
-    CPU side is the one the test suite holds against the JAX package."""
+    CPU side is the one the test suite holds against the JAX package.
+    Under PER the batch (100) exceeds the 96 rows written before the
+    first update, so the first round's updates cycle their draws and
+    re-prioritise repeated rows."""
     import numpy as np
     from repro_torch import interop
     from repro_torch._tree import tree_leaves
@@ -223,9 +360,11 @@ def check_device_vs_cpu(dev):
     def cfg(device):
         # capacity 100 is not a multiple of the 32 rows a round writes:
         # writes wrap mid-batch, and sampling runs past the alignment
-        return SpreezeConfig(num_envs=4, chunk_len=8, batch_size=256,
+        return SpreezeConfig(num_envs=4, chunk_len=8,
+                             batch_size=100 if prioritized else 256,
                              replay_capacity=100, warmup_frames=64,
                              updates_per_round=2, rounds_per_dispatch=2,
+                             prioritized=prioritized,
                              hp=AlgoHP(hidden=(64, 64)), seed=5,
                              device=device)
 
@@ -244,8 +383,16 @@ def check_device_vs_cpu(dev):
     # float32 on both devices; cuBLAS and the CPU BLAS sum in different
     # orders, and 12 Adam steps carry that rounding into the parameters
     rtol, atol = 1e-3, 1e-4
-    want = interop.replay_to_numpy(cpu.replay)
-    got = interop.replay_to_numpy(gpu.replay)
+    if prioritized:
+        want = interop.prioritized_to_numpy(cpu.replay)
+        got = interop.prioritized_to_numpy(gpu.replay)
+        for k in ("priorities", "max_priority"):
+            np.testing.assert_allclose(got[k], want[k], rtol, atol,
+                                       err_msg=k)
+        want, got = want["base"], got["base"]
+    else:
+        want = interop.replay_to_numpy(cpu.replay)
+        got = interop.replay_to_numpy(gpu.replay)
     require(int(got["ptr"]) == int(want["ptr"]) and
             int(got["size"]) == int(want["size"]), "ring counters differ")
     worst = 0.0
@@ -265,8 +412,11 @@ def check_device_vs_cpu(dev):
     return worst, rtol, atol
 
 
-def run_main_path(rops, dev, megasteps=24):
-    """SpreezeTrainer.train at full width; counters reset just before."""
+def run_main_path(rops, dev, megasteps, prioritized=False):
+    """SpreezeTrainer.train at full width; counters reset just before.
+    Per warmup chunk or round: one ring write per field, plus one for
+    the priorities under PER; per update: one gather per field, plus the
+    priority mass, one top-k and one scatter under PER."""
     import math
     import torch
     from repro_torch._tree import tree_leaves
@@ -277,9 +427,11 @@ def run_main_path(rops, dev, megasteps=24):
                         replay_capacity=CAPACITY, warmup_frames=2048,
                         chunk_len=32, updates_per_round=4,
                         rounds_per_dispatch=4, eval_every_rounds=16,
-                        eval_episodes=4, seed=0,
+                        eval_episodes=4, seed=0, prioritized=prioritized,
+                        per_alpha=ALPHA, per_beta=0.4,
                         hp=AlgoHP(hidden=(256, 256)), device="cuda")
     tr = SpreezeTrainer(cfg)
+    ring = tr.replay.base if prioritized else tr.replay
     per_round = cfg.num_envs * cfg.chunk_len
     warm_chunks = -(-cfg.warmup_frames // per_round)
     rounds = megasteps * cfg.rounds_per_dispatch
@@ -287,17 +439,27 @@ def run_main_path(rops, dev, megasteps=24):
     hist = tr.train(max_seconds=600.0,
                     max_frames=warm_chunks * per_round + rounds * per_round)
     launches = dict(rops.LAUNCH_COUNTS)
-    fields = len(tr.replay.data)
-    expect = {"ring_write": fields * (warm_chunks + rounds),
-              "ring_gather": fields * rounds * cfg.updates_per_round}
+    per_row = len(ring.data) + (1 if prioritized else 0)
+    updates = rounds * cfg.updates_per_round
+    expect = {"ring_write": per_row * (warm_chunks + rounds),
+              "ring_gather": per_row * updates}
+    if prioritized:
+        expect.update(per_topk=updates, priority_scatter=updates)
     require(tr.total_updates == rounds * cfg.updates_per_round,
             f"ran {tr.total_updates} updates, wanted "
             f"{rounds * cfg.updates_per_round}")
     require(launches == expect,
             f"kernel launches {launches} != expected {expect}")
     frames = tr.total_frames
-    require(int(tr.replay.size) == min(frames, CAPACITY) and
-            int(tr.replay.ptr) == frames % CAPACITY, "ring counters wrong")
+    require(int(ring.size) == min(frames, CAPACITY) and
+            int(ring.ptr) == frames % CAPACITY, "ring counters wrong")
+    if prioritized:
+        written = tr.replay.priorities[:int(ring.size)]
+        require(bool(torch.isfinite(written).all() & (written > 0).all()),
+                "a written row's priority is not finite and > 0")
+        require(not tr.replay.priorities[int(ring.size):].any(),
+                "an unwritten row has a priority")
+        require(float(tr.replay.max_priority) >= 1.0, "max_priority < 1")
     for name in ("actor", "q", "q_target"):
         for leaf in tree_leaves(getattr(tr.state, name)):
             require(bool(torch.isfinite(leaf).all()), f"{name} not finite")
@@ -340,6 +502,40 @@ def time_layers(tr):
     return out
 
 
+def time_per_update_parts(tr):
+    """Host wall time of the four parts of one full-width PER update,
+    each with the device synchronised around it: the draws (Gumbel field
+    over the pool + action noise), the sample (top-k, cycling, 7
+    gathers, importance weights), the weighted SAC step, and the
+    re-prioritisation."""
+    import torch
+    from repro_torch.replay import prioritized as per
+    cfg = tr.cfg
+    act_dim = tr.env.spec.act_dim
+
+    def timed(fn, reps=8):
+        out = fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) / reps * 1e3
+
+    (gumbel, e1, e2), draws_ms = timed(lambda: tr.draws.per_update(
+        cfg.replay_capacity, cfg.batch_size, act_dim))
+    (batch, idx, w), sample_ms = timed(lambda: per.sample(
+        tr.replay, gumbel, cfg.batch_size, alpha=cfg.per_alpha,
+        beta=cfg.per_beta))
+    batch["weight"] = w
+    (_, metrics), update_ms = timed(lambda: tr._update(tr.state, batch, e1,
+                                                       e2))
+    _, scatter_ms = timed(lambda: per.update_priorities(
+        tr.replay, idx, metrics["td_abs"]))
+    return {"per_draws_ms": draws_ms, "per_sample_ms": sample_ms,
+            "sac_update_ms": update_ms, "reprioritise_ms": scatter_ms}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -364,40 +560,62 @@ def main():
           f"({_build.BUILD_DIR})", flush=True)
 
     errs = {"ring_write": check_ring_write(rops, dev),
-            "ring_gather": check_ring_gather(rops, dev)}
+            "ring_gather": check_ring_gather(rops, dev),
+            "per_topk": check_per_topk(rops, dev),
+            "priority_scatter": check_priority_scatter(rops, dev)}
     for name, err in errs.items():
         require(err == 0.0, f"{name} differs from its plain version: {err}")
     timing = {"ring_write": time_ring_write(rops, dev),
-              "ring_gather": time_ring_gather(rops, dev)}
+              "ring_gather": time_ring_gather(rops, dev),
+              "per_topk": time_per_topk(rops, dev),
+              "priority_scatter": time_priority_scatter(rops, dev)}
     for name in errs:
-        print(f"{name}: max_abs_err {errs[name]} "
-              + " ".join(f"{k} {v:.5f}" for k, v in timing[name].items()),
+        print(f"{name}: max_abs_err {errs[name]} " + " ".join(
+            f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in timing[name].items()), flush=True)
+
+    for prioritized, label in ((False, "uniform"), (True, "PER")):
+        worst, rtol, atol = check_device_vs_cpu(dev, prioritized)
+        print(f"port on cuda vs port on cpu ({label}, 3 megasteps, small):"
+              f" params max abs diff {worst:.3g} within rtol {rtol} atol "
+              f"{atol}", flush=True)
+
+    # each main path with its own counts: zeroed just before, read after
+    launches = {}
+    for prioritized, megasteps in ((False, 12), (True, 24)):
+        label = "PER" if prioritized else "uniform"
+        tr, hist, counts = run_main_path(rops, dev, megasteps, prioritized)
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+        rates = {"replay": label, "megasteps": megasteps,
+                 "sampling_hz": hist.sampling_hz,
+                 "update_hz": hist.update_hz,
+                 "update_frame_hz": hist.update_frame_hz,
+                 "wall_s": hist.wall_s, "eval_returns": hist.eval_returns,
+                 "eval_blocked_s": hist.eval_blocked_s,
+                 "launches": counts, "card": card}
+        print(f"main path ({label}): " + json.dumps(rates), flush=True)
+        layers = time_layers(tr)
+        if prioritized:
+            layers.update(time_per_update_parts(tr))
+        print(f"layers ({label}): " + json.dumps({**layers, "card": card}),
               flush=True)
+        del tr
+        torch.cuda.empty_cache()
 
-    worst, rtol, atol = check_device_vs_cpu(dev)
-    print(f"port on cuda vs port on cpu (3 megasteps, small): params max "
-          f"abs diff {worst:.3g} within rtol {rtol} atol {atol}", flush=True)
-
-    tr, hist, launches = run_main_path(rops, dev)
-    rates = {"sampling_hz": hist.sampling_hz, "update_hz": hist.update_hz,
-             "update_frame_hz": hist.update_frame_hz,
-             "wall_s": hist.wall_s, "eval_returns": hist.eval_returns,
-             "eval_blocked_s": hist.eval_blocked_s,
-             "launches": launches, "card": card}
-    print("main path: " + json.dumps(rates), flush=True)
-    print("layers: " + json.dumps({**time_layers(tr), "card": card}),
-          flush=True)
-
-    sources = {"ring_write": "src/repro/kernels/replay_ops.py:188",
-               "ring_gather": "src/repro/kernels/replay_ops.py:302"}
+    sources = {"ring_write": ("ring_ops.cu", "replay_ops.py:188"),
+               "ring_gather": ("ring_ops.cu", "replay_ops.py:302"),
+               "per_topk": ("per_ops.cu", "replay_ops.py:496"),
+               "priority_scatter": ("per_ops.cu", "replay_ops.py:553")}
     kernels = [{"name": name, "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/ring_ops.cu",
-                "replaces": sources[name], "launches": launches[name],
+                "source": "src/repro_torch/kernels/csrc/" + src,
+                "replaces": "src/repro/kernels/" + tpu,
+                "launches": launches[name],
                 "max_abs_err": errs[name], "ms": timing[name]["ms"],
                 "plain_ms": timing[name]["plain_ms"],
                 "bound_ms": timing[name]["bound_ms"], "bound_by": "bytes",
                 "library_ms": timing[name]["library_ms"]}
-               for name in ("ring_write", "ring_gather")]
+               for name, (src, tpu) in sources.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

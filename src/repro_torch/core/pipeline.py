@@ -1,21 +1,26 @@
 """The Spreeze trainer: sampler chunk -> ring write -> K updates, fused
-into megasteps of R rounds. Counterpart of the single-device, uniform
-replay path of ``repro/core/pipeline.py``.
+into megasteps of R rounds. Counterpart of the single-device path of
+``repro/core/pipeline.py``, with uniform or prioritized replay.
 
 One round steps ``num_envs`` pendulums for ``chunk_len`` steps under the
 SAC actor, applies the n-step transform, writes the rows into the
 device-resident replay ring (the ``ring_write`` kernel, one launch per
 field) and runs ``updates_per_round`` SAC updates, each on a batch that
-the ``ring_gather`` kernel reads (one launch per field). ``megastep``
-runs ``rounds_per_dispatch`` rounds in one call. It runs eagerly: the
+the ``ring_gather`` kernel reads (one launch per field). With
+``prioritized=True`` the write also tags the new rows with the max
+priority (one more ``ring_write``), and each update draws its batch with
+the ``per_topk`` kernel, gathers the drawn rows' priority mass (one more
+``ring_gather``), weighs the critic loss by importance and writes the
+new priorities back with ``priority_scatter``. ``megastep`` runs
+``rounds_per_dispatch`` rounds in one call. It runs eagerly: the
 state, the ring and the optimizer moments are updated in place (the
 analogue of the JAX megastep's buffer donation), and nothing in a
 megastep reads a tensor back to the host.
 
 Randomness comes from a draw source (``Draws`` by default: Philox
 generators on the trainer's device). A caller may pass another with the
-same three methods, for example one that replays another
-implementation's draws.
+same methods, for example one that replays another implementation's
+draws.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from repro_torch import resolve_device
 from repro_torch.core.transfer import SharedTransfer
 from repro_torch.envs import base as env_base
 from repro_torch.replay import buffer as rb
+from repro_torch.replay import prioritized as per
 from repro_torch.replay.nstep import nstep_chunk
 from repro_torch.rl.base import AlgoHP, get_algo
 
@@ -47,6 +53,9 @@ class SpreezeConfig:
     chunk_len: int = 32           # env steps per sampler chunk
     updates_per_round: int = 4    # SAC updates per round
     rounds_per_dispatch: int = 4  # rounds fused into one megastep
+    prioritized: bool = False     # APE-X-style PER on the shared pool
+    per_alpha: float = 0.6
+    per_beta: float = 0.4
     nstep: int = 1                # n-step returns (APE-X uses 3)
     eval_every_rounds: int = 50   # 0 = off
     eval_episodes: int = 4
@@ -124,6 +133,17 @@ class Draws:
                           device=self.gen.device)
         return idx, eps[0], eps[1]
 
+    def per_update(self, capacity: int, batch_size: int, act_dim: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One PER update's draws: the Gumbel field (capacity,) over the
+        pool's slots, ``-log(-log(u))`` for u uniform on [1e-12, 1), and
+        the two standard-normal action noises."""
+        u = torch.rand((capacity,), generator=self.gen,
+                       device=self.gen.device).clamp_(min=1e-12)
+        eps = torch.randn((2, batch_size, act_dim), generator=self.gen,
+                          device=self.gen.device)
+        return -torch.log(-torch.log(u)), eps[0], eps[1]
+
     def eval_reset(self, n: int) -> Dict[str, torch.Tensor]:
         return self.env.reset_draws(n, self.eval_gen)
 
@@ -142,7 +162,6 @@ class SpreezeTrainer:
         spec = self.env.spec
         self.algo = get_algo(cfg.algo)
         self.hp = cfg.hp
-        self.transfer = SharedTransfer()
         init_seed, train_seed, eval_seed = (
             int(s) for s in np.random.SeedSequence(cfg.seed).generate_state(3))
         gen = torch.Generator(device=self.device).manual_seed(init_seed)
@@ -150,9 +169,15 @@ class SpreezeTrainer:
             self.env, train_seed, eval_seed, self.device)
         self.state = self.algo.init_state(gen, spec.obs_dim, spec.act_dim,
                                           self.hp, self.device)
-        self.replay = rb.init_replay(
-            cfg.replay_capacity, rb.trainer_specs(spec.obs_dim, spec.act_dim),
-            self.device)
+        specs = rb.trainer_specs(spec.obs_dim, spec.act_dim)
+        if cfg.prioritized:
+            self.replay = per.init_prioritized(cfg.replay_capacity, specs,
+                                               self.device)
+            self.transfer = SharedTransfer(add_fn=per.add_batch)
+        else:
+            self.replay = rb.init_replay(cfg.replay_capacity, specs,
+                                         self.device)
+            self.transfer = SharedTransfer()
         self.env_states = self.env.reset_batch(cfg.num_envs, gen)
         self._act = self.algo.make_act(self.hp)
         self._act_det = self.algo.make_act(self.hp, deterministic=True)
@@ -191,14 +216,27 @@ class SpreezeTrainer:
 
     def update_round(self, state, replay):
         """K SAC updates on freshly sampled batches; returns (state, mean
-        critic loss)."""
+        critic loss). Under PER each update samples, takes the weighted
+        step and re-prioritises the drawn rows in ``replay``, in place."""
         cfg = self.cfg
+        act_dim = self.env.spec.act_dim
         losses = []
         for _ in range(cfg.updates_per_round):
-            idx, eps_next, eps_actor = self.draws.update(
-                replay, cfg.batch_size, self.env.spec.act_dim)
-            state, metrics = self._update(state, rb.sample(replay, idx),
-                                          eps_next, eps_actor)
+            if cfg.prioritized:
+                gumbel, eps_next, eps_actor = self.draws.per_update(
+                    cfg.replay_capacity, cfg.batch_size, act_dim)
+                batch, idx, w = per.sample(replay, gumbel, cfg.batch_size,
+                                           alpha=cfg.per_alpha,
+                                           beta=cfg.per_beta)
+                batch["weight"] = w
+                state, metrics = self._update(state, batch, eps_next,
+                                              eps_actor)
+                per.update_priorities(replay, idx, metrics["td_abs"])
+            else:
+                idx, eps_next, eps_actor = self.draws.update(
+                    replay, cfg.batch_size, act_dim)
+                state, metrics = self._update(state, rb.sample(replay, idx),
+                                              eps_next, eps_actor)
             losses.append(metrics["critic_loss"])
         return state, torch.stack(losses).mean()
 

@@ -11,19 +11,21 @@ from repro_torch.replay import buffer as rb
 
 
 class SharedTransfer:
-    """Direct device-side write into the replay ring (no host copies)."""
+    """Direct device-side write into the replay ring (no host copies).
+
+    ``add_fn`` defaults to the uniform ring write; the prioritized pool
+    passes its own (max-priority-tagging) writer."""
 
     name = "shared"
 
-    def __init__(self):
+    def __init__(self, add_fn=None):
         self.write_time = 0.0    # stays 0: writes are launched async
+        self._add = add_fn or rb.add_batch
 
-    def push(self, replay: rb.ReplayState, exp: Dict[str, torch.Tensor]
-             ) -> rb.ReplayState:
-        return rb.add_batch(replay, exp)
+    def push(self, replay, exp: Dict[str, torch.Tensor]):
+        return self._add(replay, exp)
 
-    def flush(self, replay: rb.ReplayState, force: bool = False
-              ) -> rb.ReplayState:
+    def flush(self, replay, force: bool = False):
         return replay
 
     def stats(self) -> Dict[str, float]:

@@ -1,13 +1,14 @@
 """Carrying state between the JAX package and the port, through numpy.
 
-The JAX package's ``AlgoState``, ``ReplayState`` and env states arrive
-as nested dicts and tuples (NamedTuples included) of numpy arrays, for
-example ``jax.tree.map(np.asarray, state)``; this module turns them into
-the port's tensors and back (env states, plain dicts of arrays, go
-through ``to_tensors`` / ``to_numpy`` as they are). The port keeps the
-JAX weight layout (``(in, out)`` matrices, the ensemble stacked on a
-leading axis), so every leaf maps one to one and no transpose is needed. Leaves keep their
-dtype, so a round trip is bitwise. This module imports neither JAX nor
+The JAX package's ``AlgoState``, ``ReplayState``, ``PrioritizedState``
+and env states arrive as nested dicts and tuples (NamedTuples included)
+of numpy arrays, for example ``jax.tree.map(np.asarray, state)``; this
+module turns them into the port's tensors and back (env states, plain
+dicts of arrays, go through ``to_tensors`` / ``to_numpy`` as they are).
+The port keeps the JAX weight layout (``(in, out)`` matrices, the
+ensemble stacked on a leading axis), so every leaf maps one to one and
+no transpose is needed. Leaves keep their dtype, so a round trip is
+bitwise. This module imports neither JAX nor
 the JAX package: it only relies on the field order both sides share.
 """
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.replay.buffer import ReplayState
+from repro_torch.replay.prioritized import PrioritizedState
 from repro_torch.rl.base import AlgoState
 from repro_torch.train.optimizer import OptState
 
@@ -86,3 +88,17 @@ def replay_to_numpy(replay: ReplayState) -> Dict[str, Any]:
     return {"data": to_numpy(replay.data), "ptr": to_numpy(replay.ptr),
             "size": to_numpy(replay.size)}
 
+
+def prioritized_from_numpy(state, device) -> PrioritizedState:
+    f = _fields(state, PrioritizedState._fields)
+    return PrioritizedState(base=replay_from_numpy(f["base"], device),
+                            priorities=to_tensors(f["priorities"], device),
+                            max_priority=to_tensors(f["max_priority"],
+                                                    device))
+
+
+def prioritized_to_numpy(state: PrioritizedState) -> Dict[str, Any]:
+    """-> ``{"base": replay dict, "priorities", "max_priority"}``."""
+    return {"base": replay_to_numpy(state.base),
+            "priorities": to_numpy(state.priorities),
+            "max_priority": to_numpy(state.max_priority)}

@@ -6,12 +6,12 @@ how the hand-written Hopper kernels get compiled and loaded. Nothing is
 built at import, so the CPU tests import every module without ``nvcc``.
 
 ``torch.utils.cpp_extension.load`` compiles ``binding.cpp`` (the only
-source with PyTorch headers, and only ``torch/library.h``) and
-``ring_ops.cu`` for ``sm_90a`` into ``build/repro_torch_kernels/`` at the
-repository root, and loads the library, which registers
-``torch.ops.repro_torch.*``. A second call in the same process reuses
-the loaded library; a second process reuses the build if the sources are
-unchanged.
+source with PyTorch headers, and only ``torch/library.h``),
+``ring_ops.cu`` and ``per_ops.cu`` for ``sm_90a`` into
+``build/repro_torch_kernels/`` at the repository root, and loads the
+library, which registers ``torch.ops.repro_torch.*``. A second call in
+the same process reuses the loaded library; a second process reuses the
+build if the sources are unchanged.
 """
 import functools
 import os
@@ -19,7 +19,7 @@ import os
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 REPO_ROOT = os.path.abspath(os.path.join(CSRC, *[os.pardir] * 4))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "repro_torch_kernels")
-SOURCES = ("binding.cpp", "ring_ops.cu")
+SOURCES = ("binding.cpp", "ring_ops.cu", "per_ops.cu")
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 
 

@@ -1,11 +1,12 @@
-"""Replay-ring kernels: the ring write and the uniform gather.
+"""Replay kernels: the ring write, the uniform gather, the fused PER
+score + top-k selection and the priority scatter.
 
 Counterpart of ``repro/kernels/replay_ops.py``'s ``ring_write`` /
-``ring_gather`` and their ``*_ref`` oracles. The kernels are CUDA C++
-for Hopper (``csrc/ring_ops.cu``), built at first use by
-``kernels._build``; ``ring_write`` / ``ring_gather`` here launch them and
-only them: a tensor that is not on a CUDA device is refused. The plain
-PyTorch versions ``ring_write_ref`` / ``ring_gather_ref`` sit beside
+``ring_gather`` / ``per_topk`` / ``priority_scatter`` and their ``*_ref``
+oracles. The kernels are CUDA C++ for Hopper (``csrc/ring_ops.cu``,
+``csrc/per_ops.cu``), built at first use by ``kernels._build``; the
+wrappers here launch them and only them: a tensor that is not on a CUDA
+device is refused. The plain PyTorch versions (``*_ref``) sit beside
 them with the same semantics (``kernels.ops`` picks between the two by
 the operand's device).
 
@@ -154,3 +155,146 @@ def ring_gather_ref(data: torch.Tensor, idx: torch.Tensor, *,
     mask = inside.reshape((-1,) + (1,) * (data.dim() - 1))
     return torch.where(mask, rows, torch.zeros((), dtype=data.dtype,
                                                device=data.device))
+
+
+# --------------------------------------------------------------------------- #
+# PER: fused Gumbel score + top-k selection
+# --------------------------------------------------------------------------- #
+
+# Index carried by top-k slots whose score is -inf (fewer live rows in the
+# window than k): it stays out of every live index range, and PER sampling
+# never dereferences such a slot (draws past the live count cycle).
+IDX_SENTINEL = 2**31 - 1
+# keys one block of the CUDA top-k sorts (``csrc/per_ops.h``)
+PER_TOPK_TILE = 4096
+
+
+def per_scores_ref(priorities: torch.Tensor, gumbel: torch.Tensor,
+                   alpha: float) -> torch.Tensor:
+    """Gumbel-top-k scores ``alpha * log(max(p, 1e-12)) + g``, a true
+    ``-inf`` where ``p == 0`` (an unwritten or zeroed row can never be
+    drawn). The product and the sum round separately, as in the kernel."""
+    logp = torch.where(priorities > 0.0,
+                       alpha * torch.log(torch.clamp(priorities, min=1e-12)),
+                       float("-inf"))
+    return logp + gumbel
+
+
+def _check_topk(rows: int, k: int):
+    if not 0 <= k <= rows:
+        raise ValueError(f"per_topk of k={k} from a {rows}-row window")
+    if rows >= IDX_SENTINEL:
+        raise ValueError(f"per_topk needs rows < 2**31 - 1 (int32 row "
+                         f"indices), got {rows}")
+
+
+def per_topk_scratch_keys(rows: int, k: int) -> int:
+    """int64 keys of scratch the CUDA top-k needs: two buffers of
+    ``tiles * min(k, tile)`` keys, the tile count rounded up to a power of
+    two (``per_topk_scratch_keys`` in ``csrc/per_ops.cu``)."""
+    tiles = 1 << max(0, (-(-rows // PER_TOPK_TILE) - 1).bit_length())
+    return 2 * tiles * min(k, PER_TOPK_TILE)
+
+
+def per_topk(priorities: torch.Tensor, gumbel: torch.Tensor, alpha: float,
+             k: int, *, window_start: Window = None):
+    """Fused PER selection with the CUDA kernel: the k best Gumbel scores
+    over the (rows,) priority window.
+
+    Returns ``(scores (k,) f32, global_idx (k,) int32)``, sorted by
+    descending score with the lower row first among equal scores
+    (``jax.lax.top_k``'s order); indices are offset by ``window_start``,
+    and slots scoring ``-inf`` carry ``IDX_SENTINEL``. ``k > rows``
+    raises."""
+    (rows,) = priorities.shape
+    _check_topk(rows, k)
+    _check_cuda_operand(priorities, "priorities", torch.float32)
+    _check_cuda_operand(gumbel, "gumbel", torch.float32)
+    if gumbel.shape != priorities.shape:
+        raise ValueError(f"gumbel {tuple(gumbel.shape)} does not match "
+                         f"priorities {tuple(priorities.shape)}")
+    dev = priorities.device
+    scores = torch.empty((k,), dtype=torch.float32, device=dev)
+    idx = torch.empty((k,), dtype=torch.int32, device=dev)
+    if k == 0:
+        return scores, idx
+    scratch = torch.empty((per_topk_scratch_keys(rows, k),),
+                          dtype=torch.int64, device=dev)
+    load_kernels()
+    torch.ops.repro_torch.per_topk(priorities, gumbel,
+                                   _window_tensor(window_start, dev),
+                                   scratch, scores, idx, float(alpha), k)
+    LAUNCH_COUNTS["per_topk"] += 1
+    return scores, idx
+
+
+def per_topk_ref(priorities: torch.Tensor, gumbel: torch.Tensor,
+                 alpha: float, k: int, *, window_start: Window = None):
+    """Plain PyTorch ``per_topk``: a stable descending sort of the scores
+    (``torch.topk`` leaves the order of ties unspecified), its first k,
+    and ``IDX_SENTINEL`` on the ``-inf`` slots, so kernel and plain
+    version compare bit for bit."""
+    (rows,) = priorities.shape
+    _check_topk(rows, k)
+    v, i = torch.sort(per_scores_ref(priorities, gumbel, alpha),
+                      descending=True, stable=True)
+    v, i = v[:k], i[:k] + _window_long(window_start, priorities.device)
+    idx = torch.where(torch.isneginf(v), IDX_SENTINEL, i)
+    return v, idx.to(torch.int32)
+
+
+# --------------------------------------------------------------------------- #
+# PER: priority scatter
+# --------------------------------------------------------------------------- #
+
+def _check_scatter(priorities, idx, values):
+    for name, x in (("priorities", priorities), ("idx", idx),
+                    ("values", values)):
+        if x.dim() != 1:
+            raise ValueError(f"{name} must be 1-d, got {tuple(x.shape)}")
+    if idx.shape != values.shape:
+        raise ValueError(f"idx {tuple(idx.shape)} and values "
+                         f"{tuple(values.shape)} differ")
+
+
+def priority_scatter(priorities: torch.Tensor, idx: torch.Tensor,
+                     values: torch.Tensor, *,
+                     window_start: Window = None) -> torch.Tensor:
+    """``priorities[idx - window_start] = values`` for the in-window
+    indices, in place, with the CUDA kernel; returns ``priorities``. On a
+    repeated index the last write wins, as in the TPU kernel's sequential
+    loop; out-of-window indices are skipped."""
+    _check_scatter(priorities, idx, values)
+    _check_cuda_operand(priorities, "priorities", torch.float32)
+    _check_cuda_operand(idx, "idx", torch.int32)
+    _check_cuda_operand(values, "values", torch.float32)
+    if idx.shape[0] == 0:
+        return priorities
+    owner = torch.empty(priorities.shape, dtype=torch.int32,
+                        device=priorities.device)
+    load_kernels()
+    torch.ops.repro_torch.priority_scatter(
+        priorities, idx, values,
+        _window_tensor(window_start, priorities.device), owner)
+    LAUNCH_COUNTS["priority_scatter"] += 1
+    return priorities
+
+
+def priority_scatter_ref(priorities: torch.Tensor, idx: torch.Tensor,
+                         values: torch.Tensor, *,
+                         window_start: Window = None) -> torch.Tensor:
+    """Plain PyTorch ``priority_scatter``, in place: the last draw of each
+    in-window row is found with ``scatter_reduce_(..., "amax")`` over the
+    draws' positions, and only those draws write (``index_put_`` with
+    repeated indices leaves the winner unspecified)."""
+    _check_scatter(priorities, idx, values)
+    rows_local, dev = priorities.shape[0], priorities.device
+    local = idx.long() - _window_long(window_start, dev)
+    inside = (local >= 0) & (local < rows_local)
+    dest = torch.where(inside, local, rows_local)     # a spare slot
+    pos = torch.arange(idx.shape[0], device=dev)
+    owner = torch.full((rows_local + 1,), -1, dtype=torch.long, device=dev)
+    owner.scatter_reduce_(0, dest, pos, "amax")
+    wins = inside & (owner[dest] == pos)
+    priorities[local[wins]] = values[wins].to(priorities.dtype)
+    return priorities

@@ -60,7 +60,10 @@ def make_update_step(hp: AlgoHP, obs_dim: int, act_dim: int):
                ) -> Tuple[AlgoState, Dict[str, torch.Tensor]]:
         """One SAC step on ``batch``. ``eps_next`` / ``eps_actor`` are the
         standard-normal draws (B, act_dim) for the next-state action of
-        the critic target and for the actor loss."""
+        the critic target and for the actor loss. An optional
+        ``batch["weight"]`` (B,) weighs each sample's squared TD error in
+        the critic loss (PER importance weights); ``td_abs`` stays
+        unweighted."""
         with torch.no_grad():
             alpha = torch.exp(state.log_alpha)
             next_a, next_logp = nets.sample_action(
@@ -76,7 +79,11 @@ def make_update_step(hp: AlgoHP, obs_dim: int, act_dim: int):
             # ---- critic --------------------------------------------------
             qp = _with_grad(state.q)
             qs = nets.ensemble_q_values(qp, batch["obs"], batch["act"])
-            critic_loss = torch.mean((qs - target) ** 2)
+            se = (qs - target) ** 2
+            w = batch.get("weight")     # PER importance weights (optional)
+            if w is not None:
+                se = se * w
+            critic_loss = torch.mean(se)
             oq.update(_grads(critic_loss, qp), state.opt_q, state.q)
             qs = qs.detach()
             qmean = qs.mean()

@@ -26,14 +26,20 @@ B, OBS, ACT = 64, 3, 1
 RTOL, ATOL = 1e-4, 1e-5
 
 
-def _batch(seed):
+def _batch(seed, weight=False):
+    """A replay batch; with ``weight``, PER importance weights too
+    (normalised to max 1, as ``prioritized.sample`` gives them)."""
     rng = np.random.default_rng(seed)
-    return {"obs": rng.standard_normal((B, OBS)).astype(np.float32),
-            "act": rng.uniform(-1, 1, (B, ACT)).astype(np.float32),
-            "rew": rng.standard_normal(B).astype(np.float32),
-            "next_obs": rng.standard_normal((B, OBS)).astype(np.float32),
-            "done": (rng.random(B) < 0.1).astype(np.float32),
-            "disc": (0.99 * (rng.random(B) > 0.1)).astype(np.float32)}
+    batch = {"obs": rng.standard_normal((B, OBS)).astype(np.float32),
+             "act": rng.uniform(-1, 1, (B, ACT)).astype(np.float32),
+             "rew": rng.standard_normal(B).astype(np.float32),
+             "next_obs": rng.standard_normal((B, OBS)).astype(np.float32),
+             "done": (rng.random(B) < 0.1).astype(np.float32),
+             "disc": (0.99 * (rng.random(B) > 0.1)).astype(np.float32)}
+    if weight:
+        w = rng.uniform(0.05, 1.0, B).astype(np.float32)
+        batch["weight"] = w / w.max()
+    return batch
 
 
 def _jax_update(hp, state, batch, key):
@@ -51,9 +57,21 @@ def _eps(key):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_sac_update_matches_jax(seed):
+    _check_one_update(seed, weight=False)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sac_weighted_update_matches_jax(seed):
+    """PER batches: ``weight`` scales each sample's squared TD error in
+    the critic loss (the same batch as the unweighted case, plus
+    weights)."""
+    _check_one_update(seed, weight=True)
+
+
+def _check_one_update(seed, weight):
     jhp, jstate = jax_sac_state(seed)
     hp = AlgoHP(hidden=jhp.hidden)
-    batch, key = _batch(seed), jax.random.PRNGKey(100 + seed)
+    batch, key = _batch(seed, weight), jax.random.PRNGKey(100 + seed)
     state = interop.algo_state_from_numpy(to_np(jstate), "cpu")
     want_state, want_m = _jax_update(jhp, jstate, batch, key)
 
@@ -79,12 +97,20 @@ def test_sac_two_updates_track_jax():
     target, alpha and Adam moments, so an ordering slip compounds. A
     large tau makes the polyak step visible above the tolerance (at the
     default 0.005 it moves the target by ~1e-6)."""
+    _check_two_updates(weight=False)
+
+
+def test_sac_two_weighted_updates_track_jax():
+    _check_two_updates(weight=True)
+
+
+def _check_two_updates(weight):
     jhp, jstate = jax_sac_state(3, tau=0.5)
     hp = AlgoHP(hidden=jhp.hidden, tau=0.5)
     state = interop.algo_state_from_numpy(to_np(jstate), "cpu")
     update = sac.make_update_step(hp, OBS, ACT)
     for i in range(2):
-        batch, key = _batch(10 + i), jax.random.PRNGKey(20 + i)
+        batch, key = _batch(10 + i, weight), jax.random.PRNGKey(20 + i)
         jstate, want_m = _jax_update(jhp, jstate, batch, key)
         state, got_m = update(state, {k: t(v) for k, v in batch.items()},
                               *_eps(key))
@@ -115,3 +141,21 @@ def test_sample_action_matches_jax():
     np.testing.assert_allclose(
         n(nets.min_q(q, t(obs), a)),
         np.asarray(jnets.min_q(jstate.q, jnp.asarray(obs), ja)), RTOL, ATOL)
+
+
+def test_weighted_critic_loss_is_not_the_unweighted_one():
+    """The weights reach the loss (and only the loss: ``td_abs`` stays
+    the unweighted per-sample |TD|)."""
+    jhp, jstate = jax_sac_state(5)
+    hp = AlgoHP(hidden=jhp.hidden)
+    update = sac.make_update_step(hp, OBS, ACT)
+    batch, key = _batch(5, weight=True), jax.random.PRNGKey(7)
+    out = {}
+    for weighted in (False, True):
+        state = interop.algo_state_from_numpy(to_np(jstate), "cpu")
+        b = {k: t(v) for k, v in batch.items()
+             if weighted or k != "weight"}
+        _, out[weighted] = update(state, b, *_eps(key))
+    assert float(out[True]["critic_loss"]) < float(out[False]["critic_loss"])
+    torch.testing.assert_close(out[True]["td_abs"], out[False]["td_abs"],
+                               rtol=0, atol=0)

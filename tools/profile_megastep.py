@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Where the port's megastep spends its time on the card.
 
-    python3 tools/profile_megastep.py
+    python3 tools/profile_megastep.py [--prioritized]
 
 Builds ``SpreezeTrainer`` at the reference's full widths (the
-configuration ``chip_smoke.py`` trains), warms it up, then runs two
+configuration ``chip_smoke.py`` trains), with uniform replay or, given
+``--prioritized``, prioritized replay, warms it up, then runs two
 megasteps under ``torch.profiler`` and prints one JSON
 line: host wall time per megastep, device busy time (the summed
 duration of every device op; one stream, so they do not overlap), the
 device's idle share of the wall, device ops (kernels, copies, fills) per
-megastep, and the ops that take the most device time. Needs a CUDA
-device.
+megastep, the device time of the port's own kernels, and the ops that
+take the most device time. Needs a CUDA device.
 """
 import collections
 import json
@@ -20,6 +21,10 @@ import sys
 import time
 
 MEGASTEPS = 2
+# the device functions of src/repro_torch/kernels/csrc/*.cu
+PORT_KERNELS = ("ring_write_kernel", "ring_gather_kernel",
+                "score_sort_tile_kernel", "merge_round_kernel",
+                "unpack_kernel", "priority_scatter_kernel")
 
 
 def main():
@@ -38,7 +43,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    tr = SpreezeTrainer(SpreezeConfig(hp=AlgoHP(hidden=(256, 256))))
+    prioritized = "--prioritized" in sys.argv[1:]
+    tr = SpreezeTrainer(SpreezeConfig(hp=AlgoHP(hidden=(256, 256)),
+                                      prioritized=prioritized))
     tr._warmup()
     for _ in range(2):
         tr.megastep()
@@ -60,12 +67,16 @@ def main():
             launches += 1
     n = MEGASTEPS
     busy_ms = sum(per_op.values()) / 1e3 / n
+    port = {k: sum(v for name, v in per_op.items() if k in name) / 1e3 / n
+            for k in PORT_KERNELS}
     print(json.dumps({
         "card": card, "megasteps": n,
+        "replay": "PER" if prioritized else "uniform",
         "wall_ms_per_megastep": wall_ms,
         "device_busy_ms_per_megastep": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms,
         "device_ops_per_megastep": launches / n,
+        "port_kernels_ms_per_megastep": port,
         "top_device_ops_ms_per_megastep": {
             k: v / 1e3 / n for k, v in per_op.most_common(12)}}))
 
