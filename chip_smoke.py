@@ -23,7 +23,25 @@ and prints no result line):
      must have been launched exactly as often as the path implies;
   6. time the layers of one round at full width (sampler chunk, ring
      write, SAC update) with CUDA synchronisation around each, for both
-     paths, and the parts of one PER update.
+     paths, and the parts of one PER update;
+  7. hold the LM model kernels (rmsnorm, flash_attention,
+     decode_attention) against their plain versions on the card at the
+     serving path's shapes, in float32 (max abs error <= 1e-5: the
+     reduction order differs) and bfloat16 (within one bf16 rounding step
+     of the plain result: 2**-7 relative, plus the float32 1e-5), then time
+     kernel, plain version and the library call (``F.rms_norm``,
+     ``F.scaled_dot_product_attention``), timing only;
+  8. serve on the card against serving on the CPU, same parameters and
+     prompts: reduced qwen2-0.5b at float32 compute, prefill plus 8 decode
+     steps: the logits agree within 1e-4 of the largest and the tokens
+     are identical;
+  9. serve full-width qwen2-0.5b (24 layers, d_model 896, vocab 151,936;
+     random weights from seed 0, bf16 compute) through
+     ``repro_torch.serve.engine.greedy_generate``: 8 prompts of 1024
+     tokens, 64 new tokens each, with the launch counters reset just
+     before and read just after: (2 L + 1)(1 + 64) rmsnorms, L flash
+     attentions, 64 L decode attentions; then time the prefill and the
+     decode step.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -34,10 +52,15 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+BF16_FLOP_PER_S = 989e12           # dense tensor-core bf16, same sheet
 FIELD_WIDTHS = {"obs": 3, "act": 1, "rew": 1, "next_obs": 3, "done": 1,
                 "disc": 1}          # the six replay fields, Pendulum
 CAPACITY, ROUND_ROWS, BATCH = 262_144, 16 * 32, 8192
 ALPHA = 0.6                          # SpreezeConfig.per_alpha
+# the serving path: qwen2-0.5b, 8 prompts of 1024 tokens, 64 new tokens
+SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "qwen2-0.5b", 8, 1024, 64
+HEADS, KV_HEADS, HEAD_DIM, D_MODEL = 14, 2, 64, 896
+DECODE_LONG = 32_768                 # the decode_32k cache length
 
 
 def require(cond, msg):
@@ -536,6 +559,281 @@ def time_per_update_parts(tr):
             "sac_update_ms": update_ms, "reprioritise_ms": scatter_ms}
 
 
+def kernel_close(got, want):
+    """The model kernels' tolerance against their plain versions: float32,
+    max abs error <= 1e-5 (the reduction order differs); bfloat16, within
+    one bf16 rounding step of the plain result (2**-7 relative) plus the
+    same 1e-5. Returns the max abs error."""
+    import torch
+    require(got.dtype == want.dtype and got.shape == want.shape,
+            f"kernel output {got.dtype} {tuple(got.shape)} != plain "
+            f"{want.dtype} {tuple(want.shape)}")
+    rtol = 2.0 ** -7 if want.dtype == torch.bfloat16 else 0.0
+    diff = (got.float() - want.float()).abs()
+    bad = diff > 1e-5 + rtol * want.float().abs()
+    require(bool(torch.isfinite(got).all()), "kernel output not finite")
+    require(not bool(bad.any()),
+            f"{int(bad.sum())} elements beyond tolerance, max abs err "
+            f"{float(diff.max())}")
+    return float(diff.max())
+
+
+def model_inputs(dev, seed, dtype, *shapes):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype)
+            for s in shapes]
+
+
+def check_model_kernels(dev):
+    """Each LM kernel against its plain version at the serving path's
+    shapes and around them, bf16 and f32. Returns the max abs error of
+    each kernel over its cases."""
+    import torch
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    worst = {"rmsnorm": 0.0, "flash_attention": 0.0,
+             "decode_attention": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        # the prefill's rows (8 prompts x 1024) and a decode step's (8)
+        for rows in (SERVE_B * SERVE_PROMPT, SERVE_B):
+            x, = model_inputs(dev, rows, dtype, (rows, D_MODEL))
+            w, = model_inputs(dev, 1, torch.float32, (D_MODEL,))
+            worst["rmsnorm"] = max(worst["rmsnorm"], kernel_close(
+                rms.rmsnorm(x, w), rms.rmsnorm_ref(x, w)))
+        # (B, Sq, Sk, window): the prefill; q at the end of a longer k; a
+        # sliding window; a tail that is not a tile multiple
+        for B, Sq, Sk, window in ((SERVE_B, SERVE_PROMPT, SERVE_PROMPT,
+                                   None),
+                                  (2, 200, SERVE_PROMPT, None),
+                                  (2, SERVE_PROMPT, SERVE_PROMPT, 256),
+                                  (2, 1000, 1000, None)):
+            q, k, v = model_inputs(dev, Sq + Sk, dtype,
+                                   (B, Sq, HEADS, HEAD_DIM),
+                                   (B, Sk, KV_HEADS, HEAD_DIM),
+                                   (B, Sk, KV_HEADS, HEAD_DIM))
+            worst["flash_attention"] = max(
+                worst["flash_attention"], kernel_close(
+                    fa.flash_attention(q, k, v, window=window),
+                    fa.attention_ref(q, k, v, window=window)))
+        # the serving cache (1088 slots, partly valid), and decode_32k's
+        for S, valid in ((SERVE_PROMPT + SERVE_GEN, SERVE_PROMPT + 7),
+                         (DECODE_LONG, DECODE_LONG)):
+            q, k, v = model_inputs(dev, S, dtype,
+                                   (SERVE_B, HEADS, HEAD_DIM),
+                                   (SERVE_B, S, KV_HEADS, HEAD_DIM),
+                                   (SERVE_B, S, KV_HEADS, HEAD_DIM))
+            vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+            worst["decode_attention"] = max(
+                worst["decode_attention"], kernel_close(
+                    dec.decode_attention(q, k, v, vl),
+                    dec.decode_attention_ref(q, k, v, vl)))
+    return worst
+
+
+def time_model_kernels(dev):
+    """Kernel, plain version and library call, bf16, at the serving
+    path's shapes: the prefill's 8192 x 896 norm and its causal attention
+    (B 8, 1024 tokens), and one decode step's attention over decode_32k's
+    cache (and over the serving cache, printed beside). Bounds: bytes (each
+    input read once, each output written once) over 3.35 TB/s, FLOPs over
+    the bf16 tensor peak, the larger of the two."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    bf16 = torch.bfloat16
+    out = {}
+
+    def bound(nbytes, flops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    rows = SERVE_B * SERVE_PROMPT
+    x, = model_inputs(dev, 11, bf16, (rows, D_MODEL))
+    w, = model_inputs(dev, 12, torch.float32, (D_MODEL,))
+    w_lib = w.to(bf16)
+    b, by = bound(2 * x.numel() * 2 + D_MODEL * 4, 4 * x.numel())
+    out["rmsnorm"] = {
+        "ms": event_ms(lambda: rms.rmsnorm(x, w)),
+        "plain_ms": event_ms(lambda: rms.rmsnorm_ref(x, w)),
+        "library_ms": event_ms(lambda: F.rms_norm(x, (D_MODEL,), w_lib,
+                                                  1e-6)),
+        "library": "F.rms_norm (bf16 weight)", "bound_ms": b,
+        "bound_by": by, "shape": [rows, D_MODEL]}
+
+    B, S = SERVE_B, SERVE_PROMPT
+    q, k, v = model_inputs(dev, 13, bf16, (B, S, HEADS, HEAD_DIM),
+                           (B, S, KV_HEADS, HEAD_DIM),
+                           (B, S, KV_HEADS, HEAD_DIM))
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    pairs = S * (S + 1) // 2                     # causal (query, key) pairs
+    b, by = bound(2 * q.numel() * 2 + 2 * k.numel() * 2,
+                  4 * B * HEADS * HEAD_DIM * pairs)
+    out["flash_attention"] = {
+        "ms": event_ms(lambda: fa.flash_attention(q, k, v), iters=20,
+                       warmup=3),
+        "plain_ms": event_ms(lambda: fa.attention_ref(q, k, v), iters=20,
+                             warmup=3),
+        "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=20,
+            warmup=3),
+        "library": "F.scaled_dot_product_attention(enable_gqa)",
+        "bound_ms": b, "bound_by": by, "shape": [B, S, HEADS, HEAD_DIM]}
+
+    for S, key in ((DECODE_LONG, "decode_attention"),
+                   (SERVE_PROMPT + SERVE_GEN, "decode_attention_serving")):
+        q, k, v = model_inputs(dev, 14, bf16, (B, HEADS, HEAD_DIM),
+                               (B, S, KV_HEADS, HEAD_DIM),
+                               (B, S, KV_HEADS, HEAD_DIM))
+        vl = torch.tensor(S, dtype=torch.int32, device=dev)
+        q4 = q[:, :, None]
+        kt, vt = (a.transpose(1, 2).contiguous() for a in (k, v))
+        b, by = bound(2 * k.numel() * 2 + 2 * q.numel() * 2 + 4,
+                      4 * B * HEADS * HEAD_DIM * S)
+        out[key] = {
+            "ms": event_ms(lambda: dec.decode_attention(q, k, v, vl)),
+            "plain_ms": event_ms(lambda: dec.decode_attention_ref(q, k, v,
+                                                                  vl)),
+            "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
+                q4, kt, vt, enable_gqa=True)),
+            "library": "F.scaled_dot_product_attention(enable_gqa)",
+            "bound_ms": b, "bound_by": by,
+            "shape": [B, S, KV_HEADS, HEAD_DIM]}
+        del k, v, kt, vt
+    return out
+
+
+def to_device(tree, dev):
+    from repro_torch._tree import tree_map
+    return tree_map(lambda a: a.to(dev), tree)
+
+
+def check_serving_device_vs_cpu(dev):
+    """Reduced qwen2-0.5b at float32 compute, the same parameters and
+    prompts on the card (kernels) and on the CPU (plain versions): the
+    logits of the prefill and of 8 decode steps (both fed the CPU's
+    tokens) agree within 1e-4 of the largest, and greedy_generate gives
+    the same tokens."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape, RunConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import factory
+    from repro_torch.serve import engine
+    cfg = get_config(SERVE_ARCH).reduced()
+    P, G = 40, 8
+    shape = InputShape("smoke", seq_len=P, global_batch=4, kind="prefill")
+    rc = RunConfig(model=cfg, shape=shape, compute_dtype="float32")
+    params = factory.init_params(cfg, torch.Generator().manual_seed(3))
+    batch = make_batch(cfg, shape, torch.Generator().manual_seed(4))
+    toks = {}
+    for where in ("cpu", dev):
+        toks[str(where)] = engine.greedy_generate(
+            rc, to_device(params, where), to_device(batch, where), P, G)
+    want_toks = toks["cpu"]
+    require(torch.equal(toks[str(dev)].cpu(), want_toks),
+            "served tokens differ between the card and the CPU")
+    logits = {}
+    for where in ("cpu", dev):
+        p = to_device(params, where)
+        cache, lg = engine.make_prefill_step(rc, P + G)(
+            p, to_device(batch, where))
+        cache = engine._grow_cache(cfg, cache, P + G)
+        step = engine.make_decode_step(rc)
+        out = [lg]
+        for i in range(G):
+            lg, cache = step(p, want_toks[:, i:i + 1].to(where), cache,
+                             torch.tensor(P + i, dtype=torch.int32,
+                                          device=where))
+            out.append(lg)
+        logits[str(where)] = torch.stack(out).cpu()
+    want = logits["cpu"]
+    rel = float((logits[str(dev)] - want).abs().max() / want.abs().max())
+    require(rel <= 1e-4, f"serving logits card vs cpu: {rel} > 1e-4")
+    return rel
+
+
+def run_serving_main_path(dev):
+    """Full-width qwen2-0.5b through greedy_generate: counters reset just
+    before, exact counts asserted just after. Then the prefill and the
+    decode step are timed through the engine's own step functions."""
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape, RunConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from repro_torch.models import factory
+    from repro_torch.serve import engine
+    cfg = get_config(SERVE_ARCH)
+    shape = InputShape("serve", seq_len=SERVE_PROMPT,
+                       global_batch=SERVE_B, kind="prefill")
+    rc = RunConfig(model=cfg, shape=shape)       # bf16 compute
+    params = factory.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0))
+    batch = make_batch(cfg, shape,
+                       torch.Generator(device=dev).manual_seed(1))
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    require(n_params == factory.count_params_analytic(cfg),
+            f"{n_params} parameters")
+    # warm-up (cuBLAS handles, the kernels' first launch), then the run
+    engine.greedy_generate(rc, params, batch, SERVE_PROMPT, 2).cpu()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = engine.greedy_generate(rc, params, batch, SERVE_PROMPT,
+                                  SERVE_GEN).cpu()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCH_COUNTS)
+    L = cfg.num_layers
+    expect = {"rmsnorm": (2 * L + 1) * (1 + SERVE_GEN),
+              "flash_attention": L, "decode_attention": L * SERVE_GEN}
+    require(launches == expect,
+            f"kernel launches {launches} != expected {expect}")
+    require(toks.shape == (SERVE_B, SERVE_GEN) and
+            toks.dtype == torch.int32 and
+            bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"tokens {toks.dtype} {tuple(toks.shape)}")
+
+    # layer times: prefill, and decode steps on the prefill's cache
+    p = factory.cast_params(params, torch.bfloat16)
+    total = SERVE_PROMPT + SERVE_GEN
+    prefill = engine.make_prefill_step(rc, total)
+    step = engine.make_decode_step(rc)
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) / reps * 1e3
+
+    (cache, logits), prefill_ms = timed(lambda: prefill(p, batch), 4)
+    require(logits.shape == (SERVE_B, 1, cfg.vocab_size) and
+            bool(torch.isfinite(logits).all()), "prefill logits")
+    cache = engine._grow_cache(cfg, cache, total)
+    tok = toks[:, :1].to(dev)
+    pos = torch.tensor(SERVE_PROMPT, dtype=torch.int32, device=dev)
+    (logits, _), step_ms = timed(lambda: step(p, tok, cache, pos), 16)
+    require(bool(torch.isfinite(logits).all()), "decode logits")
+    kv_bytes = sum(a.numel() * a.element_size() for a in cache.values())
+    stats = {"arch": SERVE_ARCH, "batch": SERVE_B, "prompt": SERVE_PROMPT,
+             "gen": SERVE_GEN, "params": n_params,
+             "wall_s": wall, "tokens_per_s": SERVE_B * SERVE_GEN / wall,
+             "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+             "kv_cache_mb": kv_bytes / 1e6,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches": launches}
+    return stats, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -603,17 +901,43 @@ def main():
         del tr
         torch.cuda.empty_cache()
 
+    # the LM model kernels, then the serving path
+    model_errs = check_model_kernels(dev)
+    model_timing = time_model_kernels(dev)
+    for name, t in model_timing.items():
+        err = model_errs.get(name, model_errs["decode_attention"])
+        print(f"{name}: max_abs_err {err} " + " ".join(
+            f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in t.items()), flush=True)
+    errs.update(model_errs)
+    timing.update(model_timing)
+    rel = check_serving_device_vs_cpu(dev)
+    print(f"serving on cuda vs cpu (reduced {SERVE_ARCH}, f32, prefill + 8 "
+          f"decode steps): tokens equal, logits max diff {rel:.3g} of the "
+          f"largest (limit 1e-4)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    stats, counts = run_serving_main_path(dev)
+    launches.update(counts)
+    print("serving main path: " + json.dumps({**stats, "card": card}),
+          flush=True)
+
     sources = {"ring_write": ("ring_ops.cu", "replay_ops.py:188"),
                "ring_gather": ("ring_ops.cu", "replay_ops.py:302"),
                "per_topk": ("per_ops.cu", "replay_ops.py:496"),
-               "priority_scatter": ("per_ops.cu", "replay_ops.py:553")}
+               "priority_scatter": ("per_ops.cu", "replay_ops.py:553"),
+               "rmsnorm": ("rmsnorm.cu", "rmsnorm.py:29"),
+               "flash_attention": ("flash_attention.cu",
+                                   "flash_attention.py:77"),
+               "decode_attention": ("decode_attention.cu",
+                                    "decode_attention.py:63")}
     kernels = [{"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/" + src,
                 "replaces": "src/repro/kernels/" + tpu,
                 "launches": launches[name],
                 "max_abs_err": errs[name], "ms": timing[name]["ms"],
                 "plain_ms": timing[name]["plain_ms"],
-                "bound_ms": timing[name]["bound_ms"], "bound_by": "bytes",
+                "bound_ms": timing[name]["bound_ms"],
+                "bound_by": timing[name].get("bound_by", "bytes"),
                 "library_ms": timing[name]["library_ms"]}
                for name, (src, tpu) in sources.items()]
     print(card)

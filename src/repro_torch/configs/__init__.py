@@ -1,0 +1,26 @@
+"""Architecture registry: ``get_config(arch_id)`` and ``ARCHS``.
+
+The port registers the architectures whose family it serves: the dense
+family (``qwen2-0.5b``, ``smollm-360m``, ``h2o-danube-1.8b``). The
+reference's other configs come with their families (ROADMAP.md, queue 1).
+"""
+from repro_torch.configs.base import (InputShape, ModelConfig, MoEConfig,
+                                      RunConfig, SSMConfig)
+
+from repro_torch.configs import h2o_danube_1_8b, qwen2_0_5b, smollm_360m
+
+ARCHS = {
+    m.CONFIG.name: m.CONFIG
+    for m in (smollm_360m, h2o_danube_1_8b, qwen2_0_5b)
+}
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in ARCHS:
+        raise KeyError(f"unknown or not yet ported arch {arch_id!r}; "
+                       f"known: {sorted(ARCHS)}")
+    return ARCHS[arch_id]
+
+
+__all__ = ["ARCHS", "InputShape", "ModelConfig", "MoEConfig", "RunConfig",
+           "SSMConfig", "get_config"]

@@ -5,10 +5,14 @@ and env states arrive as nested dicts and tuples (NamedTuples included)
 of numpy arrays, for example ``jax.tree.map(np.asarray, state)``; this
 module turns them into the port's tensors and back (env states, plain
 dicts of arrays, go through ``to_tensors`` / ``to_numpy`` as they are).
+The LM stack's parameters and KV caches (``factory.init_params``,
+``factory.prefill``) are nested dicts of stacked ``(L, ...)`` leaves on
+both sides and go through ``to_tensors`` / ``to_numpy`` as they are.
 The port keeps the JAX weight layout (``(in, out)`` matrices, the
-ensemble stacked on a leading axis), so every leaf maps one to one and
-no transpose is needed. Leaves keep their dtype, so a round trip is
-bitwise. This module imports neither JAX nor
+ensemble and the layers stacked on a leading axis), so every leaf maps
+one to one and no transpose is needed. Leaves keep their dtype, bfloat16
+included (numpy's bfloat16 is ``ml_dtypes``', the type JAX hands out), so
+a round trip is bitwise. This module imports neither JAX nor
 the JAX package: it only relies on the field order both sides share.
 """
 from __future__ import annotations
@@ -30,16 +34,26 @@ def to_tensors(tree, device) -> Any:
         return {k: to_tensors(v, device) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(to_tensors(v, device) for v in tree)
-    return torch.from_numpy(np.array(tree)).to(device)
+    a = np.array(tree)
+    if a.dtype.name == "bfloat16":      # numpy has no bfloat16 of its own
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def to_numpy(tree) -> Any:
-    """Dicts/tuples of tensors -> the same nesting of numpy arrays."""
+    """Dicts/tuples of tensors -> the same nesting of numpy arrays.
+    bfloat16 leaves need ``ml_dtypes``' numpy type to be registered (it is
+    wherever JAX is imported)."""
     if isinstance(tree, Mapping):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(to_numpy(v) for v in tree)
-    return tree.detach().cpu().numpy()
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.uint16).numpy().view(np.dtype("bfloat16"))
+    return t.numpy()
+
 
 
 def _fields(obj, names) -> Dict[str, Any]:

@@ -6,8 +6,9 @@ how the hand-written Hopper kernels get compiled and loaded. Nothing is
 built at import, so the CPU tests import every module without ``nvcc``.
 
 ``torch.utils.cpp_extension.load`` compiles ``binding.cpp`` (the only
-source with PyTorch headers, and only ``torch/library.h``),
-``ring_ops.cu`` and ``per_ops.cu`` for ``sm_90a`` into
+source with PyTorch headers, and only ``torch/library.h``) and the
+kernels' ``.cu`` files (which include none) for ``sm_90a``, one ``nvcc``
+per source run in parallel by ninja, into
 ``build/repro_torch_kernels/`` at the repository root, and loads the
 library, which registers ``torch.ops.repro_torch.*``. A second call in
 the same process reuses the loaded library; a second process reuses the
@@ -19,7 +20,8 @@ import os
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 REPO_ROOT = os.path.abspath(os.path.join(CSRC, *[os.pardir] * 4))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "repro_torch_kernels")
-SOURCES = ("binding.cpp", "ring_ops.cu", "per_ops.cu")
+SOURCES = ("binding.cpp", "ring_ops.cu", "per_ops.cu", "rmsnorm.cu",
+           "flash_attention.cu", "decode_attention.cu")
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 
 

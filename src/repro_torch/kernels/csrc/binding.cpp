@@ -1,6 +1,7 @@
-// PyTorch binding of the replay kernels: registers
+// PyTorch binding of the port's kernels: registers
 // torch.ops.repro_torch.ring_write / ring_gather / per_topk /
-// priority_scatter for CUDA tensors. The only source that includes
+// priority_scatter (replay) and rmsnorm / flash_attention /
+// decode_attention (the LM model) for CUDA tensors. The only source that includes
 // PyTorch's headers, and only the light ones (torch/library.h, not
 // torch/extension.h), to keep the build short.
 
@@ -12,6 +13,7 @@
 #include <c10/cuda/CUDAStream.h>
 #include <torch/library.h>
 
+#include "model_ops.h"
 #include "per_ops.h"
 #include "ring_ops.h"
 
@@ -127,6 +129,98 @@ void priority_scatter(at::Tensor priorities, const at::Tensor& idx,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// The model kernels take float32 or bfloat16 activations; returns whether
+// t is bfloat16.
+bool check_activation(const at::Tensor& t, const char* name) {
+  TORCH_CHECK(t.scalar_type() == at::kFloat ||
+                  t.scalar_type() == at::kBFloat16,
+              name, " has dtype ", t.scalar_type(),
+              ", expected float32 or bfloat16");
+  check_operand(t, name, t.scalar_type());
+  return t.scalar_type() == at::kBFloat16;
+}
+
+void rmsnorm(const at::Tensor& x, const at::Tensor& weight, at::Tensor out,
+             double eps) {
+  const bool bf16 = check_activation(x, "x");
+  check_operand(out, "out", x.scalar_type());
+  check_vector(weight, "weight", at::kFloat);
+  TORCH_CHECK(x.dim() >= 1 && weight.size(0) == x.size(-1),
+              "weight must have x's last dimension");
+  TORCH_CHECK(out.sizes() == x.sizes(), "out must have x's shape");
+  const int64_t dim = x.size(-1);
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(launch_rmsnorm(out.data_ptr(), x.data_ptr(),
+                                weight.data_ptr<float>(),
+                                dim ? x.numel() / dim : 0, dim,
+                                static_cast<float>(eps), bf16,
+                                c10::cuda::getCurrentCUDAStream()));
+}
+
+void check_attention_dims(int64_t H, int64_t KV, int64_t d) {
+  TORCH_CHECK(KV > 0 && H % KV == 0, "query heads ", H,
+              " are not a multiple of KV heads ", KV);
+  TORCH_CHECK(d >= 1 && d <= kMaxHeadDim, "head_dim ", d, " not in [1, ",
+              kMaxHeadDim, "]");
+}
+
+void flash_attention(const at::Tensor& q, const at::Tensor& k,
+                     const at::Tensor& v, at::Tensor out, bool causal,
+                     std::optional<int64_t> window, double scale) {
+  const bool bf16 = check_activation(q, "q");
+  check_operand(k, "k", q.scalar_type());
+  check_operand(v, "v", q.scalar_type());
+  check_operand(out, "out", q.scalar_type());
+  TORCH_CHECK(q.dim() == 4 && k.dim() == 4, "q and k must be 4-d");
+  TORCH_CHECK(k.sizes() == v.sizes(), "k and v differ in shape");
+  TORCH_CHECK(out.sizes() == q.sizes(), "out must have q's shape");
+  const int64_t B = q.size(0), Sq = q.size(1), H = q.size(2), d = q.size(3);
+  const int64_t Sk = k.size(1), KV = k.size(2);
+  TORCH_CHECK(k.size(0) == B && k.size(3) == d, "k must be (B, Sk, KV, d)");
+  check_attention_dims(H, KV, d);
+  TORCH_CHECK(Sq < (1 << 30) && Sk < (1 << 30), "sequence too long");
+  const c10::cuda::CUDAGuard guard(q.device());
+  C10_CUDA_CHECK(launch_flash_attention(
+      out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk,
+      H, KV, d, static_cast<float>(scale), causal, window.has_value(),
+      window.value_or(0), bf16, c10::cuda::getCurrentCUDAStream()));
+}
+
+void decode_attention(const at::Tensor& q, const at::Tensor& k_cache,
+                      const at::Tensor& v_cache, const at::Tensor& valid_len,
+                      at::Tensor out, double scale) {
+  const bool bf16 = check_activation(q, "q");
+  check_operand(k_cache, "k_cache", q.scalar_type());
+  check_operand(v_cache, "v_cache", q.scalar_type());
+  check_operand(out, "out", q.scalar_type());
+  check_operand(valid_len, "valid_len", at::kInt);
+  TORCH_CHECK(valid_len.numel() == 1, "valid_len must be a scalar");
+  TORCH_CHECK(q.dim() == 3 && k_cache.dim() == 4, "q must be (B, H, d), "
+              "the caches (B, S, KV, d)");
+  TORCH_CHECK(k_cache.sizes() == v_cache.sizes(), "caches differ in shape");
+  TORCH_CHECK(out.sizes() == q.sizes(), "out must have q's shape");
+  const int64_t B = q.size(0), H = q.size(1), d = q.size(2);
+  const int64_t S = k_cache.size(1), KV = k_cache.size(2);
+  TORCH_CHECK(k_cache.size(0) == B && k_cache.size(3) == d,
+              "caches must be (B, S, KV, d)");
+  check_attention_dims(H, KV, d);
+  TORCH_CHECK(H / KV <= kMaxDecodeGroup, "decode_attention takes at most ",
+              kMaxDecodeGroup, " query heads per KV head");
+  TORCH_CHECK(S >= 1 && S < (1 << 30), "cache length ", S, " out of range");
+  const c10::cuda::CUDAGuard guard(q.device());
+  // The first pass's per-split partial results (model_ops.h), from the
+  // caching allocator on the current stream.
+  const int64_t splits = (S + kDecodeSplit - 1) / kDecodeSplit;
+  const auto f32 = q.options().dtype(at::kFloat);
+  at::Tensor part_acc = q.new_empty({B, KV, splits, H / KV, d}, f32);
+  at::Tensor part_ml = q.new_empty({B, KV, splits, H / KV, 2}, f32);
+  C10_CUDA_CHECK(launch_decode_attention(
+      out.data_ptr(), q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+      valid_len.data_ptr<int32_t>(), part_acc.data_ptr<float>(),
+      part_ml.data_ptr<float>(), B, S, H, KV, d, static_cast<float>(scale),
+      bf16, c10::cuda::getCurrentCUDAStream()));
+}
+
 }  // namespace
 
 TORCH_LIBRARY(repro_torch, m) {
@@ -139,6 +233,11 @@ TORCH_LIBRARY(repro_torch, m) {
         "float alpha, int k) -> ()");
   m.def("priority_scatter(Tensor(a!) priorities, Tensor idx, "
         "Tensor values, Tensor? window_start, Tensor(b!) owner) -> ()");
+  m.def("rmsnorm(Tensor x, Tensor weight, Tensor(a!) out, float eps) -> ()");
+  m.def("flash_attention(Tensor q, Tensor k, Tensor v, Tensor(a!) out, "
+        "bool causal, int? window, float scale) -> ()");
+  m.def("decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, "
+        "Tensor valid_len, Tensor(a!) out, float scale) -> ()");
 }
 
 TORCH_LIBRARY_IMPL(repro_torch, CUDA, m) {
@@ -146,4 +245,7 @@ TORCH_LIBRARY_IMPL(repro_torch, CUDA, m) {
   m.impl("ring_gather", &ring_gather);
   m.impl("per_topk", &per_topk);
   m.impl("priority_scatter", &priority_scatter);
+  m.impl("rmsnorm", &rmsnorm);
+  m.impl("flash_attention", &flash_attention);
+  m.impl("decode_attention", &decode_attention);
 }

@@ -17,40 +17,25 @@ outside are skipped by the write and come back as zeros from the gather.
 themselves (``None`` for the window means slot 0), so no launch waits on
 the host.
 
-``LAUNCH_COUNTS`` counts kernel launches, bumped right where a kernel is
-launched and nowhere else, so a run can prove that its path went through
-the kernels (the role ``TRACE_COUNTS`` plays in the JAX package).
+``LAUNCH_COUNTS`` is the package's one launch counter
+(``repro_torch.kernels``), re-exported here with ``reset_launch_counts``.
 """
 from __future__ import annotations
 
-import collections
 from typing import Optional, Union
 
 import torch
 
+from repro_torch.kernels import (LAUNCH_COUNTS, check_cuda_operand,  # noqa: F401
+                                 reset_launch_counts)
 from repro_torch.kernels._build import load_kernels
 
-LAUNCH_COUNTS: collections.Counter = collections.Counter()
-
 Window = Union[None, int, torch.Tensor]
-
-
-def reset_launch_counts() -> None:
-    LAUNCH_COUNTS.clear()
 
 
 def _as2d(x: torch.Tensor) -> torch.Tensor:
     """(rows, ...) -> (rows, features); scalar rows get one feature."""
     return x.reshape(x.shape[0], -1)
-
-
-def _check_cuda_operand(t: torch.Tensor, name: str, dtype: torch.dtype):
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
 
 
 def _window_tensor(window_start: Window, device) -> Optional[torch.Tensor]:
@@ -84,9 +69,9 @@ def ring_write(data: torch.Tensor, batch: torch.Tensor, ptr: torch.Tensor,
     cap = rows_local if capacity is None else capacity
     if n > cap:
         raise ValueError(f"ring_write of {n} rows into capacity {cap}")
-    _check_cuda_operand(data, "data", torch.float32)
-    _check_cuda_operand(batch, "batch", data.dtype)
-    _check_cuda_operand(ptr, "ptr", torch.int32)
+    check_cuda_operand(data, "data", torch.float32)
+    check_cuda_operand(batch, "batch", data.dtype)
+    check_cuda_operand(ptr, "ptr", torch.int32)
     if batch.shape[1:] != data.shape[1:]:
         raise ValueError(f"batch rows {tuple(batch.shape[1:])} do not match "
                          f"data rows {tuple(data.shape[1:])}")
@@ -129,8 +114,8 @@ def ring_gather(data: torch.Tensor, idx: torch.Tensor, *,
     """``data[idx - window_start]`` for a (batch,) int32 vector of global
     ring slots, with the CUDA kernel; out-of-window rows (negative
     padding included) come back as zeros."""
-    _check_cuda_operand(data, "data", torch.float32)
-    _check_cuda_operand(idx, "idx", torch.int32)
+    check_cuda_operand(data, "data", torch.float32)
+    check_cuda_operand(idx, "idx", torch.int32)
     if idx.dim() != 1:
         raise ValueError(f"idx must be 1-d, got shape {tuple(idx.shape)}")
     out = torch.empty((idx.shape[0],) + tuple(data.shape[1:]),
@@ -208,8 +193,8 @@ def per_topk(priorities: torch.Tensor, gumbel: torch.Tensor, alpha: float,
     raises."""
     (rows,) = priorities.shape
     _check_topk(rows, k)
-    _check_cuda_operand(priorities, "priorities", torch.float32)
-    _check_cuda_operand(gumbel, "gumbel", torch.float32)
+    check_cuda_operand(priorities, "priorities", torch.float32)
+    check_cuda_operand(gumbel, "gumbel", torch.float32)
     if gumbel.shape != priorities.shape:
         raise ValueError(f"gumbel {tuple(gumbel.shape)} does not match "
                          f"priorities {tuple(priorities.shape)}")
@@ -265,9 +250,9 @@ def priority_scatter(priorities: torch.Tensor, idx: torch.Tensor,
     repeated index the last write wins, as in the TPU kernel's sequential
     loop; out-of-window indices are skipped."""
     _check_scatter(priorities, idx, values)
-    _check_cuda_operand(priorities, "priorities", torch.float32)
-    _check_cuda_operand(idx, "idx", torch.int32)
-    _check_cuda_operand(values, "values", torch.float32)
+    check_cuda_operand(priorities, "priorities", torch.float32)
+    check_cuda_operand(idx, "idx", torch.int32)
+    check_cuda_operand(values, "values", torch.float32)
     if idx.shape[0] == 0:
         return priorities
     owner = torch.empty(priorities.shape, dtype=torch.int32,

@@ -7,7 +7,10 @@ no JAX, so it also runs where only PyTorch is installed:
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import replay_ops as rops
+from repro_torch.kernels import rmsnorm as rms
 
 pytestmark = pytest.mark.gpu
 
@@ -187,3 +190,120 @@ def test_per_megastep_on_the_card_goes_through_the_kernels(dev):
     assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
     assert bool((tr.replay.priorities > 0).all())
     assert float(tr.replay.max_priority) >= 1.0
+
+
+# --------------------------------------------------------------------------- #
+# the LM model kernels
+# --------------------------------------------------------------------------- #
+
+def assert_kernel_close(got, want):
+    """float32: the reduction order differs, so |got - want| <= 1e-5.
+    bfloat16: within one bf16 rounding step of the plain result
+    (2**-7 relative), plus the same float32 allowance."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    rtol = 2.0 ** -7 if want.dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(8, 896), (8192, 896), (3, 17, 64),
+                                   (5, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain(dev, shape, dtype):
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    w = torch.randn(shape[-1:], generator=g, device=dev)
+    assert_kernel_close(rms.rmsnorm(x, w), rms.rmsnorm_ref(x, w))
+    assert rops.LAUNCH_COUNTS["rmsnorm"] == 1
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,d,causal,window", [
+    (2, 64, 64, 4, 2, 32, True, None),
+    (1, 100, 100, 14, 2, 64, True, None),     # tail, G = 7
+    (1, 40, 130, 6, 2, 64, True, None),       # Sq < Sk
+    (2, 96, 96, 4, 2, 16, True, 32),          # sliding window
+    (1, 200, 200, 4, 1, 64, True, 64),        # window over several tiles
+    (1, 33, 33, 2, 2, 8, False, None),        # non-causal
+    (1, 20, 30, 4, 2, 64, False, 16),         # window, non-causal
+    (1, 50, 50, 3, 1, 128, True, None),       # head_dim 128
+    (1, 70, 30, 2, 1, 32, True, None),        # Sq > Sk: rows see no key
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(dev, B, Sq, Sk, H, KV, d,
+                                              causal, window, dtype):
+    g = torch.Generator(device=dev).manual_seed(Sq * H + d)
+    q = torch.randn((B, Sq, H, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Sk, KV, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Sk, KV, d), generator=g, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window)
+    got = fa.flash_attention(q, k, v, **kw)
+    assert_kernel_close(got, fa.attention_ref(q, k, v, **kw))
+    assert bool(torch.isfinite(got).all())
+    assert rops.LAUNCH_COUNTS["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("B,S,H,KV,d,vl", [
+    (2, 128, 4, 2, 32, 128),
+    (1, 100, 3, 1, 16, 77),          # partial cache, odd length
+    (8, 1088, 14, 2, 64, 1030),      # the serving shape, several splits
+    (1, 64, 2, 2, 8, 1),             # first decode step
+    (1, 96, 15, 5, 32, 50),
+    (2, 600, 16, 1, 128, 600),       # the largest group and head_dim
+    (1, 100, 4, 2, 64, 150),         # valid_len past S is clamped
+    (1, 300, 4, 2, 64, 0),           # nothing valid: zeros, no NaN
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(dev, B, S, H, KV, d, vl,
+                                               dtype):
+    g = torch.Generator(device=dev).manual_seed(S + vl)
+    q = torch.randn((B, H, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, KV, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, KV, d), generator=g, device=dev).to(dtype)
+    valid = torch.tensor(vl, dtype=torch.int32, device=dev)
+    got = dec.decode_attention(q, k, v, valid)
+    assert_kernel_close(got, dec.decode_attention_ref(q, k, v, valid))
+    assert bool(torch.isfinite(got).all())
+    assert rops.LAUNCH_COUNTS["decode_attention"] == 1
+
+
+def test_model_kernel_wrappers_validate_operands(dev):
+    x = torch.ones((4, 8), device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        rms.rmsnorm(x.cpu(), torch.ones(8))
+    with pytest.raises(TypeError):
+        rms.rmsnorm(x.half(), torch.ones(8, device=dev))
+    q = torch.ones((1, 4, 2, 8), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2), q, q)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention(q, torch.ones((1, 4, 3, 8), device=dev),
+                           torch.ones((1, 4, 3, 8), device=dev))
+    with pytest.raises(TypeError):
+        dec.decode_attention(q[:, 0], q, q, torch.tensor(1, device=dev))
+    assert sum(rops.LAUNCH_COUNTS.values()) == 0
+
+
+def test_serving_on_the_card_matches_the_cpu(dev):
+    """Reduced qwen2-0.5b at float32 compute, the same parameters and
+    prompts: prefill plus 6 decode steps give the same tokens on the card
+    (kernels) as on the CPU (plain versions), through the kernels."""
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape, RunConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import factory
+    from repro_torch.serve.engine import greedy_generate
+    cfg = get_config("qwen2-0.5b").reduced()
+    shape = InputShape("s", seq_len=24, global_batch=2, kind="prefill")
+    rc = RunConfig(model=cfg, shape=shape, compute_dtype="float32")
+    params = factory.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = make_batch(cfg, shape, torch.Generator().manual_seed(1))
+    want = greedy_generate(rc, params, batch, 24, 6)
+    rops.reset_launch_counts()
+    got = greedy_generate(rc, tree_map(lambda a: a.to(dev), params),
+                          {"tokens": batch["tokens"].to(dev)}, 24, 6)
+    assert torch.equal(got.cpu(), want)
+    L = cfg.num_layers
+    assert dict(rops.LAUNCH_COUNTS) == {"rmsnorm": (2 * L + 1) * 7,
+                                        "flash_attention": L,
+                                        "decode_attention": L * 6}

@@ -13,12 +13,11 @@ device's idle share of the wall, device ops (kernels, copies, fills) per
 megastep, the device time of the port's own kernels, and the ops that
 take the most device time. Needs a CUDA device.
 """
-import collections
 import json
 import os
-import subprocess
 import sys
-import time
+
+from device_profile import card_line, profiled
 
 MEGASTEPS = 2
 # the device functions of src/repro_torch/kernels/csrc/*.cu
@@ -29,8 +28,6 @@ PORT_KERNELS = ("ring_write_kernel", "ring_gather_kernel",
 
 def main():
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         sys.exit("profile_megastep: no CUDA device is available")
@@ -39,10 +36,7 @@ def main():
     from repro_torch.core import SpreezeConfig, SpreezeTrainer
     from repro_torch.rl import AlgoHP
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    card = card_line()
     prioritized = "--prioritized" in sys.argv[1:]
     tr = SpreezeTrainer(SpreezeConfig(hp=AlgoHP(hidden=(256, 256)),
                                       prioritized=prioritized))
@@ -51,34 +45,19 @@ def main():
         tr.megastep()
     torch.cuda.synchronize()
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(MEGASTEPS):
-            tr.megastep()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3 / MEGASTEPS
-
-    per_op = collections.Counter()
-    launches = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_op[e.name] += e.time_range.elapsed_us()
-            launches += 1
-    n = MEGASTEPS
-    busy_ms = sum(per_op.values()) / 1e3 / n
-    port = {k: sum(v for name, v in per_op.items() if k in name) / 1e3 / n
+    wall_ms, busy_ms, ops, per_op = profiled(tr.megastep, MEGASTEPS)
+    port = {k: sum(v for name, v in per_op.items() if k in name) / 1e3
             for k in PORT_KERNELS}
     print(json.dumps({
-        "card": card, "megasteps": n,
+        "card": card, "megasteps": MEGASTEPS,
         "replay": "PER" if prioritized else "uniform",
         "wall_ms_per_megastep": wall_ms,
         "device_busy_ms_per_megastep": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms,
-        "device_ops_per_megastep": launches / n,
+        "device_ops_per_megastep": ops,
         "port_kernels_ms_per_megastep": port,
         "top_device_ops_ms_per_megastep": {
-            k: v / 1e3 / n for k, v in per_op.most_common(12)}}))
+            k: v / 1e3 for k, v in per_op.most_common(12)}}))
 
 if __name__ == "__main__":
     main()
