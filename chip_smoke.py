@@ -30,18 +30,23 @@ and prints no result line):
      reduction order differs) and bfloat16 (within one bf16 rounding step
      of the plain result: 2**-7 relative, plus the float32 1e-5), then time
      kernel, plain version and the library call (``F.rms_norm``,
-     ``F.scaled_dot_product_attention``), timing only;
+     ``F.scaled_dot_product_attention``), timing only; the same for
+     ``ssd_scan`` at full-width mamba2-130m's and zamba2-1.2b's prefill
+     shapes, a ragged single chunk and a small shape (float32 within 1e-5
+     of the largest |plain|, since the scan's sums run over N and the
+     chunk; bfloat16 one rounding step more), timed with no library call
+     (no PyTorch call computes the scan);
   8. serve on the card against serving on the CPU, same parameters and
-     prompts: reduced qwen2-0.5b at float32 compute, prefill plus 8 decode
-     steps: the logits agree within 1e-4 of the largest and the tokens
-     are identical;
-  9. serve full-width qwen2-0.5b (24 layers, d_model 896, vocab 151,936;
-     random weights from seed 0, bf16 compute) through
+     prompts at float32 compute, prefill plus 8 decode steps: reduced
+     qwen2-0.5b, reduced mamba2-130m and reduced zamba2-1.2b (5 layers);
+     the logits agree within 1e-4 of the largest and the tokens are
+     identical;
+  9. serve full-width qwen2-0.5b, mamba2-130m and zamba2-1.2b (random
+     weights from seed 0, bf16 compute) through
      ``repro_torch.serve.engine.greedy_generate``: 8 prompts of 1024
-     tokens, 64 new tokens each, with the launch counters reset just
-     before and read just after: (2 L + 1)(1 + 64) rmsnorms, L flash
-     attentions, 64 L decode attentions; then time the prefill and the
-     decode step.
+     tokens, 64 new tokens each, each with the launch counters reset just
+     before and read just after (``SERVE_LAUNCHES``); then time the
+     prefill and the decode step.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -61,6 +66,23 @@ ALPHA = 0.6                          # SpreezeConfig.per_alpha
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "qwen2-0.5b", 8, 1024, 64
 HEADS, KV_HEADS, HEAD_DIM, D_MODEL = 14, 2, 64, 896
 DECODE_LONG = 32_768                 # the decode_32k cache length
+SSM_ARCHS = ("mamba2-130m", "zamba2-1.2b")
+# (B, S, H, P, N, chunk) of each SSM's prefill scan at the serving shape
+SCAN_SHAPES = {"mamba2-130m": (SERVE_B, SERVE_PROMPT, 24, 64, 128, 256),
+               "zamba2-1.2b": (SERVE_B, SERVE_PROMPT, 64, 64, 64, 256)}
+# Exact launches of one greedy_generate at the serving shape (64 new
+# tokens: 65 forwards). dense: 2L + 1 norms a forward, L flash (prefill),
+# L decode attentions a step. ssm: L pre-norms, L gated norms and ln_f a
+# forward, L scans (prefill). hybrid: its 38 core layers as ssm, plus 7
+# shared-block calls, each with 2 norms and a flash (prefill) or a decode
+# attention (a step): 91 norms a forward.
+SERVE_LAUNCHES = {
+    "qwen2-0.5b": {"rmsnorm": 3185, "flash_attention": 24,
+                   "decode_attention": 1536},
+    "mamba2-130m": {"rmsnorm": 3185, "ssd_scan": 24},
+    "zamba2-1.2b": {"rmsnorm": 5915, "flash_attention": 7,
+                    "decode_attention": 448, "ssd_scan": 38},
+}
 
 
 def require(cond, msg):
@@ -708,25 +730,107 @@ def time_model_kernels(dev):
     return out
 
 
+def scan_inputs(dev, seed, dtype, B, S, H, P, N):
+    """x, B_, C_ ~ 0.5 N(0, 1) in ``dtype``; dtA = -0.3 softplus(N(0, 1))
+    in float32 (a decay exp(dtA) of ~0.5 to ~0.97 a row, 1st to 99th
+    percentile)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((B, S, H, P), generator=g, device=dev) * 0.5).to(dtype)
+    dtA = -torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=dev)) * 0.3
+    Bm = (torch.randn((B, S, H, N), generator=g, device=dev) * 0.5).to(dtype)
+    Cm = (torch.randn((B, S, H, N), generator=g, device=dev) * 0.5).to(dtype)
+    return x, dtA, Bm, Cm
+
+
+def scan_close(got, want):
+    """ssd_scan's tolerance against its plain version: float32 within
+    1e-5 of the largest |want| (sums over N and the chunk, in another
+    order than cuBLAS's); bfloat16 within one bf16 rounding step (2**-7
+    relative) more. Returns the max abs error."""
+    import torch
+    require(got.dtype == want.dtype and got.shape == want.shape,
+            f"scan output {got.dtype} {tuple(got.shape)} != plain "
+            f"{want.dtype} {tuple(want.shape)}")
+    rtol = 2.0 ** -7 if want.dtype == torch.bfloat16 else 0.0
+    diff = (got.float() - want.float()).abs()
+    bad = diff > 1e-5 * float(want.float().abs().max()) \
+        + rtol * want.float().abs()
+    require(bool(torch.isfinite(got).all()), "scan output not finite")
+    require(not bool(bad.any()),
+            f"{int(bad.sum())} elements beyond tolerance, max abs err "
+            f"{float(diff.max())}")
+    return float(diff.max())
+
+
+def check_ssd_scan(dev):
+    """The scan kernel against its plain version, y and the final state,
+    bf16 and f32: both full-width prefill scans, a ragged single chunk
+    (L = S = 100, not a multiple of the 64-row tiles) and a small shape.
+    Returns the max abs error."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    worst = 0.0
+    shapes = list(SCAN_SHAPES.values()) + [(2, 100, 4, 64, 128, 256),
+                                           (1, 64, 2, 16, 8, 16)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, H, P, N, chunk in shapes:
+            args = scan_inputs(dev, S * H + N, dtype, B, S, H, P, N)
+            got = ssd.ssd_scan(*args, chunk=chunk)
+            want = ssd.ssd_scan_ref(*args, chunk=chunk)
+            for a, b in zip(got, want):
+                worst = max(worst, scan_close(a, b))
+            del args, got, want
+    return worst
+
+
+def time_ssd_scan(dev, arch):
+    """Kernel and plain version, bf16, at ``arch``'s prefill scan. Bound:
+    each operand read once (x, B_, C_ as the reference hands them, B and C
+    broadcast to every head; dtA float32), y and the final state written
+    once, over 3.35 TB/s; the reference's full L x L products (C B^T,
+    masked scores times x, C state^T and x^T B per chunk and head) over
+    the bf16 tensor peak; the larger of the two."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    B, S, H, P, N, L = SCAN_SHAPES[arch]
+    args = scan_inputs(dev, 15, torch.bfloat16, B, S, H, P, N)
+    nbytes = 2 * (2 * B * S * H * P + 2 * B * S * H * N + B * H * P * N) \
+        + 4 * B * S * H
+    flops = B * H * (S // L) * 2 * (L * L * N + L * L * P + 2 * L * P * N)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return {"ms": event_ms(lambda: ssd.ssd_scan(*args, chunk=L), iters=20,
+                           warmup=3),
+            "plain_ms": event_ms(lambda: ssd.ssd_scan_ref(*args, chunk=L),
+                                 iters=20, warmup=3),
+            "library_ms": None, "library": "none (no PyTorch call)",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "mbytes": nbytes / 1e6, "gflop": flops / 1e9,
+            "shape": [B, S, H, P, N, L]}
+
+
 def to_device(tree, dev):
     from repro_torch._tree import tree_map
     return tree_map(lambda a: a.to(dev), tree)
 
 
-def check_serving_device_vs_cpu(dev):
-    """Reduced qwen2-0.5b at float32 compute, the same parameters and
-    prompts on the card (kernels) and on the CPU (plain versions): the
-    logits of the prefill and of 8 decode steps (both fed the CPU's
-    tokens) agree within 1e-4 of the largest, and greedy_generate gives
-    the same tokens."""
+def check_serving_device_vs_cpu(dev, arch, layers=2, P=40):
+    """Reduced ``arch`` (``layers`` layers) at float32 compute, the same
+    parameters and ``P``-token prompts on the card (kernels) and on the
+    CPU (plain versions): the logits of the prefill and of 8 decode steps
+    (both fed the CPU's tokens) agree within 1e-4 of the largest, and
+    greedy_generate gives the same tokens."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape, RunConfig
     from repro_torch.data.tokens import make_batch
     from repro_torch.models import factory
     from repro_torch.serve import engine
-    cfg = get_config(SERVE_ARCH).reduced()
-    P, G = 40, 8
+    cfg = get_config(arch).reduced(num_layers=layers)
+    G = 8
     shape = InputShape("smoke", seq_len=P, global_batch=4, kind="prefill")
     rc = RunConfig(model=cfg, shape=shape, compute_dtype="float32")
     params = factory.init_params(cfg, torch.Generator().manual_seed(3))
@@ -758,10 +862,11 @@ def check_serving_device_vs_cpu(dev):
     return rel
 
 
-def run_serving_main_path(dev):
-    """Full-width qwen2-0.5b through greedy_generate: counters reset just
-    before, exact counts asserted just after. Then the prefill and the
-    decode step are timed through the engine's own step functions."""
+def run_serving_main_path(dev, arch):
+    """Full-width ``arch`` through greedy_generate: counters reset just
+    before, exact counts (``SERVE_LAUNCHES``) asserted just after. Then
+    the prefill and the decode step are timed through the engine's own
+    step functions."""
     import torch
     from repro_torch._tree import tree_leaves
     from repro_torch.configs import get_config
@@ -770,7 +875,7 @@ def run_serving_main_path(dev):
     from repro_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
     from repro_torch.models import factory
     from repro_torch.serve import engine
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     shape = InputShape("serve", seq_len=SERVE_PROMPT,
                        global_batch=SERVE_B, kind="prefill")
     rc = RunConfig(model=cfg, shape=shape)       # bf16 compute
@@ -790,9 +895,7 @@ def run_serving_main_path(dev):
                                   SERVE_GEN).cpu()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCH_COUNTS)
-    L = cfg.num_layers
-    expect = {"rmsnorm": (2 * L + 1) * (1 + SERVE_GEN),
-              "flash_attention": L, "decode_attention": L * SERVE_GEN}
+    expect = SERVE_LAUNCHES[arch]
     require(launches == expect,
             f"kernel launches {launches} != expected {expect}")
     require(toks.shape == (SERVE_B, SERVE_GEN) and
@@ -823,12 +926,13 @@ def run_serving_main_path(dev):
     pos = torch.tensor(SERVE_PROMPT, dtype=torch.int32, device=dev)
     (logits, _), step_ms = timed(lambda: step(p, tok, cache, pos), 16)
     require(bool(torch.isfinite(logits).all()), "decode logits")
-    kv_bytes = sum(a.numel() * a.element_size() for a in cache.values())
-    stats = {"arch": SERVE_ARCH, "batch": SERVE_B, "prompt": SERVE_PROMPT,
+    cache_bytes = sum(a.numel() * a.element_size()
+                      for a in tree_leaves(cache))
+    stats = {"arch": arch, "batch": SERVE_B, "prompt": SERVE_PROMPT,
              "gen": SERVE_GEN, "params": n_params,
              "wall_s": wall, "tokens_per_s": SERVE_B * SERVE_GEN / wall,
              "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
-             "kv_cache_mb": kv_bytes / 1e6,
+             "cache_mb": cache_bytes / 1e6,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
              "launches": launches}
     return stats, launches
@@ -911,15 +1015,31 @@ def main():
             for k, v in t.items()), flush=True)
     errs.update(model_errs)
     timing.update(model_timing)
-    rel = check_serving_device_vs_cpu(dev)
-    print(f"serving on cuda vs cpu (reduced {SERVE_ARCH}, f32, prefill + 8 "
-          f"decode steps): tokens equal, logits max diff {rel:.3g} of the "
-          f"largest (limit 1e-4)", flush=True)
-    torch.cuda.reset_peak_memory_stats()
-    stats, counts = run_serving_main_path(dev)
-    launches.update(counts)
-    print("serving main path: " + json.dumps({**stats, "card": card}),
-          flush=True)
+    errs["ssd_scan"] = check_ssd_scan(dev)
+    for arch in SSM_ARCHS:
+        t = time_ssd_scan(dev, arch)
+        print(f"ssd_scan ({arch}): max_abs_err {errs['ssd_scan']} " +
+              " ".join(f"{k} {v:.5f}" if isinstance(v, float) else
+                       f"{k} {v}" for k, v in t.items()), flush=True)
+        timing.setdefault("ssd_scan", t)     # the kernels line: mamba2's
+    for arch, layers, P in ((SERVE_ARCH, 2, 40), ("mamba2-130m", 2, 64),
+                            ("zamba2-1.2b", 5, 64)):
+        rel = check_serving_device_vs_cpu(dev, arch, layers, P)
+        print(f"serving on cuda vs cpu (reduced {arch}, {layers} layers, "
+              f"f32, {P}-token prompts, prefill + 8 decode steps): tokens "
+              f"equal, logits max diff {rel:.3g} of the largest (limit "
+              f"1e-4)", flush=True)
+    for arch in (SERVE_ARCH,) + SSM_ARCHS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stats, counts = run_serving_main_path(dev, arch)
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+        print(f"serving main path ({arch}): " +
+              json.dumps({**stats, "card": card}), flush=True)
+        for k in ("tokens_per_s", "prefill_ms", "decode_step_ms",
+                  "peak_mem_gb"):
+            print(f"serving {arch} {k} {stats[k]} ({card})", flush=True)
 
     sources = {"ring_write": ("ring_ops.cu", "replay_ops.py:188"),
                "ring_gather": ("ring_ops.cu", "replay_ops.py:302"),
@@ -929,7 +1049,8 @@ def main():
                "flash_attention": ("flash_attention.cu",
                                    "flash_attention.py:77"),
                "decode_attention": ("decode_attention.cu",
-                                    "decode_attention.py:63")}
+                                    "decode_attention.py:63"),
+               "ssd_scan": ("ssd_scan.cu", "ssd_scan.py:76")}
     kernels = [{"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/" + src,
                 "replaces": "src/repro/kernels/" + tpu,

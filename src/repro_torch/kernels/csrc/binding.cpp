@@ -1,11 +1,12 @@
 // PyTorch binding of the port's kernels: registers
 // torch.ops.repro_torch.ring_write / ring_gather / per_topk /
 // priority_scatter (replay) and rmsnorm / flash_attention /
-// decode_attention (the LM model) for CUDA tensors. The only source that includes
-// PyTorch's headers, and only the light ones (torch/library.h, not
-// torch/extension.h), to keep the build short.
+// decode_attention / ssd_scan (the LM model) for CUDA tensors. The only
+// source that includes PyTorch's headers, and only the light ones
+// (torch/library.h, not torch/extension.h), to keep the build short.
 
 #include <optional>
+#include <string>
 
 #include <ATen/core/Tensor.h>
 #include <c10/cuda/CUDAException.h>
@@ -18,6 +19,12 @@
 #include "ring_ops.h"
 
 namespace {
+
+// An integer for a TORCH_CHECK message. Streaming an integer into the
+// message (c10::str, an ostringstream) crashes the process with SIGSEGV
+// instead of raising, with this library built by g++ 13 against PyTorch
+// 2.11's wheel; a std::string streams safely.
+std::string num(int64_t v) { return std::to_string(v); }
 
 void check_operand(const at::Tensor& t, const char* name,
                    c10::ScalarType dtype) {
@@ -46,8 +53,8 @@ void ring_write(at::Tensor data, const at::Tensor& batch,
   check_operand(batch, "batch", at::kFloat);
   check_operand(ptr, "ptr", at::kInt);
   TORCH_CHECK(ptr.numel() == 1, "ptr must be a scalar");
-  TORCH_CHECK(batch.size(0) <= capacity, "ring_write of ", batch.size(0),
-              " rows into capacity ", capacity);
+  TORCH_CHECK(batch.size(0) <= capacity, "ring_write of ",
+              num(batch.size(0)), " rows into capacity ", num(capacity));
   TORCH_CHECK(row_width(batch) == row_width(data),
               "batch and data rows differ in width");
   const c10::cuda::CUDAGuard guard(data.device());
@@ -91,14 +98,14 @@ void per_topk(const at::Tensor& priorities, const at::Tensor& gumbel,
   check_vector(idx, "idx", at::kInt);
   const int64_t rows = priorities.size(0);
   TORCH_CHECK(gumbel.size(0) == rows, "gumbel and priorities differ");
-  TORCH_CHECK(k >= 1 && k <= rows, "per_topk of k=", k, " from a ", rows,
-              "-row window");
+  TORCH_CHECK(k >= 1 && k <= rows, "per_topk of k=", num(k), " from a ",
+              num(rows), "-row window");
   TORCH_CHECK(rows < 0x7fffffff, "per_topk needs rows < 2**31 - 1");
   TORCH_CHECK(scores.size(0) == k && idx.size(0) == k,
               "scores and idx must hold k entries");
   TORCH_CHECK(scratch.size(0) >= per_topk_scratch_keys(rows, k),
-              "scratch holds ", scratch.size(0), " keys, needs ",
-              per_topk_scratch_keys(rows, k));
+              "scratch holds ", num(scratch.size(0)), " keys, needs ",
+              num(per_topk_scratch_keys(rows, k)));
   const c10::cuda::CUDAGuard guard(priorities.device());
   launch_per_topk(scores.data_ptr<float>(), idx.data_ptr<int32_t>(),
                   priorities.data_ptr<float>(), gumbel.data_ptr<float>(),
@@ -158,10 +165,10 @@ void rmsnorm(const at::Tensor& x, const at::Tensor& weight, at::Tensor out,
 }
 
 void check_attention_dims(int64_t H, int64_t KV, int64_t d) {
-  TORCH_CHECK(KV > 0 && H % KV == 0, "query heads ", H,
-              " are not a multiple of KV heads ", KV);
-  TORCH_CHECK(d >= 1 && d <= kMaxHeadDim, "head_dim ", d, " not in [1, ",
-              kMaxHeadDim, "]");
+  TORCH_CHECK(KV > 0 && H % KV == 0, "query heads ", num(H),
+              " are not a multiple of KV heads ", num(KV));
+  TORCH_CHECK(d >= 1 && d <= kMaxHeadDim, "head_dim ", num(d),
+              " not in [1, ", num(kMaxHeadDim), "]");
 }
 
 void flash_attention(const at::Tensor& q, const at::Tensor& k,
@@ -205,8 +212,9 @@ void decode_attention(const at::Tensor& q, const at::Tensor& k_cache,
               "caches must be (B, S, KV, d)");
   check_attention_dims(H, KV, d);
   TORCH_CHECK(H / KV <= kMaxDecodeGroup, "decode_attention takes at most ",
-              kMaxDecodeGroup, " query heads per KV head");
-  TORCH_CHECK(S >= 1 && S < (1 << 30), "cache length ", S, " out of range");
+              num(kMaxDecodeGroup), " query heads per KV head");
+  TORCH_CHECK(S >= 1 && S < (1 << 30), "cache length ", num(S),
+              " out of range");
   const c10::cuda::CUDAGuard guard(q.device());
   // The first pass's per-split partial results (model_ops.h), from the
   // caching allocator on the current stream.
@@ -219,6 +227,44 @@ void decode_attention(const at::Tensor& q, const at::Tensor& k_cache,
       valid_len.data_ptr<int32_t>(), part_acc.data_ptr<float>(),
       part_ml.data_ptr<float>(), B, S, H, KV, d, static_cast<float>(scale),
       bf16, c10::cuda::getCurrentCUDAStream()));
+}
+
+void ssd_scan(const at::Tensor& x, const at::Tensor& dtA, const at::Tensor& B_,
+              const at::Tensor& C_, at::Tensor y, at::Tensor final_state,
+              int64_t chunk) {
+  const bool bf16 = check_activation(x, "x");
+  check_operand(dtA, "dtA", at::kFloat);
+  check_operand(B_, "B_", x.scalar_type());
+  check_operand(C_, "C_", x.scalar_type());
+  check_operand(y, "y", x.scalar_type());
+  check_operand(final_state, "final_state", x.scalar_type());
+  TORCH_CHECK(x.dim() == 4 && B_.dim() == 4, "x must be (B, S, H, P) and "
+              "B_, C_ (B, S, H, N)");
+  const int64_t B = x.size(0), S = x.size(1), H = x.size(2), P = x.size(3);
+  const int64_t N = B_.size(3);
+  TORCH_CHECK(B_.sizes() == C_.sizes(), "B_ and C_ differ in shape");
+  TORCH_CHECK(B_.size(0) == B && B_.size(1) == S && B_.size(2) == H,
+              "B_ must be (B, S, H, N)");
+  TORCH_CHECK(dtA.dim() == 3 && dtA.size(0) == B && dtA.size(1) == S &&
+                  dtA.size(2) == H,
+              "dtA must be (B, S, H)");
+  TORCH_CHECK(y.sizes() == x.sizes(), "y must have x's shape");
+  TORCH_CHECK(final_state.dim() == 4 && final_state.size(0) == B &&
+                  final_state.size(1) == H && final_state.size(2) == P &&
+                  final_state.size(3) == N,
+              "final_state must be (B, H, P, N)");
+  TORCH_CHECK(P >= 1 && P <= kMaxSsdDim && N >= 1 && N <= kMaxSsdDim,
+              "ssd_scan takes P and N in [1, ", num(kMaxSsdDim), "]");
+  TORCH_CHECK(chunk >= 1 && chunk <= kMaxSsdChunk && S % chunk == 0,
+              "ssd_scan needs a chunk in [1, ", num(kMaxSsdChunk),
+              "] that divides S");
+  TORCH_CHECK(B < 65536 && H < 65536 && S * H < (int64_t{1} << 31),
+              "ssd_scan shape out of range");
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(launch_ssd_scan(
+      y.data_ptr(), final_state.data_ptr(), x.data_ptr(),
+      dtA.data_ptr<float>(), B_.data_ptr(), C_.data_ptr(), B, S, H, P, N,
+      chunk, bf16, c10::cuda::getCurrentCUDAStream()));
 }
 
 }  // namespace
@@ -238,6 +284,8 @@ TORCH_LIBRARY(repro_torch, m) {
         "bool causal, int? window, float scale) -> ()");
   m.def("decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, "
         "Tensor valid_len, Tensor(a!) out, float scale) -> ()");
+  m.def("ssd_scan(Tensor x, Tensor dtA, Tensor B_, Tensor C_, "
+        "Tensor(a!) y, Tensor(b!) final_state, int chunk) -> ()");
 }
 
 TORCH_LIBRARY_IMPL(repro_torch, CUDA, m) {
@@ -248,4 +296,5 @@ TORCH_LIBRARY_IMPL(repro_torch, CUDA, m) {
   m.impl("rmsnorm", &rmsnorm);
   m.impl("flash_attention", &flash_attention);
   m.impl("decode_attention", &decode_attention);
+  m.impl("ssd_scan", &ssd_scan);
 }

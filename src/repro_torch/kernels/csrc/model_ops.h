@@ -1,8 +1,9 @@
-// Launchers for the LM model kernels in rmsnorm.cu, flash_attention.cu and
-// decode_attention.cu. Plain C++ types only, like ring_ops.h, so that
-// binding.cpp and the .cu files compile independently. Tensors are float32
-// or bfloat16 (`bf16` says which); every launcher returns the CUDA error of
-// its launch (cudaSuccess when the kernels were queued).
+// Launchers for the LM model kernels in rmsnorm.cu, flash_attention.cu,
+// decode_attention.cu and ssd_scan.cu. Plain C++ types only, like
+// ring_ops.h, so that binding.cpp and the .cu files compile independently.
+// Tensors are float32 or bfloat16 (`bf16` says which); every launcher
+// returns the CUDA error of its launch (cudaSuccess when the kernels were
+// queued).
 #pragma once
 
 #include <cstdint>
@@ -47,3 +48,18 @@ cudaError_t launch_decode_attention(void* out, const void* q,
                                     int64_t H, int64_t KV, int64_t d,
                                     float scale, bool bf16,
                                     cudaStream_t stream);
+
+// Largest chunk length, and largest head dimension P and state size N, of
+// ssd_scan.
+constexpr int kMaxSsdChunk = 256;
+constexpr int kMaxSsdDim = 128;
+
+// Mamba-2 SSD chunked scan, float32 math: x (B, S, H, P) pre-scaled by dt,
+// dtA (B, S, H) float32, B_ and C_ (B, S, H, N) like x; y like x and
+// final_state (B, H, P, N) like x. Chunks of L rows, S % L == 0; the state
+// starts at zero. Requires L <= kMaxSsdChunk, P and N <= kMaxSsdDim.
+cudaError_t launch_ssd_scan(void* y, void* final_state, const void* x,
+                            const float* dtA, const void* B_, const void* C_,
+                            int64_t B, int64_t S, int64_t H, int64_t P,
+                            int64_t N, int64_t L, bool bf16,
+                            cudaStream_t stream);

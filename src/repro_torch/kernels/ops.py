@@ -1,7 +1,7 @@
 """Public kernel ops: the counterpart of ``repro/kernels/ops.py``'s
 replay ops (``ring_write`` / ``ring_gather`` / ``per_topk`` /
 ``priority_scatter``) and model ops (``rmsnorm`` / ``flash_attention`` /
-``decode_attention``).
+``decode_attention`` / ``ssd_scan``).
 
 Which version runs is decided by the operand's device, never by what the
 machine has: a CUDA tensor goes to the hand-written kernel (which raises
@@ -12,7 +12,7 @@ reference chose between its jnp path and its Pallas kernels with
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,6 +20,7 @@ from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import replay_ops as _replay
 from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def ring_write(data: torch.Tensor, batch: torch.Tensor, ptr: torch.Tensor,
@@ -78,3 +79,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return _dec.decode_attention_ref(q, k_cache, v_cache, valid_len)
     return _dec.decode_attention(q, k_cache, v_cache, valid_len)
+
+
+def ssd_scan(x: torch.Tensor, dtA: torch.Tensor, B_: torch.Tensor,
+             C_: torch.Tensor, *, chunk: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD scan: (B,S,H,P), (B,S,H), (B,S,H,N)^2 ->
+    (y (B,S,H,P), final_state (B,H,P,N)); chunks of min(chunk, S)."""
+    if x.device.type == "cpu":
+        return _ssd.ssd_scan_ref(x, dtA, B_, C_, chunk=chunk)
+    return _ssd.ssd_scan(x, dtA, B_, C_, chunk=chunk)

@@ -9,6 +9,15 @@ Example:
       --batch 8 --prompt-len 1024 --gen 64
   python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced \\
       --device cpu --batch 2 --prompt-len 32 --gen 16
+  python -m repro_torch.launch.serve --arch mamba2-130m \\
+      --batch 8 --prompt-len 1024 --gen 64
+  python -m repro_torch.launch.serve --arch zamba2-1.2b --reduced \\
+      --device cpu --batch 2 --prompt-len 32 --gen 16
+
+The ssm and hybrid families scan the prompt in chunks of
+min(chunk_size, prompt length), which must divide the prompt length
+(256 at full width, 32 reduced): a prompt of at most one chunk, or a
+multiple of it.
 """
 from __future__ import annotations
 

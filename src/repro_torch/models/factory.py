@@ -1,6 +1,8 @@
 """Model factory: init / prefill / decode for the families the port serves.
 
-Counterpart of ``repro/models/factory.py``, dense family only:
+Counterpart of ``repro/models/factory.py`` for the dense, ssm (mamba2)
+and hybrid (zamba2: mamba2 core layers and one shared-weight attention
+block run before every ``hybrid_attn_every`` of them) families:
 
   init_params(cfg, gen)                          -> param tree (f32)
   cast_params(params, dtype)                     -> the same, cast for compute
@@ -19,14 +21,14 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch._tree import stack_trees, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import embed_init
 
 _NOT_PORTED = {
-    "ssm": "the SSM/hybrid serving path with ssd_scan",
-    "hybrid": "the SSM/hybrid serving path with ssd_scan",
     "moe": "the other LM families (MoE)",
     "encdec": "the other LM families (enc-dec)",
     "vlm": "the other LM families (VLM)",
@@ -34,12 +36,13 @@ _NOT_PORTED = {
 
 
 def _layer_kind(cfg: ModelConfig) -> str:
-    if cfg.family != "dense":
+    kind = {"dense": "dense", "ssm": "ssm", "hybrid": "ssm"}.get(cfg.family)
+    if kind is None:
         item = _NOT_PORTED.get(cfg.family, "its family")
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
             f"ROADMAP.md queue 1, {item}")
-    return "dense"
+    return kind
 
 
 # ---------------------------------------------------------------------------
@@ -59,22 +62,29 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32,
     }
     p["layers"] = tf.init_stack(gen, cfg, cfg.num_layers, kind=kind,
                                 dtype=dtype, device=device)
+    if cfg.family == "hybrid":
+        p["shared_attn"] = tf.init_layer(gen, cfg, kind="dense", dtype=dtype,
+                                         device=device)
     if not cfg.tie_embeddings:
         p["head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
                                device=device)
     return p
 
 
-_NORMS = ("ln1", "ln2", "ln_f")
+# Kept in float32: the norm weights (the kernel's float32 weight), and the
+# SSM's decay parameters, which the reference uses in float32 arithmetic
+# (``dt_bias``, ``A_log``; ``D_skip`` it casts at its use, as the port).
+_FLOAT32 = ("ln1", "ln2", "ln_f", "norm_w", "A_log", "dt_bias")
 
 
 def cast_params(params, dtype: torch.dtype):
-    """Every weight cast to the compute dtype once, the norm weights kept
-    in float32: the same numbers as the reference's cast at each use
-    (``.astype(dtype)``), without repeating the cast every step."""
+    """Every weight cast to the compute dtype once, the norms and the SSM
+    decay parameters kept in float32: the same numbers as the reference's
+    cast at each use (``.astype(dtype)``), without repeating the cast
+    every step."""
     def cast(tree):
         if isinstance(tree, dict):
-            return {k: (v if k in _NORMS else cast(v))
+            return {k: (v if k in _FLOAT32 else cast(v))
                     for k, v in tree.items()}
         return tree.to(dtype)
     return cast(params)
@@ -96,15 +106,39 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig,
     return x @ table.to(dtype).T
 
 
+def _hybrid_groups(cfg: ModelConfig):
+    """The hybrid's (start, end) core-layer slices; the shared attention
+    block runs before each. The last may be shorter."""
+    k = cfg.hybrid_attn_every
+    return [(s, min(s + k, cfg.num_layers))
+            for s in range(0, cfg.num_layers, k)]
+
+
+def _slice_layers(stacked, s: int, e: int):
+    """Layers [s, e) of a stacked tree, as views."""
+    return tree_map(lambda a: a[s:e], stacked)
+
+
 # ---------------------------------------------------------------------------
 # cache / prefill / decode
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device=None):
+    kind = _layer_kind(cfg)
+    if cfg.family == "hybrid":
+        core = tf.init_layer_cache(cfg, cfg.num_layers, batch, seq_len,
+                                   kind="ssm", dtype=dtype, device=device)
+        shape = (len(_hybrid_groups(cfg)), batch,
+                 attn_lib.cache_len_for(cfg, seq_len), cfg.num_kv_heads,
+                 cfg.head_dim)
+        return {"core": core,
+                "shared": {"k": torch.zeros(shape, dtype=dtype,
+                                            device=device),
+                           "v": torch.zeros(shape, dtype=dtype,
+                                            device=device)}}
     return tf.init_layer_cache(cfg, cfg.num_layers, batch, seq_len,
-                               kind=_layer_kind(cfg), dtype=dtype,
-                               device=device)
+                               kind=kind, dtype=dtype, device=device)
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -117,9 +151,24 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     x = _embed(params, tokens, cfg, dtype)
     S = x.shape[1]
     pos = torch.arange(S, device=x.device)
-    x, cache = tf.stack_prefill(params["layers"], x, cfg, kind=kind,
-                                positions=pos, dtype=dtype, ring_len=ring,
-                                seq_len=S)
+    if cfg.family == "hybrid":
+        core, shared = [], []
+        for s, e in _hybrid_groups(cfg):
+            x, sc = tf.layer_prefill(params["shared_attn"], x, cfg,
+                                     kind="dense", positions=pos,
+                                     dtype=dtype, ring_len=ring, seq_len=S)
+            shared.append(sc)
+            x, cc = tf.stack_prefill(_slice_layers(params["layers"], s, e),
+                                     x, cfg, kind="ssm", positions=pos,
+                                     dtype=dtype, ring_len=ring, seq_len=S)
+            core.append(cc)
+        cache = {"core": {k: torch.cat([c[k] for c in core])
+                          for k in core[0]},
+                 "shared": stack_trees(shared)}
+    else:
+        x, cache = tf.stack_prefill(params["layers"], x, cfg, kind=kind,
+                                    positions=pos, dtype=dtype,
+                                    ring_len=ring, seq_len=S)
     return cache, _logits(params, x[:, -1:].contiguous(), cfg, dtype)
 
 
@@ -131,8 +180,18 @@ def decode_step(params, token: torch.Tensor, cache, cache_pos: torch.Tensor,
     updated in place and returned."""
     kind = _layer_kind(cfg)
     x = _embed(params, token, cfg, dtype)
-    x, cache = tf.stack_decode(params["layers"], x, cache, cache_pos, cfg,
-                               kind=kind, dtype=dtype)
+    if cfg.family == "hybrid":
+        for gi, (s, e) in enumerate(_hybrid_groups(cfg)):
+            sc = {"k": cache["shared"]["k"][gi],
+                  "v": cache["shared"]["v"][gi]}
+            x, _ = tf.layer_decode(params["shared_attn"], x, sc, cache_pos,
+                                   cfg, kind="dense", dtype=dtype)
+            x, _ = tf.stack_decode(_slice_layers(params["layers"], s, e), x,
+                                   _slice_layers(cache["core"], s, e),
+                                   cache_pos, cfg, kind="ssm", dtype=dtype)
+    else:
+        x, cache = tf.stack_decode(params["layers"], x, cache, cache_pos,
+                                   cfg, kind=kind, dtype=dtype)
     return _logits(params, x, cfg, dtype), cache
 
 
@@ -149,11 +208,22 @@ def _attn_params(cfg: ModelConfig) -> int:
     return n
 
 
+def _ssm_params(cfg: ModelConfig) -> int:
+    d_inner, H, conv_ch, d_in_proj = ssm_lib.ssm_dims(cfg)
+    return (cfg.d_model * d_in_proj + cfg.ssm.conv_dim * conv_ch + conv_ch
+            + 3 * H + d_inner + d_inner * cfg.d_model)
+
+
 def count_params_analytic(cfg: ModelConfig) -> int:
-    _layer_kind(cfg)
+    kind = _layer_kind(cfg)
     D, V = cfg.d_model, cfg.vocab_size
     total = V * D + D
     if not cfg.tie_embeddings:
         total += V * D
-    per = _attn_params(cfg) + 2 * D + 3 * D * cfg.d_ff
-    return total + cfg.num_layers * per
+    dense = _attn_params(cfg) + 2 * D + 3 * D * cfg.d_ff
+    if kind == "dense":
+        return total + cfg.num_layers * dense
+    total += cfg.num_layers * (_ssm_params(cfg) + D)
+    if cfg.family == "hybrid":
+        total += dense
+    return total

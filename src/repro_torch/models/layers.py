@@ -1,4 +1,5 @@
-"""Shared layer primitives: init helpers, RMSNorm, rotary, SwiGLU MLP.
+"""Shared layer primitives: init helpers, RMSNorm (plain and gated),
+rotary, SwiGLU MLP.
 
 Counterpart of ``repro/models/layers.py``. Params are plain nested dicts
 of tensors (the JAX package's layout: ``(in, out)`` matrices); compute
@@ -33,6 +34,13 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
              ) -> torch.Tensor:
     """Through the ``rmsnorm`` kernel (its plain version on the CPU)."""
     return kops.rmsnorm(x, weight, eps=eps)
+
+
+def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """Mamba-2 output norm: rms_norm(x * silu(z)), silu in float32 and the
+    product in x's dtype, as the reference."""
+    return rms_norm(x * F.silu(z.float()).to(x.dtype), weight, eps)
 
 
 # ---------------------------------------------------------------------------

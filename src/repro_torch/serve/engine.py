@@ -6,8 +6,10 @@ Counterpart of ``repro/serve/engine.py``. ``make_prefill_step`` /
   decode_step(params, token, cache, cache_pos) -> (logits, cache)
 
 ``greedy_generate`` is the serving path: prefill a batch of prompts, then
-decode greedily with the KV cache. It runs where its tensors are: the
-hand-written kernels on a CUDA device, their plain versions on the CPU.
+decode greedily with the KV cache (the SSM states for the ssm family, both
+for the hybrid; ``_grow_cache`` pads only the attention caches). It runs
+where its tensors are: the hand-written kernels on a CUDA device, their
+plain versions on the CPU.
 The decode position is a device int32 scalar advanced on the device, and
 the cache is written in place, so no step reads a tensor back to the host.
 """

@@ -11,6 +11,7 @@ from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import replay_ops as rops
 from repro_torch.kernels import rmsnorm as rms
+from repro_torch.kernels import ssd_scan as ssd
 
 pytestmark = pytest.mark.gpu
 
@@ -307,3 +308,157 @@ def test_serving_on_the_card_matches_the_cpu(dev):
     assert dict(rops.LAUNCH_COUNTS) == {"rmsnorm": (2 * L + 1) * 7,
                                         "flash_attention": L,
                                         "decode_attention": L * 6}
+
+
+# --------------------------------------------------------------------------- #
+# the SSD scan, and serving the ssm and hybrid families
+# --------------------------------------------------------------------------- #
+
+def assert_scan_close(got, want):
+    """The scan sums products over N and the chunk in another order than
+    the plain version's cuBLAS products: float32 within 1e-5 of the
+    largest |want|; bfloat16 (one rounding of y and the state on each
+    side) within one bf16 rounding step (2**-7 relative) more."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    rtol = 2.0 ** -7 if want.dtype == torch.bfloat16 else 0.0
+    atol = 1e-5 * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 128, 4, 32, 16, 32),
+    (1, 64, 2, 16, 8, 16),
+    (2, 96, 3, 8, 32, 32),
+    (1, 256, 2, 64, 64, 64),
+    (1, 100, 2, 64, 32, 256),        # one ragged chunk
+    (1, 512, 3, 64, 128, 256),       # mamba2's P, N and chunk
+    (2, 512, 2, 128, 128, 128),      # the largest P and N
+    (1, 300, 2, 100, 100, 300 // 2),  # P, N not multiples of 16
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain(dev, B, S, H, P, N, chunk, dtype):
+    g = torch.Generator(device=dev).manual_seed(S * H + N)
+    x = (torch.randn((B, S, H, P), generator=g, device=dev) * 0.5).to(dtype)
+    dtA = -torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=dev)) * 0.3
+    Bm = (torch.randn((B, S, H, N), generator=g, device=dev) * 0.5).to(dtype)
+    Cm = (torch.randn((B, S, H, N), generator=g, device=dev) * 0.5).to(dtype)
+    y, fin = ssd.ssd_scan(x, dtA, Bm, Cm, chunk=chunk)
+    wy, wfin = ssd.ssd_scan_ref(x, dtA, Bm, Cm, chunk=chunk)
+    assert_scan_close(y, wy)
+    assert_scan_close(fin, wfin)
+    assert rops.LAUNCH_COUNTS["ssd_scan"] == 1
+
+
+def test_ssd_scan_wrapper_validates_operands(dev):
+    x = torch.ones((1, 64, 2, 16), device=dev)
+    dtA = -torch.ones((1, 64, 2), device=dev)
+    Bm = torch.ones((1, 64, 2, 8), device=dev)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x, dtA.bfloat16(), Bm, Bm, chunk=64)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x.bfloat16(), dtA, Bm, Bm, chunk=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dtA,
+                     Bm, Bm, chunk=64)
+    with pytest.raises(ValueError, match="must divide"):
+        ssd.ssd_scan(x, dtA, Bm, Bm, chunk=48)
+    # the kernel's limits, from the binding: P and N <= 128, chunk <= 256
+    wide = torch.ones((1, 64, 2, 129), device=dev)
+    with pytest.raises(RuntimeError, match="P and N"):
+        ssd.ssd_scan(wide, dtA, Bm, Bm, chunk=64)
+    with pytest.raises(RuntimeError, match="P and N"):
+        ssd.ssd_scan(x, dtA, wide, wide, chunk=64)
+    S = 512
+    with pytest.raises(RuntimeError, match="chunk in"):
+        ssd.ssd_scan(torch.ones((1, S, 2, 16), device=dev),
+                     -torch.ones((1, S, 2), device=dev),
+                     torch.ones((1, S, 2, 8), device=dev),
+                     torch.ones((1, S, 2, 8), device=dev), chunk=S)
+    assert sum(rops.LAUNCH_COUNTS.values()) == 0
+
+
+def _binding_case(name, dev):
+    """A call of a registered op that fails one of the binding's checks
+    whose message holds an integer."""
+    ops = torch.ops.repro_torch
+    f32 = dict(device=dev)
+    i32 = dict(device=dev, dtype=torch.int32)
+    if name == "ring_write_capacity":
+        d = torch.ones((8, 3), **f32)
+        return lambda: ops.ring_write(d, torch.ones((5, 3), **f32),
+                                      torch.zeros(1, **i32), None, 4)
+    if name in ("per_topk_k", "per_topk_scratch"):
+        k = 9 if name == "per_topk_k" else 4
+        pri = torch.ones(8, **f32)
+        return lambda: ops.per_topk(
+            pri, pri, None, torch.zeros(1, device=dev, dtype=torch.int64),
+            torch.empty(k, **f32), torch.empty(k, **i32), 0.6, k)
+    if name in ("flash_heads", "flash_head_dim"):
+        H, d = (3, 8) if name == "flash_heads" else (2, 256)
+        q = torch.ones((1, 4, H, d), **f32)
+        kv = torch.ones((1, 4, 2, d), **f32)
+        return lambda: ops.flash_attention(q, kv, kv, torch.empty_like(q),
+                                           True, None, 0.1)
+    if name in ("decode_group", "decode_empty_cache"):
+        H, S = (34, 8) if name == "decode_group" else (4, 0)
+        q = torch.ones((1, H, 8), **f32)
+        kv = torch.ones((1, S, 2, 8), **f32)
+        return lambda: ops.decode_attention(q, kv, kv, torch.ones(1, **i32),
+                                            torch.empty_like(q), 0.1)
+    S, P, chunk = (64, 129, 64) if name == "ssd_dims" else (512, 16, 512)
+    x = torch.ones((1, S, 2, P), **f32)
+    b = torch.ones((1, S, 2, 8), **f32)
+    return lambda: ops.ssd_scan(x, -torch.ones((1, S, 2), **f32), b, b,
+                                torch.empty_like(x), x.new_empty((1, 2, P, 8)),
+                                chunk)
+
+
+@pytest.mark.parametrize("name", [
+    "ring_write_capacity", "per_topk_k", "per_topk_scratch", "flash_heads",
+    "flash_head_dim", "decode_group", "decode_empty_cache", "ssd_dims",
+    "ssd_chunk"])
+def test_binding_checks_with_numbers_raise(dev, name):
+    """Every check in binding.cpp whose message holds an integer raises a
+    RuntimeError naming the number: streamed into the message as an
+    integer, it crashes the process instead, so ``num`` formats it."""
+    from repro_torch.kernels._build import load_kernels
+    load_kernels()
+    with pytest.raises(RuntimeError, match=r"\d"):
+        _binding_case(name, dev)()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("arch,layers", [("mamba2-130m", 2),
+                                         ("zamba2-1.2b", 5)])
+def test_ssm_serving_on_the_card_matches_the_cpu(dev, arch, layers):
+    """Reduced mamba2 / zamba2 (groups (0, 2), (2, 4), (4, 5)) at float32
+    compute, the same parameters and prompts: prefill (two chunks of 32)
+    plus 6 decode steps give the same tokens on the card as on the CPU,
+    through the kernels."""
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape, RunConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import factory
+    from repro_torch.serve.engine import greedy_generate
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch).reduced(num_layers=layers)
+    shape = InputShape("s", seq_len=64, global_batch=2, kind="prefill")
+    rc = RunConfig(model=cfg, shape=shape, compute_dtype="float32")
+    params = factory.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = make_batch(cfg, shape, torch.Generator().manual_seed(1))
+    want = greedy_generate(rc, params, batch, 64, 6)
+    rops.reset_launch_counts()
+    got = greedy_generate(rc, tree_map(lambda a: a.to(dev), params),
+                          {"tokens": batch["tokens"].to(dev)}, 64, 6)
+    assert torch.equal(got.cpu(), want)
+    L = cfg.num_layers
+    n_inv = len(factory._hybrid_groups(cfg)) if cfg.family == "hybrid" \
+        else 0
+    expect = {"rmsnorm": (2 * L + 1 + 2 * n_inv) * 7, "ssd_scan": L}
+    if n_inv:
+        expect.update(flash_attention=n_inv, decode_attention=n_inv * 6)
+    assert dict(rops.LAUNCH_COUNTS) == expect

@@ -1,8 +1,10 @@
-"""The port's LM model stack against the JAX package, on the CPU: configs,
-layers (RMSNorm, RoPE, SwiGLU), attention (prefill and one decode step
-with its cache write, the sliding-window ring included), one dense layer,
-parameter counts and layouts, and the interop round trip (the factory's
-prefill and decode steps are held in ``test_torch_serve.py``). Parameters and tokens are the reference's, carried across
+"""The port's LM model stack against the JAX package, on the CPU: configs
+(dense, ssm and hybrid), layers (RMSNorm, RoPE, SwiGLU), attention
+(prefill and one decode step with its cache write, the sliding-window
+ring included), one dense layer, parameter counts and layouts, and the
+interop round trip (the SSM block is held in ``test_torch_ssm.py``, the
+factory's prefill and decode steps in ``test_torch_serve.py``).
+Parameters and tokens are the reference's, carried across
 through numpy (``repro_torch.interop``); the JAX side runs its Pallas
 kernels in interpret mode (``use_pallas(True)``), the port its plain
 versions.
@@ -39,6 +41,7 @@ torch.set_num_threads(2)
 
 RTOL, ATOL = 1e-5, 2e-5
 DENSE = ("qwen2-0.5b", "smollm-360m", "h2o-danube-1.8b")
+PORTED = DENSE + ("mamba2-130m", "zamba2-1.2b")
 
 
 def close(got, want, rtol=RTOL, atol=ATOL):
@@ -77,22 +80,24 @@ def jax_params(cfg, seed=0):
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_configs_equal_the_reference(arch):
     want = jax_get_config(arch)
     got = get_config(arch)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert dataclasses.asdict(got.reduced()) == \
         dataclasses.asdict(want.reduced())
-    assert sorted(ARCHS) == sorted(DENSE)
+    assert dataclasses.asdict(got.reduced(num_layers=5)) == \
+        dataclasses.asdict(want.reduced(num_layers=5))
+    assert sorted(ARCHS) == sorted(PORTED)
 
 
 def test_unported_arch_and_family_raise():
-    with pytest.raises(KeyError, match="mamba2-130m"):
-        get_config("mamba2-130m")
+    with pytest.raises(KeyError, match="mixtral-8x7b"):
+        get_config("mixtral-8x7b")
     cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
-                              family="ssm")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*ssd_scan"):
+                              family="moe")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*MoE"):
         tfactory.init_params(cfg, torch.Generator())
 
 
@@ -100,7 +105,7 @@ def test_unported_arch_and_family_raise():
 # parameters: layout, counts, interop
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_init_params_layout_matches_the_reference(arch):
     """Same tree, same shapes, same dtypes, leaf for leaf (JAX's shapes via
     ``eval_shape``, the port's on the meta device: nothing is drawn)."""
@@ -128,7 +133,7 @@ def test_count_params_analytic_qwen2_full_width():
         jax_get_config("qwen2-0.5b"))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_count_params_analytic_matches_the_reference(arch):
     assert tfactory.count_params_analytic(get_config(arch)) == \
         jfactory.count_params_analytic(jax_get_config(arch))

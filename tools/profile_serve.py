@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the port's serving path spends its time on the card.
 
-    python3 tools/profile_serve.py
+    python3 tools/profile_serve.py [--arch qwen2-0.5b|mamba2-130m|zamba2-1.2b]
 
-Builds full-width qwen2-0.5b (random weights from seed 0, bf16 compute),
+Builds the full-width model (qwen2-0.5b unless ``--arch`` names another
+served one; random weights from seed 0, bf16 compute),
 prefills 8 prompts of 1024 tokens, warms up, then runs one prefill and
 16 decode steps under ``torch.profiler`` and prints one JSON line per
 phase: host wall time per call, device busy time (the summed duration
@@ -12,6 +13,7 @@ idle share of the wall, device ops per call, the device time of the
 port's own kernels, and the ops that take the most device time. Needs a
 CUDA device.
 """
+import argparse
 import json
 import os
 import sys
@@ -21,12 +23,15 @@ from device_profile import card_line, profiled
 STEPS = 16
 B, PROMPT, GEN = 8, 1024, 64
 # the device functions of src/repro_torch/kernels/csrc/{rmsnorm,
-# flash_attention,decode_attention}.cu
+# flash_attention,decode_attention,ssd_scan}.cu
 PORT_KERNELS = ("rmsnorm_kernel", "flash_kernel", "decode_split_kernel",
-                "decode_combine_kernel")
+                "decode_combine_kernel", "ssd_scan_kernel")
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -41,7 +46,7 @@ def main():
 
     card = card_line()
     dev = torch.device("cuda")
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config(args.arch)
     shape = InputShape("serve", seq_len=PROMPT, global_batch=B,
                        kind="prefill")
     rc = RunConfig(model=cfg, shape=shape)
@@ -65,7 +70,7 @@ def main():
         port = {k: sum(v for n, v in per_op.items() if k in n) / 1e3
                 for k in PORT_KERNELS}
         print(json.dumps({
-            "card": card, "phase": name, "calls": reps,
+            "card": card, "arch": args.arch, "phase": name, "calls": reps,
             "wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": 1 - busy / wall,
             "device_ops": ops, "port_kernels_ms": port,
