@@ -8,22 +8,30 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
   1. the card's name and power limit, and the float32 matmul settings;
   2. build the Hopper kernels from ``src/repro_torch/kernels/csrc`` (timed);
-  3. hold each kernel against its plain PyTorch version on the card at
-     the training path's shapes (max abs error must be 0: the ring ops and
-     the scatter copy, the top-k selects), then time kernel, plain
-     version and the library call with CUDA events;
+  3. hold each replay kernel against its plain PyTorch version on the
+     card at the training path's shapes (max abs error must be 0: the ring
+     ops, the row-at-a-time baselines and the scatter copy, the score pass
+     and the top-k compute the plain version's bits), then time kernel,
+     plain version and the library call with CUDA events; then run the
+     replay-kernel bench (``repro_torch.benchmarks.replay_kernels``, the
+     path of ``per_scores`` and the two row-at-a-time kernels) at its
+     tiny and full presets, counters reset just before each and read
+     just after, every oracle check holding;
   4. port on the card against port on the CPU, same start state and same
-     draws, small sizes, uniform and prioritized replay: every replay
-     row, priority, counter and parameter agrees;
+     draws, small sizes, SAC, TD3 and DDPG, each with uniform and with
+     prioritized replay: every replay row, priority, counter and
+     parameter agrees;
   5. drive ``SpreezeTrainer.train`` at the reference's full widths
      (hidden 256x256, batch 8192, capacity 262144, 16 envs x 32 steps,
-     4 updates a round, 4 rounds a megastep), once with uniform replay and
-     once with prioritized replay (alpha 0.6, beta 0.4), with the launch
-     counters reset just before each run and read just after: each kernel
-     must have been launched exactly as often as the path implies;
+     4 updates a round, 4 rounds a megastep): SAC with uniform replay and
+     with prioritized replay (alpha 0.6, beta 0.4), TD3 with uniform
+     replay and DDPG with prioritized replay, with the launch counters
+     reset just before each run and read just after: each kernel must
+     have been launched exactly as often as the path implies;
   6. time the layers of one round at full width (sampler chunk, ring
-     write, SAC update) with CUDA synchronisation around each, for both
-     paths, and the parts of one PER update;
+     write, update round) and a megastep with CUDA synchronisation around
+     each, for each of those paths, and the parts of one PER update; then
+     run the training launcher once (``rl --algo td3 --seconds 2``);
   7. hold the LM model kernels (rmsnorm, flash_attention,
      decode_attention) against their plain versions on the card at the
      serving path's shapes, in float32 (max abs error <= 1e-5: the
@@ -164,9 +172,12 @@ def check_ring_gather(rops, dev):
     return worst
 
 
-def time_ring_write(rops, dev):
-    """Times one round's ring write: the six fields, n = 512 rows each."""
+def time_ring_write(rops, dev, kernel_fn=None):
+    """Times one round's ring write: the six fields, n = 512 rows each,
+    with ``kernel_fn`` (``ring_write`` by default, or the row-at-a-time
+    baseline); the plain version is ``ring_write_ref`` for both."""
     import torch
+    kernel_fn = kernel_fn or rops.ring_write
     g = torch.Generator(device=dev).manual_seed(3)
     data = {k: torch.randn((CAPACITY, w), generator=g, device=dev)
             for k, w in FIELD_WIDTHS.items()}
@@ -177,7 +188,7 @@ def time_ring_write(rops, dev):
 
     def kernel():
         for k in data:
-            rops.ring_write(data[k], batch[k], ptr)
+            kernel_fn(data[k], batch[k], ptr)
 
     def plain():
         for k in data:
@@ -195,9 +206,13 @@ def time_ring_write(rops, dev):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
-def time_ring_gather(rops, dev):
-    """Times one update's gather: the six fields, B = 8192 uniform rows."""
+def time_ring_gather(rops, dev, kernel_fn=None, plain_fn=None):
+    """Times one update's gather: the six fields, B = 8192 uniform rows,
+    with ``kernel_fn`` and ``plain_fn`` (``ring_gather`` and its plain
+    version by default, or the row-at-a-time baseline and its own)."""
     import torch
+    kernel_fn = kernel_fn or rops.ring_gather
+    plain_fn = plain_fn or rops.ring_gather_ref
     g = torch.Generator(device=dev).manual_seed(4)
     data = {k: torch.randn((CAPACITY, w), generator=g, device=dev)
             for k, w in FIELD_WIDTHS.items()}
@@ -207,11 +222,11 @@ def time_ring_gather(rops, dev):
 
     def kernel():
         for v in data.values():
-            rops.ring_gather(v, idx)
+            kernel_fn(v, idx)
 
     def plain():
         for v in data.values():
-            rops.ring_gather_ref(v, idx)
+            plain_fn(v, idx)
 
     def library():
         for v in data.values():
@@ -349,6 +364,103 @@ def time_priority_scatter(rops, dev):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
+def check_per_scores(rops, dev):
+    """Kernel vs plain version over the pool's 262144 rows, half of them
+    zero (the -inf path) and some below the 1e-12 floor: the same -inf
+    set, and max abs error over the finite scores."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(9)
+    pri, gumbel = _per_pool(dev, g, CAPACITY, CAPACITY)
+    pri[torch.rand(CAPACITY, generator=g, device=dev) < 0.5] = 0.0
+    pri[1::97] = 1e-13
+    got = rops.per_scores(pri, gumbel, ALPHA)
+    want = rops.per_scores_ref(pri, gumbel, ALPHA)
+    fin = torch.isfinite(want)
+    require(torch.equal(fin, torch.isfinite(got)) and
+            torch.equal(~fin, pri == 0), "per_scores -inf set")
+    return float((got[fin] - want[fin]).abs().max())
+
+
+def check_ring_write_rowloop(rops, dev):
+    """The row-at-a-time write against its plain version (``ring_write_ref``,
+    no window): each field width, n = 512, a write that wraps mid-batch
+    and one inside the ring."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(10)
+    worst = 0.0
+    for ptr in (CAPACITY - 200, 100_000):
+        for width in sorted(set(FIELD_WIDTHS.values())):
+            data = torch.randn((CAPACITY, width), generator=g, device=dev)
+            batch = torch.randn((ROUND_ROWS, width), generator=g, device=dev)
+            p = torch.tensor(ptr, dtype=torch.int32, device=dev)
+            got = rops.ring_write_rowloop(data.clone(), batch, p)
+            want = rops.ring_write_ref(data.clone(), batch, p)
+            require(torch.equal(got[ptr % CAPACITY], batch[0]),
+                    "ring_write_rowloop missed its first slot")
+            worst = max(worst, float((got - want).abs().max()))
+    return worst
+
+
+def check_ring_gather_rowloop(rops, dev):
+    """The row-at-a-time gather against its plain version: B = 8192 over
+    each field width, with repeats, 0, rows - 1 and indices outside the
+    pool (a negative one from the end once, the rest clamped)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(11)
+    worst = 0.0
+    for width in sorted(set(FIELD_WIDTHS.values())):
+        data = torch.randn((CAPACITY, width), generator=g, device=dev)
+        drawn = torch.randint(0, CAPACITY, (BATCH // 2 - 4,), generator=g,
+                              device=dev)
+        idx = torch.cat([drawn, drawn,                     # repeats
+                         torch.tensor([0, CAPACITY - 1, CAPACITY + 2, -3],
+                                      device=dev)]).to(torch.int32)
+        got = rops.ring_gather_rowloop(data, idx)
+        want = rops.ring_gather_rowloop_ref(data, idx)
+        require(torch.equal(got[-4:], data[[0, CAPACITY - 1, CAPACITY - 1,
+                                            CAPACITY - 3]]),
+                "ring_gather_rowloop's index rule")
+        worst = max(worst, float((got - want).abs().max()))
+    return worst
+
+
+def time_per_scores(rops, dev):
+    """Times the score pass over a full pool (262144 rows). No single
+    PyTorch call computes it (the library arm of per_topk chains five)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(12)
+    pri, gumbel = _per_pool(dev, g, CAPACITY, CAPACITY)
+    # both vectors read once, the scores written once
+    moved = 3 * CAPACITY * 4
+    return {"ms": event_ms(lambda: rops.per_scores(pri, gumbel, ALPHA)),
+            "plain_ms": event_ms(
+                lambda: rops.per_scores_ref(pri, gumbel, ALPHA)),
+            "library_ms": None, "library": "none (no single PyTorch call)",
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def run_bench(dev, tiny):
+    """The port's replay-kernel bench (``repro_torch.benchmarks.
+    replay_kernels``), one preset, with the counters reset just before
+    and read just after: each arm's kernel runs 1 + WARMUP + iters times
+    (its check, the warm-up, the timed calls), ``per_scores`` in two arms
+    (its own and ``global_topk``), ``per_topk`` 4 more times (the
+    two-phase check). Every oracle check must hold."""
+    from repro_torch.benchmarks import replay_kernels as bench
+    from repro_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    reset_launch_counts()
+    report, ok = bench.run(tiny=tiny, device=dev)
+    launches = dict(LAUNCH_COUNTS)
+    require(ok and report["oracle_ok"], f"bench oracle failed: {report}")
+    calls = 1 + bench.WARMUP + report["config"]["iters"]
+    expect = {"ring_write": calls, "ring_write_rowloop": calls,
+              "ring_gather": calls, "ring_gather_rowloop": calls,
+              "per_scores": 2 * calls, "per_topk": calls + bench.WINDOWS}
+    require(launches == expect,
+            f"bench launches {launches} != expected {expect}")
+    return report, launches
+
+
 class HostDraws:
     """Draws made on the CPU from a seed and then moved to ``device``, so
     two trainers on different devices consume the same numbers."""
@@ -367,33 +479,35 @@ class HostDraws:
         reset = self.env.reset_draws(num_envs, self.gen)
         return self._to(eps), {k: self._to(v) for k, v in reset.items()}
 
-    def update(self, replay, batch_size, act_dim):
+    def _noises(self, noises, batch_size, act_dim):
+        import torch
+        eps = torch.randn((noises, batch_size, act_dim), generator=self.gen)
+        return tuple(self._to(e) for e in eps)
+
+    def update(self, replay, batch_size, act_dim, noises=2):
         import torch
         raw = torch.randint(0, 2 ** 31 - 1, (batch_size,),
                             generator=self.gen, dtype=torch.int32)
-        eps = self._to(torch.randn((2, batch_size, act_dim),
-                                   generator=self.gen))
-        return (self._to(raw) % torch.clamp(replay.size, min=1),
-                eps[0], eps[1])
+        return ((self._to(raw) % torch.clamp(replay.size, min=1),)
+                + self._noises(noises, batch_size, act_dim))
 
-    def per_update(self, capacity, batch_size, act_dim):
+    def per_update(self, capacity, batch_size, act_dim, noises=2):
         import torch
         u = torch.rand((capacity,), generator=self.gen).clamp_(min=1e-12)
-        eps = self._to(torch.randn((2, batch_size, act_dim),
-                                   generator=self.gen))
-        return self._to(-torch.log(-torch.log(u))), eps[0], eps[1]
+        return ((self._to(-torch.log(-torch.log(u))),)
+                + self._noises(noises, batch_size, act_dim))
 
     def eval_reset(self, n):
         return {k: self._to(v)
                 for k, v in self.env.reset_draws(n, self.gen).items()}
 
 
-def check_device_vs_cpu(dev, prioritized=False):
-    """The port's megastep on the card (kernels) against the port on the
-    CPU (plain versions) from one start state with the same draws. The
-    CPU side is the one the test suite holds against the JAX package.
-    Under PER the batch (100) exceeds the 96 rows written before the
-    first update, so the first round's updates cycle their draws and
+def check_device_vs_cpu(dev, prioritized=False, algo="sac"):
+    """The port's megastep with ``algo`` on the card (kernels) against the
+    port on the CPU (plain versions) from one start state with the same
+    draws. The CPU side is the one the test suite holds against the JAX
+    package. Under PER the batch (100) exceeds the 96 rows written before
+    the first update, so the first round's updates cycle their draws and
     re-prioritise repeated rows."""
     import numpy as np
     from repro_torch import interop
@@ -405,7 +519,7 @@ def check_device_vs_cpu(dev, prioritized=False):
     def cfg(device):
         # capacity 100 is not a multiple of the 32 rows a round writes:
         # writes wrap mid-batch, and sampling runs past the alignment
-        return SpreezeConfig(num_envs=4, chunk_len=8,
+        return SpreezeConfig(algo=algo, num_envs=4, chunk_len=8,
                              batch_size=100 if prioritized else 256,
                              replay_capacity=100, warmup_frames=64,
                              updates_per_round=2, rounds_per_dispatch=2,
@@ -457,8 +571,9 @@ def check_device_vs_cpu(dev, prioritized=False):
     return worst, rtol, atol
 
 
-def run_main_path(rops, dev, megasteps, prioritized=False):
-    """SpreezeTrainer.train at full width; counters reset just before.
+def run_main_path(rops, dev, megasteps, prioritized=False, algo="sac"):
+    """SpreezeTrainer.train with ``algo`` at full width; counters reset
+    just before.
     Per warmup chunk or round: one ring write per field, plus one for
     the priorities under PER; per update: one gather per field, plus the
     priority mass, one top-k and one scatter under PER."""
@@ -468,7 +583,7 @@ def run_main_path(rops, dev, megasteps, prioritized=False):
     from repro_torch.core import SpreezeConfig, SpreezeTrainer
     from repro_torch.rl import AlgoHP
 
-    cfg = SpreezeConfig(num_envs=16, batch_size=BATCH,
+    cfg = SpreezeConfig(algo=algo, num_envs=16, batch_size=BATCH,
                         replay_capacity=CAPACITY, warmup_frames=2048,
                         chunk_len=32, updates_per_round=4,
                         rounds_per_dispatch=4, eval_every_rounds=16,
@@ -512,15 +627,17 @@ def run_main_path(rops, dev, megasteps, prioritized=False):
     for k, v in tr.last_metrics.items():
         require(v.shape == (cfg.rounds_per_dispatch,) and
                 bool(torch.isfinite(v).all()), f"metric {k}")
-    require(len(hist.eval_returns) == rounds // cfg.eval_every_rounds and
+    # an eval in every megastep whose rounds hold a multiple of 16
+    require(len(hist.eval_returns) == -(-rounds // cfg.eval_every_rounds) and
             all(math.isfinite(r) for r in hist.eval_returns),
             f"eval returns {hist.eval_returns}")
     return tr, hist, launches
 
 
 def time_layers(tr):
-    """Host wall time of each layer of one full-width round, with the
-    device synchronised around it (so each includes its launch cost)."""
+    """Host wall time of each layer of one full-width round (sampler
+    chunk, ring write, update round) and of a megastep, with the device
+    synchronised around each (so each includes its launch cost)."""
     import torch
 
     def timed(fn, reps=8):
@@ -551,7 +668,7 @@ def time_per_update_parts(tr):
     """Host wall time of the four parts of one full-width PER update,
     each with the device synchronised around it: the draws (Gumbel field
     over the pool + action noise), the sample (top-k, cycling, 7
-    gathers, importance weights), the weighted SAC step, and the
+    gathers, importance weights), the weighted update, and the
     re-prioritisation."""
     import torch
     from repro_torch.replay import prioritized as per
@@ -567,18 +684,20 @@ def time_per_update_parts(tr):
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t) / reps * 1e3
 
-    (gumbel, e1, e2), draws_ms = timed(lambda: tr.draws.per_update(
-        cfg.replay_capacity, cfg.batch_size, act_dim))
+    (gumbel, *eps), draws_ms = timed(lambda: tr.draws.per_update(
+        cfg.replay_capacity, cfg.batch_size, act_dim,
+        tr.algo.UPDATE_NOISES))
     (batch, idx, w), sample_ms = timed(lambda: per.sample(
         tr.replay, gumbel, cfg.batch_size, alpha=cfg.per_alpha,
         beta=cfg.per_beta))
     batch["weight"] = w
-    (_, metrics), update_ms = timed(lambda: tr._update(tr.state, batch, e1,
-                                                       e2))
+    (_, metrics), update_ms = timed(lambda: tr._update(tr.state, batch,
+                                                       *eps))
     _, scatter_ms = timed(lambda: per.update_priorities(
         tr.replay, idx, metrics["td_abs"]))
     return {"per_draws_ms": draws_ms, "per_sample_ms": sample_ms,
-            "sac_update_ms": update_ms, "reprioritise_ms": scatter_ms}
+            f"{cfg.algo}_update_ms": update_ms,
+            "reprioritise_ms": scatter_ms}
 
 
 def kernel_close(got, want):
@@ -938,6 +1057,24 @@ def run_serving_main_path(dev, arch):
     return stats, launches
 
 
+def run_launcher():
+    """One short run of the training launcher, in this process, as a user
+    calls it: ``rl --algo td3 --seconds 2`` (full widths, the card). Its
+    JSON report must parse, with every rate > 0."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(["rl", "--algo", "td3", "--seconds", "2"])
+    text = out.getvalue()
+    report = json.loads(text[text.index("{"):])
+    require(rc == 0 and all(report[k] > 0 for k in
+                            ("sampling_hz", "update_hz", "update_frame_hz")),
+            f"launcher report {report}")
+    return report
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -964,32 +1101,62 @@ def main():
     errs = {"ring_write": check_ring_write(rops, dev),
             "ring_gather": check_ring_gather(rops, dev),
             "per_topk": check_per_topk(rops, dev),
-            "priority_scatter": check_priority_scatter(rops, dev)}
+            "priority_scatter": check_priority_scatter(rops, dev),
+            "per_scores": check_per_scores(rops, dev),
+            "ring_write_rowloop": check_ring_write_rowloop(rops, dev),
+            "ring_gather_rowloop": check_ring_gather_rowloop(rops, dev)}
     for name, err in errs.items():
         require(err == 0.0, f"{name} differs from its plain version: {err}")
     timing = {"ring_write": time_ring_write(rops, dev),
               "ring_gather": time_ring_gather(rops, dev),
               "per_topk": time_per_topk(rops, dev),
-              "priority_scatter": time_priority_scatter(rops, dev)}
+              "priority_scatter": time_priority_scatter(rops, dev),
+              "per_scores": time_per_scores(rops, dev),
+              "ring_write_rowloop": time_ring_write(
+                  rops, dev, rops.ring_write_rowloop),
+              "ring_gather_rowloop": time_ring_gather(
+                  rops, dev, rops.ring_gather_rowloop,
+                  rops.ring_gather_rowloop_ref)}
     for name in errs:
         print(f"{name}: max_abs_err {errs[name]} " + " ".join(
             f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in timing[name].items()), flush=True)
 
-    for prioritized, label in ((False, "uniform"), (True, "PER")):
-        worst, rtol, atol = check_device_vs_cpu(dev, prioritized)
-        print(f"port on cuda vs port on cpu ({label}, 3 megasteps, small):"
+    # each main path with its own counts: zeroed just before, read after;
+    # the kernels line sums them
+    launches = {}
+
+    def add_launches(counts):
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+
+    # the replay-kernel bench: the path of per_scores and the rowloops
+    for tiny in (True, False):
+        report, counts = run_bench(dev, tiny)
+        add_launches(counts)
+        print(f"bench ({'tiny' if tiny else 'full'}): " + json.dumps(
+            {**report, "launches": counts, "card": card}), flush=True)
+
+    for algo, prioritized in (("sac", False), ("sac", True),
+                              ("td3", False), ("td3", True),
+                              ("ddpg", False), ("ddpg", True)):
+        worst, rtol, atol = check_device_vs_cpu(dev, prioritized, algo)
+        print(f"port on cuda vs port on cpu ({algo}, "
+              f"{'PER' if prioritized else 'uniform'}, 3 megasteps, small):"
               f" params max abs diff {worst:.3g} within rtol {rtol} atol "
               f"{atol}", flush=True)
 
-    # each main path with its own counts: zeroed just before, read after
-    launches = {}
-    for prioritized, megasteps in ((False, 12), (True, 24)):
+    for algo, prioritized, megasteps in (("sac", False, 12),
+                                         ("sac", True, 24),
+                                         ("td3", False, 6),
+                                         ("ddpg", True, 6)):
         label = "PER" if prioritized else "uniform"
-        tr, hist, counts = run_main_path(rops, dev, megasteps, prioritized)
-        for name, c in counts.items():
-            launches[name] = launches.get(name, 0) + c
-        rates = {"replay": label, "megasteps": megasteps,
+        if algo != "sac":
+            label = f"{algo.upper()} {label}"
+        tr, hist, counts = run_main_path(rops, dev, megasteps, prioritized,
+                                         algo)
+        add_launches(counts)
+        rates = {"algo": algo, "replay": label, "megasteps": megasteps,
                  "sampling_hz": hist.sampling_hz,
                  "update_hz": hist.update_hz,
                  "update_frame_hz": hist.update_frame_hz,
@@ -1004,6 +1171,8 @@ def main():
               flush=True)
         del tr
         torch.cuda.empty_cache()
+    print("launcher (rl --algo td3 --seconds 2): " + json.dumps(
+        {**run_launcher(), "card": card}), flush=True)
 
     # the LM model kernels, then the serving path
     model_errs = check_model_kernels(dev)
@@ -1033,8 +1202,7 @@ def main():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         stats, counts = run_serving_main_path(dev, arch)
-        for name, c in counts.items():
-            launches[name] = launches.get(name, 0) + c
+        add_launches(counts)
         print(f"serving main path ({arch}): " +
               json.dumps({**stats, "card": card}), flush=True)
         for k in ("tokens_per_s", "prefill_ms", "decode_step_ms",
@@ -1050,7 +1218,10 @@ def main():
                                    "flash_attention.py:77"),
                "decode_attention": ("decode_attention.cu",
                                     "decode_attention.py:63"),
-               "ssd_scan": ("ssd_scan.cu", "ssd_scan.py:76")}
+               "ssd_scan": ("ssd_scan.cu", "ssd_scan.py:76"),
+               "per_scores": ("per_ops.cu", "replay_ops.py:369"),
+               "ring_write_rowloop": ("ring_ops.cu", "replay_ops.py:609"),
+               "ring_gather_rowloop": ("ring_ops.cu", "replay_ops.py:644")}
     kernels = [{"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/" + src,
                 "replaces": "src/repro/kernels/" + tpu,

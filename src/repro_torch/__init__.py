@@ -5,6 +5,8 @@ only. Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU and without that explicit request it
 raises (``resolve_device``) rather than quietly running on the CPU.
 """
+import subprocess
+
 import torch
 
 
@@ -18,3 +20,14 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the CPU")
     return dev
+
+
+def card_line(device) -> str:
+    """The card's name and power limit as nvidia-smi gives them, or
+    ``device: cpu`` for a CPU run."""
+    if torch.device(device).type != "cuda":
+        return "device: cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]

@@ -1,11 +1,12 @@
 """The Spreeze trainer: sampler chunk -> ring write -> K updates, fused
 into megasteps of R rounds. Counterpart of the single-device path of
-``repro/core/pipeline.py``, with uniform or prioritized replay.
+``repro/core/pipeline.py``, with SAC, TD3 or DDPG and uniform or
+prioritized replay.
 
 One round steps ``num_envs`` pendulums for ``chunk_len`` steps under the
-SAC actor, applies the n-step transform, writes the rows into the
+actor, applies the n-step transform, writes the rows into the
 device-resident replay ring (the ``ring_write`` kernel, one launch per
-field) and runs ``updates_per_round`` SAC updates, each on a batch that
+field) and runs ``updates_per_round`` updates, each on a batch that
 the ``ring_gather`` kernel reads (one launch per field). With
 ``prioritized=True`` the write also tags the new rows with the max
 priority (one more ``ring_write``), and each update draws its batch with
@@ -51,7 +52,7 @@ class SpreezeConfig:
     replay_capacity: int = 262_144
     warmup_frames: int = 2_048
     chunk_len: int = 32           # env steps per sampler chunk
-    updates_per_round: int = 4    # SAC updates per round
+    updates_per_round: int = 4    # updates per round
     rounds_per_dispatch: int = 4  # rounds fused into one megastep
     prioritized: bool = False     # APE-X-style PER on the shared pool
     per_alpha: float = 0.6
@@ -124,25 +125,31 @@ class Draws:
                           device=self.gen.device)
         return eps, self.env.reset_draws(num_envs, self.gen)
 
-    def update(self, replay: rb.ReplayState, batch_size: int, act_dim: int
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """One SAC update's draws: uniform replay indices and the two
-        standard-normal action noises (critic target, actor loss)."""
-        idx = rb.uniform_indices(replay, batch_size, self.gen)
-        eps = torch.randn((2, batch_size, act_dim), generator=self.gen,
-                          device=self.gen.device)
-        return idx, eps[0], eps[1]
+    def _noises(self, noises: int, batch_size: int, act_dim: int
+                ) -> Tuple[torch.Tensor, ...]:
+        if not noises:
+            return ()
+        return torch.randn((noises, batch_size, act_dim), generator=self.gen,
+                           device=self.gen.device).unbind(0)
 
-    def per_update(self, capacity: int, batch_size: int, act_dim: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def update(self, replay: rb.ReplayState, batch_size: int, act_dim: int,
+               noises: int = 2) -> Tuple[torch.Tensor, ...]:
+        """One update's draws: uniform replay indices, then ``noises``
+        standard-normal (batch_size, act_dim) action noises (the
+        algorithm's ``UPDATE_NOISES``; SAC's two: critic target, actor
+        loss)."""
+        idx = rb.uniform_indices(replay, batch_size, self.gen)
+        return (idx,) + self._noises(noises, batch_size, act_dim)
+
+    def per_update(self, capacity: int, batch_size: int, act_dim: int,
+                   noises: int = 2) -> Tuple[torch.Tensor, ...]:
         """One PER update's draws: the Gumbel field (capacity,) over the
-        pool's slots, ``-log(-log(u))`` for u uniform on [1e-12, 1), and
-        the two standard-normal action noises."""
+        pool's slots, ``-log(-log(u))`` for u uniform on [1e-12, 1), then
+        ``noises`` standard-normal action noises."""
         u = torch.rand((capacity,), generator=self.gen,
                        device=self.gen.device).clamp_(min=1e-12)
-        eps = torch.randn((2, batch_size, act_dim), generator=self.gen,
-                          device=self.gen.device)
-        return -torch.log(-torch.log(u)), eps[0], eps[1]
+        return ((-torch.log(-torch.log(u)),)
+                + self._noises(noises, batch_size, act_dim))
 
     def eval_reset(self, n: int) -> Dict[str, torch.Tensor]:
         return self.env.reset_draws(n, self.eval_gen)
@@ -215,28 +222,28 @@ class SpreezeTrainer:
         return states, flat, mrew
 
     def update_round(self, state, replay):
-        """K SAC updates on freshly sampled batches; returns (state, mean
+        """K updates on freshly sampled batches; returns (state, mean
         critic loss). Under PER each update samples, takes the weighted
         step and re-prioritises the drawn rows in ``replay``, in place."""
         cfg = self.cfg
         act_dim = self.env.spec.act_dim
+        noises = self.algo.UPDATE_NOISES
         losses = []
         for _ in range(cfg.updates_per_round):
             if cfg.prioritized:
-                gumbel, eps_next, eps_actor = self.draws.per_update(
-                    cfg.replay_capacity, cfg.batch_size, act_dim)
+                gumbel, *eps = self.draws.per_update(
+                    cfg.replay_capacity, cfg.batch_size, act_dim, noises)
                 batch, idx, w = per.sample(replay, gumbel, cfg.batch_size,
                                            alpha=cfg.per_alpha,
                                            beta=cfg.per_beta)
                 batch["weight"] = w
-                state, metrics = self._update(state, batch, eps_next,
-                                              eps_actor)
+                state, metrics = self._update(state, batch, *eps)
                 per.update_priorities(replay, idx, metrics["td_abs"])
             else:
-                idx, eps_next, eps_actor = self.draws.update(
-                    replay, cfg.batch_size, act_dim)
+                idx, *eps = self.draws.update(replay, cfg.batch_size,
+                                              act_dim, noises)
                 state, metrics = self._update(state, rb.sample(replay, idx),
-                                              eps_next, eps_actor)
+                                              *eps)
             losses.append(metrics["critic_loss"])
         return state, torch.stack(losses).mean()
 

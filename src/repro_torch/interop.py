@@ -74,19 +74,22 @@ def _opt_state(obj, device) -> OptState:
 
 
 def algo_state_from_numpy(state, device) -> AlgoState:
+    """An ``opt_alpha`` of ``None`` (TD3, DDPG) stays ``None``."""
     f = _fields(state, AlgoState._fields)
     opts = ("opt_actor", "opt_q", "opt_alpha")
-    return AlgoState(**{k: (_opt_state(v, device) if k in opts
+    return AlgoState(**{k: (None if v is None else
+                            _opt_state(v, device) if k in opts
                             else to_tensors(v, device))
                         for k, v in f.items()})
 
 
 def algo_state_to_numpy(state: AlgoState) -> Dict[str, Any]:
     """-> dict of the ``AlgoState`` fields; optimizer states as
-    ``{"step", "mu", "nu"}`` dicts."""
+    ``{"step", "mu", "nu"}`` dicts, a ``None`` one as ``None``."""
     out = {}
     for k, v in state._asdict().items():
-        out[k] = ({n: to_numpy(x) for n, x in v._asdict().items()}
+        out[k] = (None if v is None else
+                  {n: to_numpy(x) for n, x in v._asdict().items()}
                   if isinstance(v, OptState) else to_numpy(v))
     return out
 

@@ -1,6 +1,8 @@
 // PyTorch binding of the port's kernels: registers
 // torch.ops.repro_torch.ring_write / ring_gather / per_topk /
-// priority_scatter (replay) and rmsnorm / flash_attention /
+// priority_scatter / per_scores and the bench baselines
+// ring_write_rowloop / ring_gather_rowloop (replay) and rmsnorm /
+// flash_attention /
 // decode_attention / ssd_scan (the LM model) for CUDA tensors. The only
 // source that includes PyTorch's headers, and only the light ones
 // (torch/library.h, not torch/extension.h), to keep the build short.
@@ -85,6 +87,61 @@ void check_vector(const at::Tensor& t, const char* name,
                   c10::ScalarType dtype) {
   check_operand(t, name, dtype);
   TORCH_CHECK(t.dim() == 1, name, " must be 1-d");
+}
+
+void ring_write_rowloop(at::Tensor data, const at::Tensor& batch,
+                        const at::Tensor& ptr) {
+  check_operand(data, "data", at::kFloat);
+  check_operand(batch, "batch", at::kFloat);
+  check_operand(ptr, "ptr", at::kInt);
+  TORCH_CHECK(ptr.numel() == 1, "ptr must be a scalar");
+  TORCH_CHECK(batch.size(0) <= data.size(0), "ring_write_rowloop of ",
+              num(batch.size(0)), " rows into capacity ", num(data.size(0)));
+  TORCH_CHECK(row_width(batch) == row_width(data),
+              "batch and data rows differ in width");
+  if (batch.size(0) == 0) return;
+  const c10::cuda::CUDAGuard guard(data.device());
+  launch_ring_write_rowloop(data.data_ptr<float>(), batch.data_ptr<float>(),
+                            ptr.data_ptr<int32_t>(), batch.size(0),
+                            row_width(data), data.size(0),
+                            c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void ring_gather_rowloop(const at::Tensor& data, const at::Tensor& idx,
+                         at::Tensor out) {
+  check_operand(data, "data", at::kFloat);
+  check_vector(idx, "idx", at::kInt);
+  check_operand(out, "out", at::kFloat);
+  TORCH_CHECK(data.dim() >= 1 && data.size(0) >= 1,
+              "ring_gather_rowloop needs at least 1 data row, got ",
+              num(data.dim() ? data.size(0) : 0));
+  TORCH_CHECK(out.size(0) == idx.numel() && row_width(out) == row_width(data),
+              "out must be (len(idx), row width of data)");
+  if (idx.numel() == 0) return;
+  const c10::cuda::CUDAGuard guard(data.device());
+  launch_ring_gather_rowloop(out.data_ptr<float>(), data.data_ptr<float>(),
+                             idx.data_ptr<int32_t>(), idx.numel(),
+                             row_width(data), data.size(0),
+                             c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void per_scores(const at::Tensor& priorities, const at::Tensor& gumbel,
+                at::Tensor out, double alpha) {
+  check_vector(priorities, "priorities", at::kFloat);
+  check_vector(gumbel, "gumbel", at::kFloat);
+  check_vector(out, "out", at::kFloat);
+  const int64_t rows = priorities.size(0);
+  TORCH_CHECK(gumbel.size(0) == rows && out.size(0) == rows, "gumbel has ",
+              num(gumbel.size(0)), " rows and out ", num(out.size(0)),
+              ", priorities ", num(rows));
+  if (rows == 0) return;
+  const c10::cuda::CUDAGuard guard(priorities.device());
+  launch_per_scores(out.data_ptr<float>(), priorities.data_ptr<float>(),
+                    gumbel.data_ptr<float>(), static_cast<float>(alpha),
+                    rows, c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 void per_topk(const at::Tensor& priorities, const at::Tensor& gumbel,
@@ -279,6 +336,12 @@ TORCH_LIBRARY(repro_torch, m) {
         "float alpha, int k) -> ()");
   m.def("priority_scatter(Tensor(a!) priorities, Tensor idx, "
         "Tensor values, Tensor? window_start, Tensor(b!) owner) -> ()");
+  m.def("per_scores(Tensor priorities, Tensor gumbel, Tensor(a!) out, "
+        "float alpha) -> ()");
+  m.def("ring_write_rowloop(Tensor(a!) data, Tensor batch, Tensor ptr) "
+        "-> ()");
+  m.def("ring_gather_rowloop(Tensor data, Tensor idx, Tensor(a!) out) "
+        "-> ()");
   m.def("rmsnorm(Tensor x, Tensor weight, Tensor(a!) out, float eps) -> ()");
   m.def("flash_attention(Tensor q, Tensor k, Tensor v, Tensor(a!) out, "
         "bool causal, int? window, float scale) -> ()");
@@ -293,6 +356,9 @@ TORCH_LIBRARY_IMPL(repro_torch, CUDA, m) {
   m.impl("ring_gather", &ring_gather);
   m.impl("per_topk", &per_topk);
   m.impl("priority_scatter", &priority_scatter);
+  m.impl("per_scores", &per_scores);
+  m.impl("ring_write_rowloop", &ring_write_rowloop);
+  m.impl("ring_gather_rowloop", &ring_gather_rowloop);
   m.impl("rmsnorm", &rmsnorm);
   m.impl("flash_attention", &flash_attention);
   m.impl("decode_attention", &decode_attention);

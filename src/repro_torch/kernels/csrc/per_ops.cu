@@ -1,9 +1,20 @@
 // Prioritized-replay kernels for Hopper (sm_90a): the fused Gumbel score
-// + top-k selection of a PER batch, and the re-prioritisation scatter.
+// + top-k selection of a PER batch, the re-prioritisation scatter, and
+// the bare score pass.
 //
 // per_topk replaces the TPU kernel repro/kernels/replay_ops.py:per_topk
 // (_per_topk_kernel); priority_scatter replaces
-// repro/kernels/replay_ops.py:priority_scatter (_priority_scatter_kernel).
+// repro/kernels/replay_ops.py:priority_scatter (_priority_scatter_kernel);
+// per_scores replaces repro/kernels/replay_ops.py:per_scores
+// (_per_scores_kernel).
+//
+// per_scores. The TPU kernel walks (1, blk) blocks of the priority vector
+// on a grid, the tail padded; here one thread scores one row of a
+// grid-stride loop and the ragged edge is a bound check. It reads two
+// floats and writes one a row: 12 B, 3.1 MB at 262,144 rows, 0.94 us at
+// 3.35 TB/s, below the cost of a launch, so a launch bounds it. The
+// benchmark's global_topk arm runs it before a library top-k (the path
+// per_topk replaced).
 //
 // per_topk. The TPU kernel streams blocks of the priority window on a
 // sequential grid into one running (1, k) sorted buffer in VMEM. On a GPU
@@ -70,6 +81,30 @@ __device__ __forceinline__ float from_ordered_bits(uint32_t o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
 }
 
+// The Gumbel-top-k score of one row, the one definition per_scores and
+// per_topk share.
+__device__ __forceinline__ float per_score(float p, float g, float alpha) {
+  const float logp =
+      p > 0.0f ? __fmul_rn(alpha, logf(fmaxf(p, 1e-12f))) : -INFINITY;
+  return __fadd_rn(logp, g);
+}
+
+constexpr int kScoreThreads = 256;
+constexpr int64_t kScoreMaxBlocks = 132 * 16;
+
+__global__ void __launch_bounds__(kScoreThreads)
+per_scores_kernel(float* __restrict__ out,
+                  const float* __restrict__ priorities,
+                  const float* __restrict__ gumbel, float alpha,
+                  int64_t rows) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < rows; i += stride) {
+    out[i] = per_score(priorities[i], gumbel[i], alpha);
+  }
+}
+
 // Score, pack, sort one tile of kPerTopkTile keys in shared memory, and
 // write its first `keep` keys to out[tile * keep ...].
 __global__ void __launch_bounds__(kTileThreads)
@@ -83,10 +118,7 @@ score_sort_tile_kernel(const float* __restrict__ priorities,
     const int64_t row = base + i;
     uint64_t key = kPadKey;
     if (row < rows) {
-      const float p = priorities[row];
-      const float logp =
-          p > 0.0f ? __fmul_rn(alpha, logf(fmaxf(p, 1e-12f))) : -INFINITY;
-      const float s = __fadd_rn(logp, gumbel[row]);
+      const float s = per_score(priorities[row], gumbel[row], alpha);
       key = (static_cast<uint64_t>(~ordered_bits(s)) << 32) |
             static_cast<uint32_t>(row);
     }
@@ -237,6 +269,15 @@ void launch_per_topk(float* out_scores, int32_t* out_idx,
                                         kMergeThreads),
                   kMergeThreads, 0, stream>>>(in, out_scores, out_idx,
                                               window_start, k);
+}
+
+void launch_per_scores(float* out, const float* priorities,
+                       const float* gumbel, float alpha, int64_t rows,
+                       cudaStream_t stream) {
+  int64_t blocks = (rows + kScoreThreads - 1) / kScoreThreads;
+  if (blocks > kScoreMaxBlocks) blocks = kScoreMaxBlocks;
+  per_scores_kernel<<<static_cast<unsigned>(blocks), kScoreThreads, 0,
+                      stream>>>(out, priorities, gumbel, alpha, rows);
 }
 
 void launch_priority_scatter(float* priorities, const int32_t* idx,

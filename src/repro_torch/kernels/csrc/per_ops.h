@@ -17,6 +17,13 @@ constexpr int64_t kPerTopkTile = 4096;
 // rounded up to a power of two.
 int64_t per_topk_scratch_keys(int64_t rows, int64_t k);
 
+// out[i] = alpha * log(max(p[i], 1e-12)) + g[i] where p[i] > 0, else
+// -inf: the Gumbel-top-k sampling score of every row, as per_topk scores
+// them (one shared device helper).
+void launch_per_scores(float* out, const float* priorities,
+                       const float* gumbel, float alpha, int64_t rows,
+                       cudaStream_t stream);
+
 // The k best Gumbel scores alpha * log(max(p, 1e-12)) + g (-inf where
 // p == 0) over the rows of the window, sorted by descending score, the
 // lower row first among equal scores; out_idx holds the global row

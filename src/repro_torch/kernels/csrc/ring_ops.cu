@@ -20,6 +20,25 @@
 //
 // ptr and window_start are read from device memory inside the kernels, so
 // a caller never synchronises with the host to learn where to write.
+//
+// ring_write_rowloop and ring_gather_rowloop replace the TPU kernels
+// repro/kernels/replay_ops.py:ring_write_rowloop
+// (_ring_write_rowloop_kernel) and :ring_gather_rowloop
+// (_ring_gather_rowloop_kernel): the first, row-at-a-time ring kernels,
+// which the repo keeps as the baseline the blocked kernels above are
+// measured against. The TPU versions hold the whole pool in VMEM and
+// copy one row per step of a sequential loop. Here they stay naive: one
+// thread copies one whole row, with no window, no blocking and no shared
+// memory, so neighbouring threads touch addresses a row apart and the
+// copies do not coalesce. They move what the kernels above move (the
+// rows, the indices), so the same byte bound holds; their gap to it is
+// what the baseline is for.
+//
+// The gather has no bounds check in the TPU kernel, so an index outside
+// the pool reads what the interpreter's dynamic slice gives: a negative
+// index is taken from the end once, and the rest is clamped into the
+// pool. The kernel applies the same rule, which keeps every read inside
+// data.
 
 #include "ring_ops.h"
 
@@ -28,6 +47,7 @@ namespace {
 constexpr int kWriteThreads = 256;
 constexpr int kGatherThreads = 128;
 constexpr int kGatherRows = 64;  // rows a gather block copies
+constexpr int kRowloopThreads = 128;
 
 // One thread per (row, feature) element, features fastest: neighbouring
 // threads store to neighbouring addresses of a destination row, and the
@@ -75,6 +95,37 @@ __global__ void ring_gather_kernel(float* __restrict__ out,
   }
 }
 
+__global__ void ring_write_rowloop_kernel(float* __restrict__ data,
+                                          const float* __restrict__ batch,
+                                          const int32_t* __restrict__ ptr,
+                                          int64_t n, int64_t feat,
+                                          int64_t rows) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= n) return;
+  int64_t dest = (static_cast<int64_t>(*ptr) + i) % rows;
+  if (dest < 0) dest += rows;
+  for (int64_t f = 0; f < feat; ++f) {
+    data[dest * feat + f] = batch[i * feat + f];
+  }
+}
+
+__global__ void ring_gather_rowloop_kernel(float* __restrict__ out,
+                                           const float* __restrict__ data,
+                                           const int32_t* __restrict__ idx,
+                                           int64_t bsz, int64_t feat,
+                                           int64_t rows) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= bsz) return;
+  int64_t j = idx[i];
+  if (j < 0) j += rows;
+  j = j < 0 ? 0 : (j >= rows ? rows - 1 : j);
+  for (int64_t f = 0; f < feat; ++f) {
+    out[i * feat + f] = data[j * feat + f];
+  }
+}
+
 }  // namespace
 
 void launch_ring_write(float* data, const float* batch, const int32_t* ptr,
@@ -95,4 +146,23 @@ void launch_ring_gather(float* out, const float* data, const int32_t* idx,
   ring_gather_kernel<<<static_cast<unsigned>(blocks), kGatherThreads, 0,
                        stream>>>(out, data, idx, window_start, bsz, feat,
                                  rows_local);
+}
+
+void launch_ring_write_rowloop(float* data, const float* batch,
+                               const int32_t* ptr, int64_t n, int64_t feat,
+                               int64_t rows, cudaStream_t stream) {
+  const int64_t blocks = (n + kRowloopThreads - 1) / kRowloopThreads;
+  ring_write_rowloop_kernel<<<static_cast<unsigned>(blocks),
+                              kRowloopThreads, 0, stream>>>(
+      data, batch, ptr, n, feat, rows);
+}
+
+void launch_ring_gather_rowloop(float* out, const float* data,
+                                const int32_t* idx, int64_t bsz,
+                                int64_t feat, int64_t rows,
+                                cudaStream_t stream) {
+  const int64_t blocks = (bsz + kRowloopThreads - 1) / kRowloopThreads;
+  ring_gather_rowloop_kernel<<<static_cast<unsigned>(blocks),
+                               kRowloopThreads, 0, stream>>>(
+      out, data, idx, bsz, feat, rows);
 }

@@ -21,3 +21,18 @@ void launch_ring_gather(float* out, const float* data, const int32_t* idx,
                         const int32_t* window_start, int64_t bsz,
                         int64_t feat, int64_t rows_local,
                         cudaStream_t stream);
+
+// The row-at-a-time baselines (no window): data[(*ptr + i) mod rows] =
+// batch[i] for the n <= rows rows of batch (n, feat), the slot taken
+// mod rows as a floor, so a negative ptr wraps.
+void launch_ring_write_rowloop(float* data, const float* batch,
+                               const int32_t* ptr, int64_t n, int64_t feat,
+                               int64_t rows, cudaStream_t stream);
+
+// out[i] = data[j] for j = idx[i], taken as j + rows when negative and
+// then clamped to [0, rows - 1] (rows >= 1): what the TPU kernel's
+// unchecked row reads give.
+void launch_ring_gather_rowloop(float* out, const float* data,
+                                const int32_t* idx, int64_t bsz,
+                                int64_t feat, int64_t rows,
+                                cudaStream_t stream);

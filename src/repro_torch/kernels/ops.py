@@ -1,6 +1,7 @@
 """Public kernel ops: the counterpart of ``repro/kernels/ops.py``'s
 replay ops (``ring_write`` / ``ring_gather`` / ``per_topk`` /
-``priority_scatter``) and model ops (``rmsnorm`` / ``flash_attention`` /
+``priority_scatter``), the bench baselines (``per_scores`` /
+``ring_write_rowloop`` / ``ring_gather_rowloop``) and model ops (``rmsnorm`` / ``flash_attention`` /
 ``decode_attention`` / ``ssd_scan``).
 
 Which version runs is decided by the operand's device, never by what the
@@ -53,6 +54,30 @@ def priority_scatter(priorities: torch.Tensor, idx: torch.Tensor,
     if priorities.device.type == "cpu":
         return _replay.priority_scatter_ref(priorities, idx, values, **kw)
     return _replay.priority_scatter(priorities, idx, values, **kw)
+
+
+def per_scores(priorities: torch.Tensor, gumbel: torch.Tensor,
+               alpha: float) -> torch.Tensor:
+    """Gumbel-top-k scores of every row of the priority vector."""
+    if priorities.device.type == "cpu":
+        return _replay.per_scores_ref(priorities, gumbel, alpha)
+    return _replay.per_scores(priorities, gumbel, alpha)
+
+
+def ring_write_rowloop(data: torch.Tensor, batch: torch.Tensor,
+                       ptr: torch.Tensor) -> torch.Tensor:
+    """The row-at-a-time in-place ring write (no window)."""
+    if data.device.type == "cpu":
+        return _replay.ring_write_ref(data, batch, ptr)
+    return _replay.ring_write_rowloop(data, batch, ptr)
+
+
+def ring_gather_rowloop(data: torch.Tensor, idx: torch.Tensor
+                        ) -> torch.Tensor:
+    """The row-at-a-time gather (no window, indices wrapped and clamped)."""
+    if data.device.type == "cpu":
+        return _replay.ring_gather_rowloop_ref(data, idx)
+    return _replay.ring_gather_rowloop(data, idx)
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6

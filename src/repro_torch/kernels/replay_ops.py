@@ -1,9 +1,12 @@
 """Replay kernels: the ring write, the uniform gather, the fused PER
-score + top-k selection and the priority scatter.
+score + top-k selection, the priority scatter, and the bench baselines
+(the PER score pass and the row-at-a-time ring write and gather).
 
 Counterpart of ``repro/kernels/replay_ops.py``'s ``ring_write`` /
-``ring_gather`` / ``per_topk`` / ``priority_scatter`` and their ``*_ref``
-oracles. The kernels are CUDA C++ for Hopper (``csrc/ring_ops.cu``,
+``ring_gather`` / ``per_topk`` / ``priority_scatter`` / ``per_scores`` /
+``ring_write_rowloop`` / ``ring_gather_rowloop``, their ``*_ref`` oracles
+and ``merge_topk_candidates``. The kernels are CUDA C++ for Hopper
+(``csrc/ring_ops.cu``,
 ``csrc/per_ops.cu``), built at first use by ``kernels._build``; the
 wrappers here launch them and only them: a tensor that is not on a CUDA
 device is refused. The plain PyTorch versions (``*_ref``) sit beside
@@ -55,6 +58,21 @@ def _window_long(window_start: Window, device) -> torch.Tensor:
 # ring write
 # --------------------------------------------------------------------------- #
 
+def _check_write(data, batch, ptr, cap: int) -> bool:
+    """A ring write's operands, for the CUDA kernels; False when there is
+    nothing to write."""
+    if batch.shape[0] > cap:
+        raise ValueError(f"ring_write of {batch.shape[0]} rows into "
+                         f"capacity {cap}")
+    check_cuda_operand(data, "data", torch.float32)
+    check_cuda_operand(batch, "batch", data.dtype)
+    check_cuda_operand(ptr, "ptr", torch.int32)
+    if batch.shape[1:] != data.shape[1:]:
+        raise ValueError(f"batch rows {tuple(batch.shape[1:])} do not match "
+                         f"data rows {tuple(data.shape[1:])}")
+    return batch.shape[0] > 0
+
+
 def ring_write(data: torch.Tensor, batch: torch.Tensor, ptr: torch.Tensor,
                *, capacity: Optional[int] = None,
                window_start: Window = None) -> torch.Tensor:
@@ -65,17 +83,8 @@ def ring_write(data: torch.Tensor, batch: torch.Tensor, ptr: torch.Tensor,
     ``data.shape[0]`` (the whole pool). Requires n <= capacity
     (``replay.buffer.write_plan`` keeps the newest rows of a larger
     write)."""
-    rows_local, n = data.shape[0], batch.shape[0]
-    cap = rows_local if capacity is None else capacity
-    if n > cap:
-        raise ValueError(f"ring_write of {n} rows into capacity {cap}")
-    check_cuda_operand(data, "data", torch.float32)
-    check_cuda_operand(batch, "batch", data.dtype)
-    check_cuda_operand(ptr, "ptr", torch.int32)
-    if batch.shape[1:] != data.shape[1:]:
-        raise ValueError(f"batch rows {tuple(batch.shape[1:])} do not match "
-                         f"data rows {tuple(data.shape[1:])}")
-    if n == 0:
+    cap = data.shape[0] if capacity is None else capacity
+    if not _check_write(data, batch, ptr, cap):
         return data
     load_kernels()
     torch.ops.repro_torch.ring_write(
@@ -163,6 +172,32 @@ def per_scores_ref(priorities: torch.Tensor, gumbel: torch.Tensor,
                        alpha * torch.log(torch.clamp(priorities, min=1e-12)),
                        float("-inf"))
     return logp + gumbel
+
+
+def per_scores(priorities: torch.Tensor, gumbel: torch.Tensor,
+               alpha: float) -> torch.Tensor:
+    """The Gumbel-top-k scores of every row (``per_scores_ref``) with the
+    CUDA kernel, bit for bit; the caller takes a top-k of them."""
+    check_cuda_operand(priorities, "priorities", torch.float32)
+    check_cuda_operand(gumbel, "gumbel", torch.float32)
+    if priorities.dim() != 1 or gumbel.shape != priorities.shape:
+        raise ValueError(f"priorities {tuple(priorities.shape)} and gumbel "
+                         f"{tuple(gumbel.shape)} must be one (rows,) shape")
+    out = torch.empty_like(priorities)
+    load_kernels()
+    torch.ops.repro_torch.per_scores(priorities, gumbel, out, float(alpha))
+    LAUNCH_COUNTS["per_scores"] += 1
+    return out
+
+
+def merge_topk_candidates(cand_scores: torch.Tensor, cand_idx: torch.Tensor,
+                          k: int):
+    """Reduce per-window candidates, concatenated in window order, to the
+    global top-k: a stable descending sort, so equal scores keep the
+    earlier candidate first (``jax.lax.top_k``'s order, which makes the
+    merge equal the dense top-k). Plain PyTorch: no kernel."""
+    v, pos = torch.sort(cand_scores, descending=True, stable=True)
+    return v[:k], cand_idx[pos[:k]]
 
 
 def _check_topk(rows: int, k: int):
@@ -283,3 +318,60 @@ def priority_scatter_ref(priorities: torch.Tensor, idx: torch.Tensor,
     wins = inside & (owner[dest] == pos)
     priorities[local[wins]] = values[wins].to(priorities.dtype)
     return priorities
+
+
+# --------------------------------------------------------------------------- #
+# The row-at-a-time ring kernels: the bench baselines
+# --------------------------------------------------------------------------- #
+
+def ring_write_rowloop(data: torch.Tensor, batch: torch.Tensor,
+                       ptr: torch.Tensor) -> torch.Tensor:
+    """The row-at-a-time ring write with the CUDA kernel, in place: row i
+    of ``batch`` (n, ...) into slot ``(ptr + i) % data.shape[0]``; no
+    window. ``ptr`` is a device int32 scalar; n > capacity raises. Plain
+    version: ``ring_write_ref`` with no window."""
+    if not _check_write(data, batch, ptr, data.shape[0]):
+        return data
+    load_kernels()
+    torch.ops.repro_torch.ring_write_rowloop(_as2d(data), _as2d(batch), ptr)
+    LAUNCH_COUNTS["ring_write_rowloop"] += 1
+    return data
+
+
+def _check_rowloop_gather(data: torch.Tensor, idx: torch.Tensor):
+    if idx.dim() != 1:
+        raise ValueError(f"idx must be 1-d, got shape {tuple(idx.shape)}")
+    if data.dim() == 0 or data.shape[0] == 0:
+        raise ValueError("ring_gather_rowloop needs at least one data row")
+
+
+def ring_gather_rowloop(data: torch.Tensor, idx: torch.Tensor
+                        ) -> torch.Tensor:
+    """The row-at-a-time gather with the CUDA kernel: ``out[i] =
+    data[idx[i]]``, no window. Indices outside the pool follow
+    ``ring_gather_rowloop_ref``."""
+    _check_rowloop_gather(data, idx)
+    check_cuda_operand(data, "data", torch.float32)
+    check_cuda_operand(idx, "idx", torch.int32)
+    out = torch.empty((idx.shape[0],) + tuple(data.shape[1:]),
+                      dtype=data.dtype, device=data.device)
+    if idx.shape[0] == 0:
+        return out
+    load_kernels()
+    torch.ops.repro_torch.ring_gather_rowloop(_as2d(data), idx, _as2d(out))
+    LAUNCH_COUNTS["ring_gather_rowloop"] += 1
+    return out
+
+
+def ring_gather_rowloop_ref(data: torch.Tensor, idx: torch.Tensor
+                            ) -> torch.Tensor:
+    """Plain PyTorch ``ring_gather_rowloop``. The TPU kernel reads
+    ``data[idx[i]]`` with no bounds check; run by the Pallas interpreter
+    (the reference's oracle on a CPU), a negative index counts from the
+    end once and the rest is clamped into the pool. That rule is kept
+    here and in the kernel, so no index reads outside ``data``."""
+    _check_rowloop_gather(data, idx)
+    rows = data.shape[0]
+    j = idx.long()
+    j = torch.where(j < 0, j + rows, j).clamp(0, rows - 1)
+    return data.index_select(0, j)

@@ -22,20 +22,8 @@ multiple of it.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 import time
-
-
-def card_line(device) -> str:
-    """The card's name and power limit as nvidia-smi gives them, or the
-    CPU's name for a CPU run."""
-    if device.type != "cuda":
-        return "device: cpu"
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def main(argv=None):
@@ -52,7 +40,7 @@ def main(argv=None):
 
     import torch
 
-    from repro_torch import resolve_device
+    from repro_torch import card_line, resolve_device
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape, RunConfig
     from repro_torch.data.tokens import make_batch

@@ -81,6 +81,12 @@ def deterministic_action(p, obs) -> torch.Tensor:
     return torch.tanh(mean)
 
 
+def det_actor_action(p, obs) -> torch.Tensor:
+    """The deterministic actor of TD3 and DDPG (an ``init_mlp_tower`` of
+    width act_dim): ``tanh(mlp(obs))``."""
+    return torch.tanh(mlp_tower(p, obs))
+
+
 # ---------------------------------------------------------------------------
 # double-Q ensemble
 # ---------------------------------------------------------------------------

@@ -19,10 +19,14 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch._tree import tree_leaves, tree_map
+from repro_torch._tree import tree_map
 from repro_torch.rl import networks as nets
-from repro_torch.rl.base import (AlgoHP, AlgoState, make_opts, polyak,
-                                 register_algo)
+from repro_torch.rl.base import (AlgoHP, AlgoState, leaf_grads, make_opts,
+                                 polyak, register_algo, with_grad)
+
+
+# the two standard-normal draws of an update: eps_next, eps_actor
+UPDATE_NOISES = 2
 
 
 def init_state(generator: torch.Generator, obs_dim: int, act_dim: int,
@@ -40,15 +44,6 @@ def init_state(generator: torch.Generator, obs_dim: int, act_dim: int,
         opt_actor=oa.init(actor), opt_q=oq.init(q),
         opt_alpha=oal.init(log_alpha),
         step=torch.zeros((), dtype=torch.int32, device=dev))
-
-
-def _grads(loss: torch.Tensor, tree):
-    return torch.autograd.grad(loss, tree_leaves(tree))
-
-
-def _with_grad(tree):
-    """Leaves that autograd tracks, sharing storage with ``tree``."""
-    return tree_map(lambda x: x.detach().requires_grad_(True), tree)
 
 
 def make_update_step(hp: AlgoHP, obs_dim: int, act_dim: int):
@@ -77,24 +72,24 @@ def make_update_step(hp: AlgoHP, obs_dim: int, act_dim: int):
 
         with torch.enable_grad():
             # ---- critic --------------------------------------------------
-            qp = _with_grad(state.q)
+            qp = with_grad(state.q)
             qs = nets.ensemble_q_values(qp, batch["obs"], batch["act"])
             se = (qs - target) ** 2
             w = batch.get("weight")     # PER importance weights (optional)
             if w is not None:
                 se = se * w
             critic_loss = torch.mean(se)
-            oq.update(_grads(critic_loss, qp), state.opt_q, state.q)
+            oq.update(leaf_grads(critic_loss, qp), state.opt_q, state.q)
             qs = qs.detach()
             qmean = qs.mean()
             td_abs = torch.abs(qs - target).mean(0)   # per-sample |TD|
 
             # ---- actor, against the updated Q ensemble -------------------
-            ap = _with_grad(state.actor)
+            ap = with_grad(state.actor)
             a, logp = nets.sample_action(ap, batch["obs"], eps_actor)
             actor_loss = torch.mean(alpha * logp
                                     - nets.min_q(state.q, batch["obs"], a))
-            actor_grads = _grads(actor_loss, ap)
+            actor_grads = leaf_grads(actor_loss, ap)
         logp_mean = logp.detach().mean()
         oa.update(actor_grads, state.opt_actor, state.actor)
 

@@ -193,6 +193,112 @@ def test_per_megastep_on_the_card_goes_through_the_kernels(dev):
     assert float(tr.replay.max_priority) >= 1.0
 
 
+@pytest.mark.parametrize("algo,prioritized", [("td3", False),
+                                               ("ddpg", True)])
+def test_td3_ddpg_megastep_on_the_card_goes_through_the_kernels(
+        dev, algo, prioritized):
+    from repro_torch.core import SpreezeConfig, SpreezeTrainer
+    from repro_torch.rl import AlgoHP
+    cfg = SpreezeConfig(algo=algo, num_envs=4, chunk_len=8, batch_size=64,
+                        replay_capacity=100, warmup_frames=64,
+                        updates_per_round=2, rounds_per_dispatch=2,
+                        prioritized=prioritized, hp=AlgoHP(hidden=(32, 32)))
+    tr = SpreezeTrainer(cfg)
+    tr._warmup()
+    rops.reset_launch_counts()
+    metrics = tr.megastep()
+    per_row = 7 if prioritized else 6
+    expect = {"ring_write": per_row * 2, "ring_gather": per_row * 2 * 2}
+    if prioritized:
+        expect.update(per_topk=2 * 2, priority_scatter=2 * 2)
+    assert dict(rops.LAUNCH_COUNTS) == expect
+    assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+    assert int(tr.state.step) == 4 and tr.state.opt_alpha is None
+
+
+# --------------------------------------------------------------------------- #
+# the bench baselines: the score pass and the row-at-a-time ring kernels
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("rows", [1, 100, 1000, 4097, 262_144, 1_000_003])
+def test_per_scores_kernel_matches_plain(dev, rows):
+    """Bit for bit, zeros (-inf) and p below the 1e-12 floor included;
+    1_000_003 rows take more than one grid-stride pass."""
+    g = torch.Generator(device=dev).manual_seed(rows)
+    pri = torch.rand(rows, generator=g, device=dev) * 5
+    pri[torch.rand(rows, generator=g, device=dev) < 0.5] = 0.0
+    pri[::7] = 1e-13
+    u = torch.rand(rows, generator=g, device=dev).clamp_(min=1e-12)
+    gumbel = -torch.log(-torch.log(u))
+    got = rops.per_scores(pri, gumbel, 0.6)
+    want = rops.per_scores_ref(pri, gumbel, 0.6)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert torch.equal(torch.isneginf(got), pri == 0)
+    assert rops.LAUNCH_COUNTS["per_scores"] == 1
+
+
+@pytest.mark.parametrize("cap,n,ptr,row", [
+    (16, 5, 3, (3,)),
+    (13, 8, 9, (3,)),               # wraps at the ring end mid-batch
+    (13, 13, 12, ()),               # n == capacity
+    (10, 4, 8, (2, 3)),             # trailing dims
+    (10, 3, -1, (1,)),              # a negative ptr wraps
+    (10, 3, 25, (1,)),              # ptr past the capacity
+    (262_144, 512, 262_000, (3,)),  # a round's write, wrapping
+    (16_384, 1024, 15_872, (16,)),  # the bench's full preset
+])
+def test_ring_write_rowloop_kernel_matches_plain(dev, cap, n, ptr, row):
+    g = torch.Generator(device=dev).manual_seed(cap + n)
+    data = torch.randn((cap,) + row, generator=g, device=dev)
+    batch = torch.randn((n,) + row, generator=g, device=dev)
+    p = torch.tensor(ptr, dtype=torch.int32, device=dev)
+    got = rops.ring_write_rowloop(data.clone(), batch, p)
+    want = rops.ring_write_ref(data.clone(), batch, p)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert rops.LAUNCH_COUNTS["ring_write_rowloop"] == 1
+
+
+@pytest.mark.parametrize("rows,row,bsz", [(10, (2,), 64), (37, (), 300),
+                                          (16, (2, 3), 64),
+                                          (262_144, (3,), 8192)])
+def test_ring_gather_rowloop_kernel_matches_plain(dev, rows, row, bsz):
+    """Repeats, 0, rows - 1, and indices outside the pool (taken from the
+    end once when negative, then clamped)."""
+    g = torch.Generator(device=dev).manual_seed(rows)
+    data = torch.randn((rows,) + row, generator=g, device=dev)
+    idx = torch.cat([
+        torch.randint(0, rows, (bsz,), generator=g, device=dev),
+        torch.tensor([0, rows - 1, rows - 1, rows + 2, -3, -rows - 3,
+                      2**31 - 1, -2**31], device=dev)]).to(torch.int32)
+    got = rops.ring_gather_rowloop(data, idx)
+    torch.testing.assert_close(got, rops.ring_gather_rowloop_ref(data, idx),
+                               rtol=0, atol=0)
+    assert torch.equal(got[-5:], data[[rows - 1, rows - 3, 0, rows - 1,
+                                       0]])
+    assert rops.LAUNCH_COUNTS["ring_gather_rowloop"] == 1
+
+
+def test_baseline_wrappers_validate_operands(dev):
+    data = torch.zeros((8, 3), device=dev)
+    ptr = torch.zeros((), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="capacity"):
+        rops.ring_write_rowloop(data, torch.zeros((9, 3), device=dev), ptr)
+    with pytest.raises(TypeError):
+        rops.ring_write_rowloop(data, torch.zeros((2, 3), device=dev,
+                                                  dtype=torch.float64), ptr)
+    with pytest.raises(TypeError):
+        rops.ring_gather_rowloop(data.double(), torch.zeros(
+            4, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="at least one"):
+        rops.ring_gather_rowloop(torch.zeros((0, 3), device=dev),
+                                 torch.zeros(4, dtype=torch.int32,
+                                             device=dev))
+    with pytest.raises(ValueError, match="one"):
+        rops.per_scores(torch.ones(8, device=dev), torch.ones(9, device=dev),
+                        0.6)
+    assert sum(rops.LAUNCH_COUNTS.values()) == 0
+
+
 # --------------------------------------------------------------------------- #
 # the LM model kernels
 # --------------------------------------------------------------------------- #
@@ -396,6 +502,18 @@ def _binding_case(name, dev):
         return lambda: ops.per_topk(
             pri, pri, None, torch.zeros(1, device=dev, dtype=torch.int64),
             torch.empty(k, **f32), torch.empty(k, **i32), 0.6, k)
+    if name == "ring_write_rowloop_capacity":
+        d = torch.ones((4, 3), **f32)
+        return lambda: ops.ring_write_rowloop(d, torch.ones((5, 3), **f32),
+                                              torch.zeros(1, **i32))
+    if name == "ring_gather_rowloop_rows":
+        d = torch.ones((0, 3), **f32)
+        return lambda: ops.ring_gather_rowloop(d, torch.zeros(2, **i32),
+                                               torch.empty((2, 3), **f32))
+    if name == "per_scores_rows":
+        pri = torch.ones(8, **f32)
+        return lambda: ops.per_scores(pri, torch.ones(9, **f32),
+                                      torch.empty(8, **f32), 0.6)
     if name in ("flash_heads", "flash_head_dim"):
         H, d = (3, 8) if name == "flash_heads" else (2, 256)
         q = torch.ones((1, 4, H, d), **f32)
@@ -419,7 +537,8 @@ def _binding_case(name, dev):
 @pytest.mark.parametrize("name", [
     "ring_write_capacity", "per_topk_k", "per_topk_scratch", "flash_heads",
     "flash_head_dim", "decode_group", "decode_empty_cache", "ssd_dims",
-    "ssd_chunk"])
+    "ssd_chunk", "ring_write_rowloop_capacity", "ring_gather_rowloop_rows",
+    "per_scores_rows"])
 def test_binding_checks_with_numbers_raise(dev, name):
     """Every check in binding.cpp whose message holds an integer raises a
     RuntimeError naming the number: streamed into the message as an

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the port's megastep spends its time on the card.
 
-    python3 tools/profile_megastep.py [--prioritized]
+    python3 tools/profile_megastep.py [--prioritized] [--algo sac|td3|ddpg]
 
 Builds ``SpreezeTrainer`` at the reference's full widths (the
-configuration ``chip_smoke.py`` trains), with uniform replay or, given
-``--prioritized``, prioritized replay, warms it up, then runs two
+configuration ``chip_smoke.py`` trains), with SAC (or ``--algo``) and
+uniform replay or, given ``--prioritized``, prioritized replay, warms it
+up, then runs two
 megasteps under ``torch.profiler`` and prints one JSON
 line: host wall time per megastep, device busy time (the summed
 duration of every device op; one stream, so they do not overlap), the
@@ -13,6 +14,7 @@ device's idle share of the wall, device ops (kernels, copies, fills) per
 megastep, the device time of the port's own kernels, and the ops that
 take the most device time. Needs a CUDA device.
 """
+import argparse
 import json
 import os
 import sys
@@ -36,9 +38,14 @@ def main():
     from repro_torch.core import SpreezeConfig, SpreezeTrainer
     from repro_torch.rl import AlgoHP
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--prioritized", action="store_true")
+    ap.add_argument("--algo", default="sac", choices=("sac", "td3", "ddpg"))
+    args = ap.parse_args()
     card = card_line()
-    prioritized = "--prioritized" in sys.argv[1:]
-    tr = SpreezeTrainer(SpreezeConfig(hp=AlgoHP(hidden=(256, 256)),
+    prioritized = args.prioritized
+    tr = SpreezeTrainer(SpreezeConfig(algo=args.algo,
+                                      hp=AlgoHP(hidden=(256, 256)),
                                       prioritized=prioritized))
     tr._warmup()
     for _ in range(2):
@@ -49,7 +56,7 @@ def main():
     port = {k: sum(v for name, v in per_op.items() if k in name) / 1e3
             for k in PORT_KERNELS}
     print(json.dumps({
-        "card": card, "megasteps": MEGASTEPS,
+        "card": card, "megasteps": MEGASTEPS, "algo": args.algo,
         "replay": "PER" if prioritized else "uniform",
         "wall_ms_per_megastep": wall_ms,
         "device_busy_ms_per_megastep": busy_ms,
