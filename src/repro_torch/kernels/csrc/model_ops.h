@@ -25,6 +25,7 @@ cudaError_t launch_rmsnorm(void* out, const void* x, const float* w,
 // out like q. Query row i sits at position Sk - Sq + i; key j attends if
 // j < Sk, and (causal) j <= its position, and (has_window) position - j <
 // window. Query head h reads KV head h / (H / KV). Requires d <= 128.
+// bf16 runs on the tensor cores, float32 on a SIMT kernel.
 cudaError_t launch_flash_attention(void* out, const void* q, const void* k,
                                    const void* v, int64_t B, int64_t Sq,
                                    int64_t Sk, int64_t H, int64_t KV,

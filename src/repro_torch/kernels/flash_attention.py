@@ -4,9 +4,12 @@ with causal, sliding-window and tail masks, q aligned to the end of k.
 Counterpart of ``repro/kernels/flash_attention.py:flash_attention`` and of
 its oracle ``repro/kernels/ref.py:attention_ref``. ``flash_attention``
 launches the CUDA kernel (``csrc/flash_attention.cu``) and only that: a
-tensor that is not on a CUDA device is refused. ``attention_ref`` is the
-plain PyTorch version (``kernels.ops`` picks between the two by the
-operand's device). Both compute in float32 and return q's dtype.
+tensor that is not on a CUDA device is refused. bf16 operands run on the
+tensor cores: bf16 products summed in float32, with the float32
+probabilities split into two bf16 parts (~16 bits) for the P V product.
+float32 operands run a float32 SIMT kernel. ``attention_ref`` is the
+plain PyTorch version, in float32 (``kernels.ops`` picks between the two
+by the operand's device). Both return q's dtype.
 """
 from __future__ import annotations
 

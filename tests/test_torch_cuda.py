@@ -334,6 +334,11 @@ def test_rmsnorm_kernel_matches_plain(dev, shape, dtype):
     (1, 20, 30, 4, 2, 64, False, 16),         # window, non-causal
     (1, 50, 50, 3, 1, 128, True, None),       # head_dim 128
     (1, 70, 30, 2, 1, 32, True, None),        # Sq > Sk: rows see no key
+    (1, 150, 150, 4, 2, 80, True, None),      # d 80: not a power of two
+    (1, 140, 140, 4, 2, 96, True, None),      # d 96: rows of 12 chunks
+    (1, 130, 130, 4, 2, 33, True, None),      # d 33: unaligned rows
+    (1, 300, 300, 16, 1, 64, True, None),     # G = 16 over several tiles
+    (1, 2048, 2048, 4, 2, 64, True, None),    # long: many rescales
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(dev, B, Sq, Sk, H, KV, d,
@@ -346,6 +351,35 @@ def test_flash_attention_kernel_matches_plain(dev, B, Sq, Sk, H, KV, d,
     got = fa.flash_attention(q, k, v, **kw)
     assert_kernel_close(got, fa.attention_ref(q, k, v, **kw))
     assert bool(torch.isfinite(got).all())
+    assert rops.LAUNCH_COUNTS["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_holds_a_peaked_softmax(dev, dtype):
+    """q times 8 (a power of two: exact in bf16): probabilities over many
+    binades, the case the bf16 kernel's two-part P must hold."""
+    g = torch.Generator(device=dev).manual_seed(512 * 4 + 64)
+    q = torch.randn((1, 512, 4, 64), generator=g, device=dev).to(dtype) * 8
+    k = torch.randn((1, 512, 2, 64), generator=g, device=dev).to(dtype)
+    v = torch.randn((1, 512, 2, 64), generator=g, device=dev).to(dtype)
+    got = fa.flash_attention(q, k, v)
+    assert_kernel_close(got, fa.attention_ref(q, k, v))
+    assert bool(torch.isfinite(got).all())
+    assert rops.LAUNCH_COUNTS["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_takes_an_unaligned_base(dev, dtype):
+    """Contiguous operands whose data starts one element past a 16-byte
+    boundary: the bf16 kernel loads them element by element."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    shapes = ((1, 130, 4, 64), (1, 130, 2, 64), (1, 130, 2, 64))
+    q, k, v = (torch.randn(1 + s[1] * s[2] * s[3], generator=g,
+                           device=dev).to(dtype)[1:].view(s)
+               for s in shapes)
+    assert all(a.data_ptr() % 16 for a in (q, k, v))
+    assert_kernel_close(fa.flash_attention(q, k, v),
+                        fa.attention_ref(q, k, v))
     assert rops.LAUNCH_COUNTS["flash_attention"] == 1
 
 

@@ -10,6 +10,7 @@ blocked online softmax against PyTorch's einsum and softmax); bfloat16,
 one bf16 rounding step (2**-7 relative) of the reference plus the same
 float32 allowance, since both sides compute in float32 and round once.
 """
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -127,6 +128,71 @@ def test_attention_plain_rows_without_keys_are_zero():
     assert not got[0, :8].any() and bool(torch.isfinite(got).all())
     assert_close(got[:, 8:], jref.attention_ref(jq, jk, jv)[:, 8:],
                  "float32")
+
+
+def misses_kernel_tolerance(got, want):
+    """How many elements of ``got`` lie beyond the tolerance the card
+    holds the bf16 flash kernel to against the plain version
+    (``assert_kernel_close`` in tests/test_torch_cuda.py, ``kernel_close``
+    in chip_smoke.py): 1e-5 plus one bf16 step, 2**-7 of |want|."""
+    got, want = as_f32(got), as_f32(want)
+    return int((np.abs(got - want) > 1e-5 + 2.0 ** -7 * np.abs(want)).sum())
+
+
+def emulate_tensor_core_flash(q, k, v, p_parts):
+    """The bf16 CUDA kernel's arithmetic (``flash_tc_kernel``), causal,
+    Sq == Sk, in plain torch: float32 scores of the bf16 q and k (the
+    products exact, the sums in float32), scaled after the product; an
+    online softmax over 64-key tiles; P V with P in bf16 parts, each
+    product summed in float32. ``p_parts`` "hi_lo": p = hi + lo, hi =
+    bf16(p), lo = bf16(p - hi), as the kernel does; "bf16": p rounded to
+    bf16 once; "f32": p kept whole (the float32 SIMT kernel's P V). The
+    row sum adds the float32 p."""
+    B, S, H, d = q.shape
+    KV = k.shape[2]
+    qf = q.float().reshape(B, S, KV, H // KV, d)
+    m = torch.full((B, KV, H // KV, S), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KV, H // KV, S, d))
+    qpos = torch.arange(S)[:, None]
+    for k0 in range(0, S, 64):
+        kt, vt = k[:, k0:k0 + 64].float(), v[:, k0:k0 + 64].float()
+        ok = qpos >= k0 + torch.arange(kt.shape[1])[None, :]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kt) * d ** -0.5
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+        l = alpha * l + p.sum(-1)
+        hi = p.bfloat16().float()
+        parts = {"hi_lo": [hi, (p - hi).bfloat16().float()], "bf16": [hi],
+                 "f32": [p]}[p_parts]
+        acc = alpha[..., None] * acc
+        for part in parts:
+            acc = acc + torch.einsum("bkgqs,bskd->bkgqd", part, vt)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("p_parts", ["hi_lo", "bf16", "f32"])
+def test_tensor_core_flash_needs_p_in_two_bf16_parts(p_parts):
+    """Why the bf16 kernel splits p: at B 1, S 1024, H 4 / KV 2, d 64,
+    causal, P V with p = hi + lo (or p whole) lies within the card's bf16
+    tolerance of the plain version and of the Pallas kernel (interpret
+    mode) at every element; with p rounded once to bf16 (the usual
+    flash-attention shortcut) over 1% of the elements lie beyond it."""
+    shapes = ((1, 1024, 4, 64), (1, 1024, 2, 64), (1, 1024, 2, 64))
+    q, k, v = inputs(1, "bfloat16", *shapes)
+    got = emulate_tensor_core_flash(to_torch(q), to_torch(k), to_torch(v),
+                                    p_parts)
+    plain = attention_ref(to_torch(q), to_torch(k), to_torch(v))
+    pallas = jax.jit(jax_flash)(*(jnp.asarray(a) for a in (q, k, v)))
+    misses = [misses_kernel_tolerance(got, want) for want in (plain, pallas)]
+    if p_parts != "bf16":
+        assert misses == [0, 0]
+    else:
+        assert min(misses) > 0.01 * got.numel()
 
 
 # ---------------------------------------------------------------------------

@@ -24,8 +24,10 @@ STEPS = 16
 B, PROMPT, GEN = 8, 1024, 64
 # the device functions of src/repro_torch/kernels/csrc/{rmsnorm,
 # flash_attention,decode_attention,ssd_scan}.cu
-PORT_KERNELS = ("rmsnorm_kernel", "flash_kernel", "decode_split_kernel",
-                "decode_combine_kernel", "ssd_scan_kernel")
+# flash_attention.cu has two: flash_tc_kernel (bf16) and flash_kernel (f32)
+PORT_KERNELS = ("rmsnorm_kernel", "flash_tc_kernel", "flash_kernel",
+                "decode_split_kernel", "decode_combine_kernel",
+                "ssd_scan_kernel")
 
 
 def main():
