@@ -70,6 +70,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12           # dense tensor-core bf16, same sheet
+F32_FLOP_PER_S = 67e12             # float32 outside the tensor cores
 FIELD_WIDTHS = {"obs": 3, "act": 1, "rew": 1, "next_obs": 3, "done": 1,
                 "disc": 1}          # the six replay fields, Pendulum
 CAPACITY, ROUND_ROWS, BATCH = 262_144, 16 * 32, 8192
@@ -77,6 +78,7 @@ ALPHA = 0.6                          # SpreezeConfig.per_alpha
 # the serving path: qwen2-0.5b, 8 prompts of 1024 tokens, 64 new tokens
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "qwen2-0.5b", 8, 1024, 64
 HEADS, KV_HEADS, HEAD_DIM, D_MODEL = 14, 2, 64, 896
+ZAMBA_HEADS = 32                     # zamba2-1.2b's shared attention: 32 / 32
 DECODE_LONG = 32_768                 # the decode_32k cache length
 SSM_ARCHS = ("mamba2-130m", "zamba2-1.2b")
 # (B, S, H, P, N, chunk) of each SSM's prefill scan at the serving shape
@@ -344,18 +346,25 @@ def time_per_topk(rops, dev):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
-def time_priority_scatter(rops, dev):
-    """Times one update's re-prioritisation: k 8192 distinct drawn rows
-    (a full pool has no repeats) into the 262144-row priority vector. The
-    library call is ``index_put_``, for timing only (its winner on a
-    repeated index is unspecified)."""
+def scatter_inputs(dev):
+    """One update's re-prioritisation: k 8192 distinct drawn rows (a full
+    pool has no repeats) of the 262144-row priority vector, and their new
+    values."""
     import torch
     g = torch.Generator(device=dev).manual_seed(8)
     pri = torch.rand(CAPACITY, generator=g, device=dev)
     idx = torch.randperm(CAPACITY, generator=g, device=dev)[:BATCH].to(
         torch.int32)
+    return pri, idx, torch.rand(BATCH, generator=g, device=dev)
+
+
+def time_priority_scatter(rops, dev):
+    """Times ``scatter_inputs``'s scatter. The library call is
+    ``index_put_``, for timing only (its winner on a repeated index is
+    unspecified)."""
+    import torch
+    pri, idx, vals = scatter_inputs(dev)
     idx_long = idx.long()
-    vals = torch.rand(BATCH, generator=g, device=dev)
     distinct = int(torch.unique(idx).numel())
     # indices and values read once, each distinct row written once
     moved = BATCH * 8 + distinct * 4
@@ -768,13 +777,19 @@ def check_model_kernels(dev):
                 worst["flash_attention"], kernel_close(
                     fa.flash_attention(q, k, v, window=window),
                     fa.attention_ref(q, k, v, window=window)))
-        # the serving cache (1088 slots, partly valid), and decode_32k's
-        for S, valid in ((SERVE_PROMPT + SERVE_GEN, SERVE_PROMPT + 7),
-                         (DECODE_LONG, DECODE_LONG)):
-            q, k, v = model_inputs(dev, S, dtype,
-                                   (SERVE_B, HEADS, HEAD_DIM),
-                                   (SERVE_B, S, KV_HEADS, HEAD_DIM),
-                                   (SERVE_B, S, KV_HEADS, HEAD_DIM))
+        # (S, valid, heads, kv heads, seed): the serving cache (1088
+        # slots, partly valid), decode_32k's, zamba2's serving cache (32
+        # heads, 32 kv heads) and a cache with no valid slot (zeros)
+        serving = SERVE_PROMPT + SERVE_GEN
+        for S, valid, H, KV, seed in (
+                (serving, SERVE_PROMPT + 7, HEADS, KV_HEADS, serving),
+                (DECODE_LONG, DECODE_LONG, HEADS, KV_HEADS, DECODE_LONG),
+                (serving, serving, ZAMBA_HEADS, ZAMBA_HEADS, serving + 1),
+                (serving, 0, HEADS, KV_HEADS, serving + 2)):
+            q, k, v = model_inputs(dev, seed, dtype,
+                                   (SERVE_B, H, HEAD_DIM),
+                                   (SERVE_B, S, KV, HEAD_DIM),
+                                   (SERVE_B, S, KV, HEAD_DIM))
             vl = torch.tensor(valid, dtype=torch.int32, device=dev)
             worst["decode_attention"] = max(
                 worst["decode_attention"], kernel_close(
@@ -787,12 +802,12 @@ def time_model_kernels(dev):
     """Kernel, plain version and library call, bf16, at the serving
     path's shapes: the prefill's 8192 x 896 norm and its causal attention
     (B 8, 1024 tokens), and one decode step's attention over decode_32k's
-    cache (and over the serving cache, printed beside). Bounds: bytes (each
-    input read once, each output written once) over 3.35 TB/s, FLOPs over
-    the bf16 tensor peak, the larger of the two."""
+    cache (and over qwen2's and zamba2's serving caches, printed beside).
+    Bounds: bytes (each input read once, each output written once) over
+    3.35 TB/s, FLOPs over the bf16 tensor peak (decode attention: its
+    float32 FLOPs over the float32 peak), the larger of the two."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rms
     bf16 = torch.bfloat16
@@ -841,27 +856,42 @@ def time_model_kernels(dev):
                                 iters=20, warmup=3)}
     del q32, k32, v32
 
-    for S, key in ((DECODE_LONG, "decode_attention"),
-                   (SERVE_PROMPT + SERVE_GEN, "decode_attention_serving")):
-        q, k, v = model_inputs(dev, 14, bf16, (B, HEADS, HEAD_DIM),
-                               (B, S, KV_HEADS, HEAD_DIM),
-                               (B, S, KV_HEADS, HEAD_DIM))
-        vl = torch.tensor(S, dtype=torch.int32, device=dev)
-        q4 = q[:, :, None]
-        kt, vt = (a.transpose(1, 2).contiguous() for a in (k, v))
-        b, by = bound(2 * k.numel() * 2 + 2 * q.numel() * 2 + 4,
-                      4 * B * HEADS * HEAD_DIM * S)
-        out[key] = {
-            "ms": event_ms(lambda: dec.decode_attention(q, k, v, vl)),
-            "plain_ms": event_ms(lambda: dec.decode_attention_ref(q, k, v,
-                                                                  vl)),
-            "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
-                q4, kt, vt, enable_gqa=True)),
-            "library": "F.scaled_dot_product_attention(enable_gqa)",
-            "bound_ms": b, "bound_by": by,
-            "shape": [B, S, KV_HEADS, HEAD_DIM]}
-        del k, v, kt, vt
+    serving = SERVE_PROMPT + SERVE_GEN
+    for S, H, KV, key in (
+            (DECODE_LONG, HEADS, KV_HEADS, "decode_attention"),
+            (serving, HEADS, KV_HEADS, "decode_attention_serving"),
+            (serving, ZAMBA_HEADS, ZAMBA_HEADS, "decode_attention_zamba2")):
+        out[key] = time_decode_attention(dev, B, S, H, KV)
     return out
+
+
+def time_decode_attention(dev, B, S, H, KV, iters=200):
+    """One decode step's attention, bf16, every slot of the (B, S, KV, 64)
+    cache valid: kernel, plain version and SDPA. Bound: the bytes (K and
+    V read once, q read and the output written once) over 3.35 TB/s, or
+    the float32 operations (a score and its share of P V, 4 d a head and
+    slot) over the CUDA cores' float32 rate, the larger."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
+    q, k, v = model_inputs(dev, 14, torch.bfloat16, (B, H, HEAD_DIM),
+                           (B, S, KV, HEAD_DIM), (B, S, KV, HEAD_DIM))
+    vl = torch.tensor(S, dtype=torch.int32, device=dev)
+    q4 = q[:, :, None]
+    kt, vt = (a.transpose(1, 2).contiguous() for a in (k, v))
+    t_bytes = (2 * k.numel() * 2 + 2 * q.numel() * 2 + 4) / \
+        HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * B * H * HEAD_DIM * S / F32_FLOP_PER_S * 1e3
+    return {
+        "ms": event_ms(lambda: dec.decode_attention(q, k, v, vl), iters),
+        "plain_ms": event_ms(lambda: dec.decode_attention_ref(q, k, v, vl),
+                             iters),
+        "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
+            q4, kt, vt, enable_gqa=True), iters),
+        "library": "F.scaled_dot_product_attention(enable_gqa)",
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "shape": [B, S, H, KV, HEAD_DIM]}
 
 
 def scan_inputs(dev, seed, dtype, B, S, H, P, N):

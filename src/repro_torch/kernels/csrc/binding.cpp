@@ -43,6 +43,14 @@ const int32_t* window_ptr(const std::optional<at::Tensor>& window_start) {
   return window_start->data_ptr<int32_t>();
 }
 
+// The SMs of t's card, which the kernels spread their blocks over.
+int sm_count(const at::Tensor& t) {
+  int sms = 0;
+  C10_CUDA_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        t.get_device()));
+  return sms;
+}
+
 int64_t row_width(const at::Tensor& t) {
   return t.size(0) ? t.numel() / t.size(0) : 0;
 }
@@ -174,21 +182,17 @@ void per_topk(const at::Tensor& priorities, const at::Tensor& gumbel,
 
 void priority_scatter(at::Tensor priorities, const at::Tensor& idx,
                       const at::Tensor& values,
-                      const std::optional<at::Tensor>& window_start,
-                      at::Tensor owner) {
+                      const std::optional<at::Tensor>& window_start) {
   check_vector(priorities, "priorities", at::kFloat);
   check_vector(idx, "idx", at::kInt);
   check_vector(values, "values", at::kFloat);
-  check_vector(owner, "owner", at::kInt);
   TORCH_CHECK(values.size(0) == idx.size(0), "idx and values differ");
   TORCH_CHECK(idx.size(0) < 0x7fffffff, "priority_scatter needs k < 2**31");
-  TORCH_CHECK(owner.size(0) >= priorities.size(0),
-              "owner must hold a slot per priority row");
   const c10::cuda::CUDAGuard guard(priorities.device());
   launch_priority_scatter(priorities.data_ptr<float>(),
                           idx.data_ptr<int32_t>(), values.data_ptr<float>(),
                           window_ptr(window_start), idx.size(0),
-                          priorities.size(0), owner.data_ptr<int32_t>(),
+                          priorities.size(0), sm_count(priorities),
                           c10::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -275,15 +279,17 @@ void decode_attention(const at::Tensor& q, const at::Tensor& k_cache,
   const c10::cuda::CUDAGuard guard(q.device());
   // The first pass's per-split partial results (model_ops.h), from the
   // caching allocator on the current stream.
-  const int64_t splits = (S + kDecodeSplit - 1) / kDecodeSplit;
+  const int64_t split_len = decode_split_len(B, S, KV, H / KV,
+                                             sm_count(q));
+  const int64_t splits = (S + split_len - 1) / split_len;
   const auto f32 = q.options().dtype(at::kFloat);
   at::Tensor part_acc = q.new_empty({B, KV, splits, H / KV, d}, f32);
   at::Tensor part_ml = q.new_empty({B, KV, splits, H / KV, 2}, f32);
   C10_CUDA_CHECK(launch_decode_attention(
       out.data_ptr(), q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
       valid_len.data_ptr<int32_t>(), part_acc.data_ptr<float>(),
-      part_ml.data_ptr<float>(), B, S, H, KV, d, static_cast<float>(scale),
-      bf16, c10::cuda::getCurrentCUDAStream()));
+      part_ml.data_ptr<float>(), B, S, H, KV, d, split_len,
+      static_cast<float>(scale), bf16, c10::cuda::getCurrentCUDAStream()));
 }
 
 void ssd_scan(const at::Tensor& x, const at::Tensor& dtA, const at::Tensor& B_,
@@ -335,7 +341,7 @@ TORCH_LIBRARY(repro_torch, m) {
         "Tensor(a!) scratch, Tensor(b!) scores, Tensor(c!) idx, "
         "float alpha, int k) -> ()");
   m.def("priority_scatter(Tensor(a!) priorities, Tensor idx, "
-        "Tensor values, Tensor? window_start, Tensor(b!) owner) -> ()");
+        "Tensor values, Tensor? window_start) -> ()");
   m.def("per_scores(Tensor priorities, Tensor gumbel, Tensor(a!) out, "
         "float alpha) -> ()");
   m.def("ring_write_rowloop(Tensor(a!) data, Tensor batch, Tensor ptr) "

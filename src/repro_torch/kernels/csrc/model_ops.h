@@ -33,21 +33,51 @@ cudaError_t launch_flash_attention(void* out, const void* q, const void* k,
                                    bool has_window, int64_t window, bool bf16,
                                    cudaStream_t stream);
 
-// Keys of the cache one block of decode_attention's first pass covers.
-constexpr int64_t kDecodeSplit = 256;
+// Query heads one block of decode_attention's first pass scores; a
+// larger group (G up to kMaxDecodeGroup) runs in chunks of this many.
+constexpr int kDecodeHeadChunk = 8;
+// A split of the cache is a multiple of this many slots.
+constexpr int64_t kDecodeSplitAlign = 16;
+
+// Blocks of decode_attention's first pass an SM holds at once: a block
+// takes one head (G 1) or a chunk of kDecodeHeadChunk; four of one head,
+// whose 48 KB rings of shared memory bound them, or three of a chunk,
+// whose registers (q and the output of eight heads) do.
+__host__ __device__ constexpr int decode_blocks_per_sm(int heads) {
+  return heads == 1 ? 4 : 3;
+}
+
+// Cache slots one block of decode_attention's first pass covers: the
+// cache is cut into as many splits as fill one wave of the blocks the
+// SMs hold at once (a split is B * KV * head chunks blocks), but never
+// fewer than one, each a multiple of kDecodeSplitAlign slots (the last
+// may be shorter). The binding sizes the split workspaces by it and
+// hands it to the launcher, so both see the same splits.
+inline int64_t decode_split_len(int64_t B, int64_t S, int64_t KV, int64_t G,
+                                int64_t sms) {
+  const int64_t blocks = B * KV * ((G + kDecodeHeadChunk - 1) /
+                                   kDecodeHeadChunk);
+  const int64_t per_sm = decode_blocks_per_sm(G == 1 ? 1 : kDecodeHeadChunk);
+  int64_t splits = per_sm * sms / blocks;
+  if (splits < 1) splits = 1;
+  const int64_t len = (S + splits - 1) / splits;
+  return (len + kDecodeSplitAlign - 1) / kDecodeSplitAlign *
+         kDecodeSplitAlign;
+}
 
 // One query per (b, h) against a cache: q (B, H, d), k_cache and v_cache
 // (B, S, KV, d), out like q; cache slots [0, min(*valid_len, S)) attend.
-// The first pass writes, per (b, kv head, split of kDecodeSplit slots),
-// each group head's running max and sum (part_ml, (B, KV, splits, G, 2))
-// and unnormalised output (part_acc, (B, KV, splits, G, d)), all float32;
-// the second combines the splits. Requires d <= 128 and H / KV <= 16.
+// The first pass writes, per (b, kv head, split of split_len slots), each
+// group head's running max (in log2 units: scores times scale log2 e) and
+// sum (part_ml, (B, KV, splits, G, 2)) and unnormalised output (part_acc,
+// (B, KV, splits, G, d)), all float32; the second combines the splits.
+// Requires d <= 128 and H / KV <= 16.
 cudaError_t launch_decode_attention(void* out, const void* q,
                                     const void* k_cache, const void* v_cache,
                                     const int32_t* valid_len, float* part_acc,
                                     float* part_ml, int64_t B, int64_t S,
                                     int64_t H, int64_t KV, int64_t d,
-                                    float scale, bool bf16,
+                                    int64_t split_len, float scale, bool bf16,
                                     cudaStream_t stream);
 
 // Largest chunk length, and largest head dimension P and state size N, of

@@ -48,11 +48,17 @@
 // priority_scatter. The TPU kernel loops over the k indices in order, so
 // on a repeated index the last write wins, and which one wins matters:
 // PER draws cycle over the live rows when the batch exceeds them, and
-// each draw carries its own |TD error|. One block runs three ordered
-// phases over an int32 owner slot per touched row: clear the owner, take
-// atomicMax of the draw's position, then only the owner writes. Bound:
-// it moves about 12 B a draw (index, value, the priority written): 98 KB
-// at k = 8192, 0.03 us at 3.35 TB/s, again far below a launch.
+// each draw carries its own |TD error|. Here the window's rows are cut
+// into ranges, one block a range, about one block an SM (at most
+// kScatterRows rows a block): each block reads every draw, keeps in
+// shared memory the largest position of a draw on each of its rows
+// (atomicMax, -1 for none), and then writes its rows that a draw
+// touched, each from its last draw. A row belongs to exactly one block,
+// so no block depends on another or on the order they run in, and no
+// scratch lives in device memory. Bound: it moves about 12 B a draw
+// (index, value, the priority written): 98 KB at k = 8192, 0.03 us at
+// 3.35 TB/s, far below a launch; every block re-reads the k indices from
+// L2 (4 MB at k 8192 and 131 blocks), which a launch also outlasts.
 //
 // window_start is read from device memory, like the ring kernels'; no
 // launch here waits on the host.
@@ -65,7 +71,11 @@ namespace {
 
 constexpr int kTileThreads = 1024;
 constexpr int kMergeThreads = 256;
-constexpr int kScatterThreads = 1024;
+constexpr int kScatterThreads = 512;
+// Most rows a priority_scatter block owns (its table: 48 KB of shared
+// memory, the most a block takes without opting in).
+constexpr int64_t kScatterRows = 12288;
+constexpr int kScatterBatch = 4;
 constexpr int32_t kIdxSentinel = 0x7fffffff;
 constexpr uint64_t kPadKey = ~0ull;
 
@@ -204,26 +214,36 @@ priority_scatter_kernel(float* __restrict__ priorities,
                         const int32_t* __restrict__ idx,
                         const float* __restrict__ values,
                         const int32_t* __restrict__ window_start, int64_t k,
-                        int64_t rows_local, int32_t* owner) {
+                        int64_t rows_local, int rows_per_block) {
+  extern __shared__ int32_t last[];  // the last draw on each of its rows
   const int64_t lo = window_start ? *window_start : 0;
-  // 1. clear the owner of every touched row
-  for (int64_t i = threadIdx.x; i < k; i += blockDim.x) {
-    const int64_t d = static_cast<int64_t>(idx[i]) - lo;
-    if (d >= 0 && d < rows_local) owner[d] = -1;
-  }
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
+  const int n = rows_local - r0 < rows_per_block
+                    ? static_cast<int>(rows_local - r0)
+                    : rows_per_block;
+  for (int r = threadIdx.x; r < n; r += blockDim.x) last[r] = -1;
   __syncthreads();
-  // 2. the last draw of each row owns it
-  for (int64_t i = threadIdx.x; i < k; i += blockDim.x) {
-    const int64_t d = static_cast<int64_t>(idx[i]) - lo;
-    if (d >= 0 && d < rows_local) atomicMax(owner + d, static_cast<int>(i));
-  }
-  __syncthreads();
-  // 3. only the owner writes (read past L1: the atomics live in L2)
-  for (int64_t i = threadIdx.x; i < k; i += blockDim.x) {
-    const int64_t d = static_cast<int64_t>(idx[i]) - lo;
-    if (d >= 0 && d < rows_local && __ldcg(owner + d) == i) {
-      priorities[d] = values[i];
+  // kScatterBatch draws a thread at a time: their loads are in flight
+  // together, then their atomics
+  for (int64_t i0 = threadIdx.x; i0 < k;
+       i0 += kScatterBatch * static_cast<int64_t>(blockDim.x)) {
+    int64_t r[kScatterBatch];
+#pragma unroll
+    for (int j = 0; j < kScatterBatch; ++j) {
+      const int64_t i = i0 + j * static_cast<int64_t>(blockDim.x);
+      r[j] = i < k ? static_cast<int64_t>(idx[i]) - lo - r0 : -1;
     }
+#pragma unroll
+    for (int j = 0; j < kScatterBatch; ++j) {
+      if (r[j] >= 0 && r[j] < n) {
+        atomicMax(last + r[j], static_cast<int>(i0 + j * blockDim.x));
+      }
+    }
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < n; r += blockDim.x) {
+    const int i = last[r];
+    if (i >= 0) priorities[r0 + r] = values[i];
   }
 }
 
@@ -283,8 +303,15 @@ void launch_per_scores(float* out, const float* priorities,
 void launch_priority_scatter(float* priorities, const int32_t* idx,
                              const float* values,
                              const int32_t* window_start, int64_t k,
-                             int64_t rows_local, int32_t* owner,
+                             int64_t rows_local, int sms,
                              cudaStream_t stream) {
-  priority_scatter_kernel<<<1, kScatterThreads, 0, stream>>>(
-      priorities, idx, values, window_start, k, rows_local, owner);
+  if (rows_local == 0) return;
+  int64_t rows = (rows_local + sms - 1) / sms;
+  rows = (rows + 31) / 32 * 32;
+  if (rows > kScatterRows) rows = kScatterRows;
+  const int64_t blocks = (rows_local + rows - 1) / rows;
+  priority_scatter_kernel<<<static_cast<unsigned>(blocks), kScatterThreads,
+                            rows * sizeof(int32_t), stream>>>(
+      priorities, idx, values, window_start, k, rows_local,
+      static_cast<int>(rows));
 }

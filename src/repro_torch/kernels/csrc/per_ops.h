@@ -35,10 +35,10 @@ void launch_per_topk(float* out_scores, int32_t* out_idx,
                      int64_t k, uint64_t* scratch, cudaStream_t stream);
 
 // priorities[idx[i] - *window_start] = values[i] for the in-window
-// indices; where an index repeats, the write of the largest i wins.
-// owner is int32 scratch of rows_local entries.
+// indices; where an index repeats, the write of the largest i wins. The
+// rows are spread over about one block an SM (`sms`, the card's count).
 void launch_priority_scatter(float* priorities, const int32_t* idx,
                              const float* values,
                              const int32_t* window_start, int64_t k,
-                             int64_t rows_local, int32_t* owner,
+                             int64_t rows_local, int sms,
                              cudaStream_t stream);

@@ -290,12 +290,10 @@ def priority_scatter(priorities: torch.Tensor, idx: torch.Tensor,
     check_cuda_operand(values, "values", torch.float32)
     if idx.shape[0] == 0:
         return priorities
-    owner = torch.empty(priorities.shape, dtype=torch.int32,
-                        device=priorities.device)
     load_kernels()
     torch.ops.repro_torch.priority_scatter(
         priorities, idx, values,
-        _window_tensor(window_start, priorities.device), owner)
+        _window_tensor(window_start, priorities.device))
     LAUNCH_COUNTS["priority_scatter"] += 1
     return priorities
 

@@ -120,24 +120,45 @@ def test_per_topk_kernel_matches_plain(dev, rows, k, live, lo, ties):
     assert rops.LAUNCH_COUNTS["per_topk"] == 1
 
 
-@pytest.mark.parametrize("rows,lo", [(48, None), (48, 16),
-                                     (262_144, None)])
-def test_priority_scatter_kernel_matches_plain(dev, rows, lo):
-    """Repeated indices (the last write wins) and out-of-window ones."""
+@pytest.mark.parametrize("rows,lo,k,kind", [
+    pytest.param(48, None, 8192, "mixed", id="48-None"),
+    pytest.param(48, 16, 8192, "mixed", id="48-16"),
+    pytest.param(262_144, None, 8192, "mixed", id="262144-None"),
+    pytest.param(4096, None, 8192, "one_row", id="one_row"),
+    pytest.param(4096, None, 1, "in_window", id="k1"),
+    pytest.param(262_144, None, 1000, "in_window", id="k_ragged"),
+    pytest.param(262_144, None, 65_536, "in_window", id="k65536"),
+    pytest.param(65_536, 131_072, 8192, "straddle", id="straddle"),
+])
+def test_priority_scatter_kernel_matches_plain(dev, rows, lo, k, kind):
+    """Bit for bit: repeated indices (the last write wins) and
+    out-of-window ones; all draws on one row, a single draw, k not a
+    multiple of a block's threads, k 65,536 over a 262,144-row pool, and
+    draws that straddle a window on both sides."""
     g = torch.Generator(device=dev).manual_seed(rows)
     base = lo or 0
     pri = torch.rand(rows, generator=g, device=dev)
-    idx = torch.cat([
-        torch.randint(base, base + rows, (8192,), generator=g, device=dev),
-        torch.tensor([base - 1, base + rows, -1, base + 3, base + 3],
-                     device=dev)]).to(torch.int32)
+    if kind == "one_row":
+        idx = torch.full((k,), 17, device=dev)
+    elif kind == "straddle":
+        idx = torch.randint(base - 4096, base + rows + 4096, (k,),
+                            generator=g, device=dev)
+    else:
+        idx = torch.randint(base, base + rows, (k,), generator=g,
+                            device=dev)
+    if kind == "mixed":
+        idx = torch.cat([idx, torch.tensor(
+            [base - 1, base + rows, -1, base + 3, base + 3], device=dev)])
+    idx = idx.to(torch.int32)
     vals = torch.rand(idx.shape[0], generator=g, device=dev) * 9
     kw = {} if lo is None else {
         "window_start": torch.tensor(lo, dtype=torch.int32, device=dev)}
     got = rops.priority_scatter(pri.clone(), idx, vals, **kw)
     want = rops.priority_scatter_ref(pri.clone(), idx, vals, **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert float(got[3]) == float(vals[-1])
+    last_row = {"mixed": 3, "one_row": 17}.get(kind)
+    if last_row is not None:
+        assert float(got[last_row]) == float(vals[-1])
     assert rops.LAUNCH_COUNTS["priority_scatter"] == 1
 
 
@@ -392,6 +413,14 @@ def test_flash_attention_kernel_takes_an_unaligned_base(dev, dtype):
     (2, 600, 16, 1, 128, 600),       # the largest group and head_dim
     (1, 100, 4, 2, 64, 150),         # valid_len past S is clamped
     (1, 300, 4, 2, 64, 0),           # nothing valid: zeros, no NaN
+    (8, 1088, 32, 32, 64, 1030),     # zamba2-1.2b's serving shape, G 1
+    (2, 300, 4, 4, 128, 300),        # G 1 at d 128
+    (1, 200, 6, 2, 80, 190),         # d 80: 10 of a row's 16 lanes load
+    (2, 150, 4, 2, 33, 140),         # d 33: element loads
+    # on the H100's 132 SMs qwen2's serving cache splits into 48 slots
+    (8, 1088, 14, 2, 64, 241),       # ends in split 5's first warp tile
+    (8, 1088, 14, 2, 64, 48),        # exactly one split
+    (8, 32_768, 14, 2, 64, 32_768),  # decode_32k at G 7
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_matches_plain(dev, B, S, H, KV, d, vl,
@@ -404,6 +433,23 @@ def test_decode_attention_kernel_matches_plain(dev, B, S, H, KV, d, vl,
     got = dec.decode_attention(q, k, v, valid)
     assert_kernel_close(got, dec.decode_attention_ref(q, k, v, valid))
     assert bool(torch.isfinite(got).all())
+    assert rops.LAUNCH_COUNTS["decode_attention"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_takes_an_unaligned_base(dev, dtype):
+    """Contiguous caches whose data starts one element past a 16-byte
+    boundary: the kernel loads them element by element."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, S, H, KV, d = 2, 300, 14, 2, 64
+    q = torch.randn((B, H, d), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(1 + B * S * KV * d, generator=g,
+                        device=dev).to(dtype)[1:].view(B, S, KV, d)
+            for _ in range(2))
+    assert k.data_ptr() % 16 and v.data_ptr() % 16
+    valid = torch.tensor(290, dtype=torch.int32, device=dev)
+    assert_kernel_close(dec.decode_attention(q, k, v, valid),
+                        dec.decode_attention_ref(q, k, v, valid))
     assert rops.LAUNCH_COUNTS["decode_attention"] == 1
 
 

@@ -243,3 +243,119 @@ def test_decode_attention_plain_with_no_valid_slot_is_zero():
                       block_k=16)
     assert_close(got, want, "float32")
     assert not got.any()
+
+
+# The CUDA decode kernel's blocking (csrc/decode_attention.cu), emulated:
+# the card's 132 SMs, as the binding reads them; a lane holds 8 elements
+# of a row; four warps a block; a group of more than 8 heads in chunks.
+DECODE_SMS, LANE_ELEMS, WARPS, HEAD_CHUNK = 132, 8, 4, 8
+
+
+def decode_split_len(B, S, KV, G, sms=DECODE_SMS):
+    """``decode_split_len`` of ``csrc/model_ops.h``: as many splits as
+    fill one wave of four blocks an SM (one head a block, G 1) or three
+    (a chunk of eight heads), each a multiple of 16 slots."""
+    blocks = B * KV * -(-G // HEAD_CHUNK)
+    splits = max((4 if G == 1 else 3) * sms // blocks, 1)
+    length = -(-S // splits)
+    return -(-length // 16) * 16
+
+
+def _merge(m, l, acc):
+    """Online-softmax states (max in log2 units, sum, unnormalised
+    output) merged over the last dim of m and l; acc is m's shape + (d,).
+    """
+    mx = m.amax(-1, keepdim=True)
+    w = torch.exp2(m - mx)
+    return mx.squeeze(-1), (w * l).sum(-1), (w[..., None] * acc).sum(-2)
+
+
+def emulate_split_decode(q, k, v, valid_len, sms=DECODE_SMS):
+    """The CUDA decode kernel's arithmetic in plain torch. Float32 scores
+    of the upcast q and k, times c = scale log2(e); the cache cut into
+    splits of ``decode_split_len`` slots; in a split, warp w's step t
+    covers slots s0 + (t * 4 + w) * rpw + [0, rpw), rpw = 32 / lpr rows
+    of lpr lanes, and each (warp, row) keeps its own running max, sum and
+    output, updated once a stage of 4 (bf16) or 2 (float32) steps:
+    p = ok ? 2^(s - m_new) : 0, alpha = 2^(m_prev - m_new). At the end of
+    a split the rows of a warp merge pairwise (rows 1, 2, 4, ... apart, as
+    the shuffles pair them), then the warps; the splits merge last, with
+    the 1e-30 floor on the normaliser. Returns (out in q's dtype, the
+    split length)."""
+    B, H, d = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    lpr = 1
+    while lpr * LANE_ELEMS < d:
+        lpr *= 2
+    rpw = 32 // lpr
+    steps = 8 // q.element_size()
+    c = np.float32(np.float32(d ** -0.5) * np.float32(1.4426950408889634))
+    vl = min(int(valid_len), S)
+    qg = q.float().reshape(B, KV, G, d)
+    s_all = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * float(c)
+    v_all = v.float().permute(0, 2, 1, 3)                  # (B, KV, S, d)
+    split = decode_split_len(B, S, KV, G, sms)
+    parts = []
+    for s0 in range(0, S, split):
+        s1 = min(s0 + split, vl)
+        per_stage = steps * WARPS * rpw
+        n_stage = max(-(-(s1 - s0) // per_stage), 0)
+        m = torch.full((B, KV, G, WARPS, rpw), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(m.shape + (d,))
+        t, w, r = torch.meshgrid(torch.arange(steps), torch.arange(WARPS),
+                                 torch.arange(rpw), indexing="ij")
+        for j in range(n_stage):
+            slot = s0 + ((j * steps + t) * WARPS + w) * rpw + r  # (U, W, R)
+            ok = slot < s1
+            safe = torch.where(ok, slot, 0)
+            s = torch.where(ok, s_all[..., safe], -1e30)   # (B,KV,G,U,W,R)
+            m_new = torch.maximum(m, s.amax(3))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(ok, torch.exp2(s - m_new[:, :, :, None]), 0.0)
+            l = alpha * l + p.sum(3)
+            vt = v_all[:, :, safe]                          # (B,KV,U,W,R,d)
+            acc = alpha[..., None] * acc + torch.einsum(
+                "bkguwr,bkuwrd->bkgwrd", p, vt)
+            m = m_new
+        off = 1
+        while off < rpw:
+            pair = torch.arange(rpw) ^ off
+            m, l, acc = _merge(torch.stack([m, m[..., pair]], -1),
+                               torch.stack([l, l[..., pair]], -1),
+                               torch.stack([acc, acc[..., pair, :]], -2))
+            off *= 2
+        parts.append(_merge(m[..., 0], l[..., 0], acc[..., 0, :]))
+    ms, ls, accs = zip(*parts)
+    m, l, acc = _merge(torch.stack(ms, -1), torch.stack(ls, -1),
+                       torch.stack(accs, -2))
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, H, d).to(q.dtype), split
+
+
+@pytest.mark.parametrize("vl", [0, 1, 257, 1030])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_blocking_matches_pallas_and_plain(vl, dtype):
+    """The split, warp and row states of the CUDA decode kernel, merged
+    as it merges them, give what the Pallas kernel (interpret mode) and
+    the plain version give, within the card's kernel tolerance: at qwen2's
+    serving shape (B 2, 1088 slots, 14 / 2 heads of 64) the splits are 16
+    slots (68 of them), so a warp's stage holds one step of slots and
+    three masked ones, valid_len 257 ends in the first warp tile of split
+    16, and 0 leaves every split empty: zeros, no NaN."""
+    B, S, H, KV, d = 2, 1088, 14, 2, 64
+    q, k, v = inputs(S + vl, dtype, (B, H, d), (B, S, KV, d),
+                     (B, S, KV, d))
+    got, split = emulate_split_decode(to_torch(q), to_torch(k), to_torch(v),
+                                      vl)
+    assert split == 16
+    assert bool(torch.isfinite(got).all())
+    plain = decode_attention_ref(to_torch(q), to_torch(k), to_torch(v),
+                                 torch.tensor(vl, dtype=torch.int32))
+    pallas = jax.jit(jax_decode)(*(jnp.asarray(a) for a in (q, k, v)),
+                                 jnp.int32(vl))
+    assert [misses_kernel_tolerance(got, want)
+            for want in (plain, pallas)] == [0, 0]
+    if vl == 0:
+        assert not got.any()
