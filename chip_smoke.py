@@ -128,26 +128,44 @@ def event_ms(fn, iters=200, warmup=20):
 
 def check_ring_write(rops, dev):
     """Kernel vs plain version, every field width, mid-ring, wrapping and
-    windowed writes. Returns the max abs error over all cases."""
+    windowed writes: each width alone, then the trainer's round in one
+    launch (the six fields; under PER seven, the priorities' (capacity,
+    1) view added), 1-d pools for the width-1 fields as the trainer
+    keeps them. Returns the max abs error over all cases."""
     import torch
     g = torch.Generator(device=dev).manual_seed(1)
+    g_fields = torch.Generator(device=dev).manual_seed(13)
     worst = 0.0
     cases = [(CAPACITY, 100_000, None), (CAPACITY, CAPACITY - 200, None),
              # a 65536-row window of the ring that the write straddles
              (65_536, 131_072 - 300, 131_072)]
+    pendulum = [() if w == 1 else (w,) for w in FIELD_WIDTHS.values()]
     for rows_local, ptr, lo in cases:
+        p = torch.tensor(ptr, dtype=torch.int32, device=dev)
+        kw = ({} if lo is None else
+              {"capacity": CAPACITY,
+               "window_start": torch.tensor(lo, dtype=torch.int32,
+                                            device=dev)})
         for width in sorted(set(FIELD_WIDTHS.values())):
             data = torch.randn((rows_local, width), generator=g, device=dev)
             batch = torch.randn((ROUND_ROWS, width), generator=g, device=dev)
-            p = torch.tensor(ptr, dtype=torch.int32, device=dev)
-            kw = ({} if lo is None else
-                  {"capacity": CAPACITY,
-                   "window_start": torch.tensor(lo, dtype=torch.int32,
-                                                device=dev)})
             got = rops.ring_write(data.clone(), batch, p, **kw)
             want = rops.ring_write_ref(data.clone(), batch, p, **kw)
             require(not torch.equal(got, data), "ring_write wrote nothing")
             worst = max(worst, float((got - want).abs().max()))
+        for shapes in (pendulum, pendulum + [(1,)]):
+            datas = [torch.randn((rows_local,) + s, generator=g_fields,
+                                 device=dev) for s in shapes]
+            batches = [torch.randn((ROUND_ROWS,) + s, generator=g_fields,
+                                   device=dev) for s in shapes]
+            got = rops.ring_write_fields([d.clone() for d in datas],
+                                         batches, p, **kw)
+            want = rops.ring_write_fields_ref([d.clone() for d in datas],
+                                              batches, p, **kw)
+            for gd, wd, d in zip(got, want, datas):
+                require(not torch.equal(gd, d),
+                        f"ring_write of {len(datas)} fields missed one")
+                worst = max(worst, float((gd - wd).abs().max()))
     return worst
 
 
@@ -178,23 +196,28 @@ def check_ring_gather(rops, dev):
     return worst
 
 
-def time_ring_write(rops, dev, kernel_fn=None):
+def time_ring_write(rops, dev, rowloop=False):
     """Times one round's ring write: the six fields, n = 512 rows each,
-    with ``kernel_fn`` (``ring_write`` by default, or the row-at-a-time
-    baseline); the plain version is ``ring_write_ref`` for both."""
+    with one ``ring_write_fields`` launch, or (``rowloop``) the
+    row-at-a-time baseline once a field; the plain version is
+    ``ring_write_ref`` for both, the library call ``index_copy_``, once a
+    field."""
     import torch
-    kernel_fn = kernel_fn or rops.ring_write
     g = torch.Generator(device=dev).manual_seed(3)
     data = {k: torch.randn((CAPACITY, w), generator=g, device=dev)
             for k, w in FIELD_WIDTHS.items()}
     batch = {k: torch.randn((ROUND_ROWS, w), generator=g, device=dev)
              for k, w in FIELD_WIDTHS.items()}
+    datas, batches = list(data.values()), list(batch.values())
     ptr = torch.tensor(100_000, dtype=torch.int32, device=dev)
     dest = (100_000 + torch.arange(ROUND_ROWS, device=dev)) % CAPACITY
 
     def kernel():
+        if not rowloop:
+            rops.ring_write_fields(datas, batches, ptr)
+            return
         for k in data:
-            kernel_fn(data[k], batch[k], ptr)
+            rops.ring_write_rowloop(data[k], batch[k], ptr)
 
     def plain():
         for k in data:
@@ -205,8 +228,8 @@ def time_ring_write(rops, dev, kernel_fn=None):
             data[k].index_copy_(0, dest, batch[k])
 
     floats = sum(FIELD_WIDTHS.values()) * ROUND_ROWS
-    # batch read once + rows written once + ptr read once per field
-    moved = 2 * floats * 4 + 4 * len(FIELD_WIDTHS)
+    # batch read once + rows written once + ptr read once
+    moved = 2 * floats * 4 + 4
     return {"ms": event_ms(kernel), "plain_ms": event_ms(plain),
             "library_ms": event_ms(library),
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
@@ -587,8 +610,8 @@ def check_device_vs_cpu(dev, prioritized=False, algo="sac"):
 def run_main_path(rops, dev, megasteps, prioritized=False, algo="sac"):
     """SpreezeTrainer.train with ``algo`` at full width; counters reset
     just before.
-    Per warmup chunk or round: one ring write per field, plus one for
-    the priorities under PER; per update: one gather per field, plus the
+    Per warmup chunk or round: one ring-write launch for every field (the
+    priorities too under PER); per update: one gather per field, plus the
     priority mass, one top-k and one scatter under PER."""
     import math
     import torch
@@ -614,7 +637,7 @@ def run_main_path(rops, dev, megasteps, prioritized=False, algo="sac"):
     launches = dict(rops.LAUNCH_COUNTS)
     per_row = len(ring.data) + (1 if prioritized else 0)
     updates = rounds * cfg.updates_per_round
-    expect = {"ring_write": per_row * (warm_chunks + rounds),
+    expect = {"ring_write": warm_chunks + rounds,
               "ring_gather": per_row * updates}
     if prioritized:
         expect.update(per_topk=updates, priority_scatter=updates)
@@ -1173,8 +1196,8 @@ def main():
               "per_topk": time_per_topk(rops, dev),
               "priority_scatter": time_priority_scatter(rops, dev),
               "per_scores": time_per_scores(rops, dev),
-              "ring_write_rowloop": time_ring_write(
-                  rops, dev, rops.ring_write_rowloop),
+              "ring_write_rowloop": time_ring_write(rops, dev,
+                                                    rowloop=True),
               "ring_gather_rowloop": time_ring_gather(
                   rops, dev, rops.ring_gather_rowloop,
                   rops.ring_gather_rowloop_ref)}

@@ -5,8 +5,10 @@ Counterpart of ``benchmarks/bench_replay_kernels.py``. Four tables, each
 with its arms:
 
 * ``ring_write``: ``kernel`` (``ring_write``), ``rowloop``
-  (``ring_write_rowloop``), ``plain`` (``ring_write_ref``); a write of n
-  rows that wraps at the ring's end mid-batch;
+  (``ring_write_rowloop``: the same coalesced kernel with a floor
+  remainder, so no longer a row-at-a-time write), ``plain``
+  (``ring_write_ref``); a write of n rows that wraps at the ring's end
+  mid-batch;
 * ``ring_gather``: ``kernel``, ``rowloop``, ``plain`` over B uniform
   indices;
 * ``per_scores``: ``kernel`` and ``plain`` over a half-empty pool (the

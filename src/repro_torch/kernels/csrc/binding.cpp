@@ -55,24 +55,69 @@ int64_t row_width(const at::Tensor& t) {
   return t.size(0) ? t.numel() / t.size(0) : 0;
 }
 
-void ring_write(at::Tensor data, const at::Tensor& batch,
-                const at::Tensor& ptr,
-                const std::optional<at::Tensor>& window_start,
-                int64_t capacity) {
-  check_operand(data, "data", at::kFloat);
-  check_operand(batch, "batch", at::kFloat);
+// A row's shape for a TORCH_CHECK message, "(2, 3)" for a (n, 2, 3)
+// tensor, its sizes formatted with num().
+std::string row_shape(const at::Tensor& t) {
+  std::string s = "(";
+  for (int64_t d = 1; d < t.dim(); ++d) {
+    s += (d > 1 ? ", " : "") + num(t.size(d));
+  }
+  return s + ")";
+}
+
+// One launch writes every field of a round at the same ring slots: the
+// fields share ptr, the window, the capacity and rows_local, and each
+// may have its own row shape. floor_mod picks the row-at-a-time
+// baseline's index rule.
+void write_fields(c10::ArrayRef<at::Tensor> data,
+                  c10::ArrayRef<at::Tensor> batch, const at::Tensor& ptr,
+                  const std::optional<at::Tensor>& window_start,
+                  int64_t capacity, bool floor_mod) {
+  const int64_t nfields = static_cast<int64_t>(data.size());
+  TORCH_CHECK(nfields >= 1 && nfields <= kMaxRingFields, "ring_write of ",
+              num(nfields), " fields: takes 1 to ", num(kMaxRingFields));
+  TORCH_CHECK(static_cast<int64_t>(batch.size()) == nfields, "ring_write "
+              "of ", num(static_cast<int64_t>(batch.size())),
+              " batches into ", num(nfields), " fields");
   check_operand(ptr, "ptr", at::kInt);
   TORCH_CHECK(ptr.numel() == 1, "ptr must be a scalar");
-  TORCH_CHECK(batch.size(0) <= capacity, "ring_write of ",
-              num(batch.size(0)), " rows into capacity ", num(capacity));
-  TORCH_CHECK(row_width(batch) == row_width(data),
-              "batch and data rows differ in width");
-  const c10::cuda::CUDAGuard guard(data.device());
-  launch_ring_write(data.data_ptr<float>(), batch.data_ptr<float>(),
-                    ptr.data_ptr<int32_t>(), window_ptr(window_start),
-                    batch.size(0), row_width(data), capacity, data.size(0),
+  const int64_t rows_local = data[0].dim() ? data[0].size(0) : 0;
+  const int64_t n = batch[0].dim() ? batch[0].size(0) : 0;
+  TORCH_CHECK(n <= capacity, "ring_write of ", num(n),
+              " rows into capacity ", num(capacity));
+  RingFields fields{};
+  for (int64_t k = 0; k < nfields; ++k) {
+    check_operand(data[k], "data", at::kFloat);
+    check_operand(batch[k], "batch", at::kFloat);
+    TORCH_CHECK(data[k].device() == ptr.device() &&
+                    batch[k].device() == ptr.device(),
+                "field ", num(k), " is not on ptr's device");
+    TORCH_CHECK(data[k].dim() >= 1 && data[k].size(0) == rows_local,
+                "field ", num(k), " does not hold field 0's ",
+                num(rows_local), " rows");
+    TORCH_CHECK(batch[k].dim() >= 1 && batch[k].size(0) == n, "field ",
+                num(k), "'s batch does not hold field 0's ", num(n),
+                " rows");
+    TORCH_CHECK(data[k].sizes().slice(1) == batch[k].sizes().slice(1),
+                "field ", num(k), ": batch rows ", row_shape(batch[k]),
+                " do not match data rows ", row_shape(data[k]));
+    fields.data[k] = data[k].data_ptr<float>();
+    fields.batch[k] = batch[k].data_ptr<float>();
+    fields.width[k] = row_width(data[k]);
+  }
+  const c10::cuda::CUDAGuard guard(ptr.device());
+  launch_ring_write(fields, static_cast<int>(nfields),
+                    ptr.data_ptr<int32_t>(), window_ptr(window_start), n,
+                    capacity, rows_local, floor_mod,
                     c10::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void ring_write(c10::ArrayRef<at::Tensor> data,
+                c10::ArrayRef<at::Tensor> batch, const at::Tensor& ptr,
+                const std::optional<at::Tensor>& window_start,
+                int64_t capacity) {
+  write_fields(data, batch, ptr, window_start, capacity, false);
 }
 
 void ring_gather(const at::Tensor& data, const at::Tensor& idx,
@@ -97,23 +142,12 @@ void check_vector(const at::Tensor& t, const char* name,
   TORCH_CHECK(t.dim() == 1, name, " must be 1-d");
 }
 
+// The row-at-a-time baseline's write: one field, no window, the pool's
+// rows as the capacity and the slot taken mod rows as a floor.
 void ring_write_rowloop(at::Tensor data, const at::Tensor& batch,
                         const at::Tensor& ptr) {
-  check_operand(data, "data", at::kFloat);
-  check_operand(batch, "batch", at::kFloat);
-  check_operand(ptr, "ptr", at::kInt);
-  TORCH_CHECK(ptr.numel() == 1, "ptr must be a scalar");
-  TORCH_CHECK(batch.size(0) <= data.size(0), "ring_write_rowloop of ",
-              num(batch.size(0)), " rows into capacity ", num(data.size(0)));
-  TORCH_CHECK(row_width(batch) == row_width(data),
-              "batch and data rows differ in width");
-  if (batch.size(0) == 0) return;
-  const c10::cuda::CUDAGuard guard(data.device());
-  launch_ring_write_rowloop(data.data_ptr<float>(), batch.data_ptr<float>(),
-                            ptr.data_ptr<int32_t>(), batch.size(0),
-                            row_width(data), data.size(0),
-                            c10::cuda::getCurrentCUDAStream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  write_fields(data, batch, ptr, std::nullopt, data.dim() ? data.size(0) : 0,
+               true);
 }
 
 void ring_gather_rowloop(const at::Tensor& data, const at::Tensor& idx,
@@ -333,7 +367,7 @@ void ssd_scan(const at::Tensor& x, const at::Tensor& dtA, const at::Tensor& B_,
 }  // namespace
 
 TORCH_LIBRARY(repro_torch, m) {
-  m.def("ring_write(Tensor(a!) data, Tensor batch, Tensor ptr, "
+  m.def("ring_write(Tensor(a!)[] data, Tensor[] batch, Tensor ptr, "
         "Tensor? window_start, int capacity) -> ()");
   m.def("ring_gather(Tensor data, Tensor idx, Tensor? window_start, "
         "Tensor(a!) out) -> ()");

@@ -7,13 +7,27 @@
 
 #include <cuda_runtime.h>
 
-// data[(*ptr + i) % capacity - *window_start] = batch[i] for the rows of
-// batch (n, feat) that land inside the window [*window_start,
-// *window_start + rows_local). window_start == nullptr means 0.
-void launch_ring_write(float* data, const float* batch, const int32_t* ptr,
-                       const int32_t* window_start, int64_t n, int64_t feat,
-                       int64_t capacity, int64_t rows_local,
-                       cudaStream_t stream);
+// The fields of one ring write: each field k is a (rows_local,
+// width[k]) float32 pool data[k] and an (n, width[k]) batch batch[k].
+// Passed to the kernel by value, so a launch takes up to kMaxRingFields
+// fields.
+constexpr int kMaxRingFields = 8;
+struct RingFields {
+  float* data[kMaxRingFields];
+  const float* batch[kMaxRingFields];
+  int64_t width[kMaxRingFields];
+};
+
+// For each of the nfields fields, data[(*ptr + i) % capacity -
+// *window_start] = batch[i] for the n rows of batch that land inside the
+// window [*window_start, *window_start + rows_local), in one launch.
+// window_start == nullptr means 0. With floor_mod (the row-at-a-time
+// baseline: no window, capacity == rows_local) the slot is taken mod
+// capacity as a floor, so a negative ptr wraps.
+void launch_ring_write(const RingFields& fields, int nfields,
+                       const int32_t* ptr, const int32_t* window_start,
+                       int64_t n, int64_t capacity, int64_t rows_local,
+                       bool floor_mod, cudaStream_t stream);
 
 // out[j] = data[idx[j] - *window_start] for in-window indices, else a row
 // of zeros. data is (rows_local, feat), idx (bsz,), out (bsz, feat).
@@ -22,14 +36,7 @@ void launch_ring_gather(float* out, const float* data, const int32_t* idx,
                         int64_t feat, int64_t rows_local,
                         cudaStream_t stream);
 
-// The row-at-a-time baselines (no window): data[(*ptr + i) mod rows] =
-// batch[i] for the n <= rows rows of batch (n, feat), the slot taken
-// mod rows as a floor, so a negative ptr wraps.
-void launch_ring_write_rowloop(float* data, const float* batch,
-                               const int32_t* ptr, int64_t n, int64_t feat,
-                               int64_t rows, cudaStream_t stream);
-
-// out[i] = data[j] for j = idx[i], taken as j + rows when negative and
+// The row-at-a-time gather baseline (no window): out[i] = data[j] for j = idx[i], taken as j + rows when negative and
 // then clamped to [0, rows - 1] (rows >= 1): what the TPU kernel's
 // unchecked row reads give.
 void launch_ring_gather_rowloop(float* out, const float* data,

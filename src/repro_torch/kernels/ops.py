@@ -1,8 +1,9 @@
 """Public kernel ops: the counterpart of ``repro/kernels/ops.py``'s
-replay ops (``ring_write`` / ``ring_gather`` / ``per_topk`` /
-``priority_scatter``), the bench baselines (``per_scores`` /
-``ring_write_rowloop`` / ``ring_gather_rowloop``) and model ops (``rmsnorm`` / ``flash_attention`` /
-``decode_attention`` / ``ssd_scan``).
+replay ops (``ring_write`` and ``ring_write_fields`` / ``ring_gather``
+/ ``per_topk`` / ``priority_scatter``), the bench baselines
+(``per_scores`` / ``ring_write_rowloop`` / ``ring_gather_rowloop``) and
+model ops (``rmsnorm`` / ``flash_attention`` / ``decode_attention`` /
+``ssd_scan``).
 
 Which version runs is decided by the operand's device, never by what the
 machine has: a CUDA tensor goes to the hand-written kernel (which raises
@@ -13,7 +14,7 @@ reference chose between its jnp path and its Pallas kernels with
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -30,6 +31,16 @@ def ring_write(data: torch.Tensor, batch: torch.Tensor, ptr: torch.Tensor,
     if data.device.type == "cpu":
         return _replay.ring_write_ref(data, batch, ptr, **kw)
     return _replay.ring_write(data, batch, ptr, **kw)
+
+
+def ring_write_fields(datas: Sequence[torch.Tensor],
+                      batches: Sequence[torch.Tensor], ptr: torch.Tensor,
+                      **kw):
+    """In-place ring write of several fields' (n, ...) rows at the same
+    slots ``(ptr + i) % capacity``: one kernel launch for all of them."""
+    if datas[0].device.type == "cpu":
+        return _replay.ring_write_fields_ref(datas, batches, ptr, **kw)
+    return _replay.ring_write_fields(datas, batches, ptr, **kw)
 
 
 def ring_gather(data: torch.Tensor, idx: torch.Tensor, **kw

@@ -1,8 +1,10 @@
-"""Replay kernels: the ring write, the uniform gather, the fused PER
-score + top-k selection, the priority scatter, and the bench baselines
-(the PER score pass and the row-at-a-time ring write and gather).
+"""Replay kernels: the ring write (one launch for every field of a
+round), the uniform gather, the fused PER score + top-k selection, the
+priority scatter, and the bench baselines (the PER score pass and the
+row-at-a-time ring write and gather).
 
-Counterpart of ``repro/kernels/replay_ops.py``'s ``ring_write`` /
+Counterpart of ``repro/kernels/replay_ops.py``'s ``ring_write`` (here
+also ``ring_write_fields``, several fields at the same slots) /
 ``ring_gather`` / ``per_topk`` / ``priority_scatter`` / ``per_scores`` /
 ``ring_write_rowloop`` / ``ring_gather_rowloop``, their ``*_ref`` oracles
 and ``merge_topk_candidates``. The kernels are CUDA C++ for Hopper
@@ -25,7 +27,7 @@ the host.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -58,39 +60,64 @@ def _window_long(window_start: Window, device) -> torch.Tensor:
 # ring write
 # --------------------------------------------------------------------------- #
 
-def _check_write(data, batch, ptr, cap: int) -> bool:
-    """A ring write's operands, for the CUDA kernels; False when there is
-    nothing to write."""
+def _check_write(data, batch, cap: int) -> bool:
+    """The checks of a one-field ring write whose error types callers
+    rely on (the binding makes the rest, and raises RuntimeError); False
+    when there is nothing to write."""
+    if not data.is_cuda:
+        raise ValueError(f"data must be a CUDA tensor, got {data.device}")
     if batch.shape[0] > cap:
         raise ValueError(f"ring_write of {batch.shape[0]} rows into "
                          f"capacity {cap}")
-    check_cuda_operand(data, "data", torch.float32)
-    check_cuda_operand(batch, "batch", data.dtype)
-    check_cuda_operand(ptr, "ptr", torch.int32)
-    if batch.shape[1:] != data.shape[1:]:
-        raise ValueError(f"batch rows {tuple(batch.shape[1:])} do not match "
-                         f"data rows {tuple(data.shape[1:])}")
+    if batch.dtype != data.dtype:
+        raise TypeError(f"batch has dtype {batch.dtype}, expected "
+                        f"{data.dtype}")
+    if not batch.is_contiguous():
+        raise ValueError("batch must be contiguous")
     return batch.shape[0] > 0
+
+
+def ring_write_fields(datas: Sequence[torch.Tensor],
+                      batches: Sequence[torch.Tensor], ptr: torch.Tensor,
+                      *, capacity: Optional[int] = None,
+                      window_start: Window = None):
+    """Write each ``batches[k]`` (n, ...) into ``datas[k]`` at ring slots
+    ``(ptr + i) % capacity``, in place, with ONE launch of the CUDA
+    kernel for all the fields (at most 8); returns ``datas``.
+
+    The fields share ``ptr`` (a device int32 scalar), the window, the
+    capacity (default: the pools' rows) and n; each has its own row
+    width. Requires n <= capacity. The binding checks every operand and
+    raises ``RuntimeError``; only a pool off the card is refused here,
+    before anything is built."""
+    data0 = datas[0]
+    if not data0.is_cuda:
+        raise ValueError(f"data must be a CUDA tensor, got {data0.device}")
+    if batches[0].shape[0] == 0:
+        return datas
+    load_kernels()
+    torch.ops.repro_torch.ring_write(
+        datas, batches, ptr, _window_tensor(window_start, data0.device),
+        data0.shape[0] if capacity is None else capacity)
+    LAUNCH_COUNTS["ring_write"] += 1
+    return datas
 
 
 def ring_write(data: torch.Tensor, batch: torch.Tensor, ptr: torch.Tensor,
                *, capacity: Optional[int] = None,
                window_start: Window = None) -> torch.Tensor:
     """Write ``batch`` (n, ...) into ``data`` at ring slots ``(ptr + i) %
-    capacity`` with the CUDA kernel, in place; returns ``data``.
+    capacity`` with the CUDA kernel, in place; returns ``data``. A
+    one-field ``ring_write_fields``.
 
     ``ptr`` is a device int32 scalar. ``capacity`` defaults to
     ``data.shape[0]`` (the whole pool). Requires n <= capacity
     (``replay.buffer.write_plan`` keeps the newest rows of a larger
     write)."""
     cap = data.shape[0] if capacity is None else capacity
-    if not _check_write(data, batch, ptr, cap):
-        return data
-    load_kernels()
-    torch.ops.repro_torch.ring_write(
-        _as2d(data), _as2d(batch), ptr,
-        _window_tensor(window_start, data.device), cap)
-    LAUNCH_COUNTS["ring_write"] += 1
+    if _check_write(data, batch, cap):
+        ring_write_fields([data], [batch], ptr, capacity=cap,
+                          window_start=window_start)
     return data
 
 
@@ -106,12 +133,30 @@ def ring_write_ref(data: torch.Tensor, batch: torch.Tensor, ptr, *,
     if batch.dtype != data.dtype:
         raise TypeError(f"batch has dtype {batch.dtype}, expected "
                         f"{data.dtype}")
+    if batch.shape[1:] != data.shape[1:]:
+        raise ValueError(f"batch rows {tuple(batch.shape[1:])} do not match "
+                         f"data rows {tuple(data.shape[1:])}")
     dest = (torch.as_tensor(ptr, device=data.device).long()
             + torch.arange(n, device=data.device)) % cap
     local = dest - _window_long(window_start, data.device)
     inside = (local >= 0) & (local < rows_local)
     data.index_copy_(0, local[inside], batch[inside])
     return data
+
+
+def ring_write_fields_ref(datas: Sequence[torch.Tensor],
+                          batches: Sequence[torch.Tensor], ptr, *,
+                          capacity: Optional[int] = None,
+                          window_start: Window = None):
+    """Plain PyTorch ``ring_write_fields``: ``ring_write_ref`` field by
+    field, in place; returns ``datas``."""
+    if len(datas) != len(batches):
+        raise ValueError(f"ring_write of {len(batches)} batches into "
+                         f"{len(datas)} fields")
+    for data, batch in zip(datas, batches):
+        ring_write_ref(data, batch, ptr, capacity=capacity,
+                       window_start=window_start)
+    return datas
 
 
 # --------------------------------------------------------------------------- #
@@ -324,15 +369,15 @@ def priority_scatter_ref(priorities: torch.Tensor, idx: torch.Tensor,
 
 def ring_write_rowloop(data: torch.Tensor, batch: torch.Tensor,
                        ptr: torch.Tensor) -> torch.Tensor:
-    """The row-at-a-time ring write with the CUDA kernel, in place: row i
-    of ``batch`` (n, ...) into slot ``(ptr + i) % data.shape[0]``; no
+    """The row-at-a-time kernel's ring write, in place, with the CUDA
+    ring-write kernel on one field: row i of ``batch`` (n, ...) into slot
+    ``(ptr + i) % data.shape[0]``, the remainder taken as a floor; no
     window. ``ptr`` is a device int32 scalar; n > capacity raises. Plain
     version: ``ring_write_ref`` with no window."""
-    if not _check_write(data, batch, ptr, data.shape[0]):
-        return data
-    load_kernels()
-    torch.ops.repro_torch.ring_write_rowloop(_as2d(data), _as2d(batch), ptr)
-    LAUNCH_COUNTS["ring_write_rowloop"] += 1
+    if _check_write(data, batch, data.shape[0]):
+        load_kernels()
+        torch.ops.repro_torch.ring_write_rowloop(data, batch, ptr)
+        LAUNCH_COUNTS["ring_write_rowloop"] += 1
     return data
 
 

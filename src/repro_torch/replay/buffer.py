@@ -2,15 +2,15 @@
 Counterpart of the uniform half of ``repro/replay/buffer.py``.
 
 The pool lives on the device; ``add_batch`` writes new rows into it with
-the ring-write kernel and ``sample`` reads a batch with the gather
-kernel (``kernels.ops`` chooses kernel or plain version by the pool's
-device). Both work in place on the ``ReplayState``'s tensors, the
-analogue of the JAX package's donated ring. ``ptr`` and ``size`` are
+one ring-write launch for all the fields and ``sample`` reads a batch
+with the gather kernel (``kernels.ops`` chooses kernel or plain version
+by the pool's device). Both work in place on the ``ReplayState``'s
+tensors, the analogue of the JAX package's donated ring. ``ptr`` and ``size`` are
 device int32 scalars; nothing here reads them back to the host.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -60,15 +60,22 @@ def write_plan(ptr, n: int, cap: int):
     return ((ptr + drop) % cap if drop else ptr), n - drop
 
 
-def add_batch(state: ReplayState, batch: Dict[str, torch.Tensor]
+def add_batch(state: ReplayState, batch: Dict[str, torch.Tensor],
+              extra: Sequence[Tuple[torch.Tensor, torch.Tensor]] = ()
               ) -> ReplayState:
     """Write N new rows at (ptr + i) % capacity, in place: one ring-write
-    launch per field, then ``ptr``/``size`` advance on the device."""
+    launch for every field, then ``ptr``/``size`` advance on the device.
+    ``extra`` holds more (pool (capacity, ...), rows (N, ...)) pairs
+    written at the same slots in the same launch (the prioritized pool's
+    priorities)."""
     n = next(iter(batch.values())).shape[0]
     cap = next(iter(state.data.values())).shape[0]
     ptr0, keep = write_plan(state.ptr, n, cap)
-    for k, dest in state.data.items():
-        kops.ring_write(dest, batch[k][n - keep:], ptr0)
+    pairs = [(dest, batch[k]) for k, dest in state.data.items()]
+    pairs += extra
+    # launched before ptr advances: ptr0 may alias it
+    kops.ring_write_fields([dest for dest, _ in pairs],
+                           [rows[n - keep:] for _, rows in pairs], ptr0)
     state.ptr.add_(n).remainder_(cap)
     state.size.add_(n).clamp_(max=cap)
     return state

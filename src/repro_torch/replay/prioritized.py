@@ -46,17 +46,15 @@ def init_prioritized(capacity: int, specs, device="cuda"
 def add_batch(state: PrioritizedState, batch: Dict[str, torch.Tensor]
               ) -> PrioritizedState:
     """Write the rows into the ring and give their slots the current max
-    priority (so every new row gets drawn), in place: the ``ring_write``
-    kernel on the ``(capacity, 1)`` priority vector, on the same slots as
-    the data, oversized-write drop included."""
+    priority (so every new row gets drawn), in place: the priorities'
+    ``(capacity, 1)`` view is one more field of the data's ring-write
+    launch, on the same slots, oversized-write drop included."""
     n = next(iter(batch.values())).shape[0]
     cap = state.priorities.shape[0]
-    ptr0, keep = rb.write_plan(state.base.ptr, n, cap)
-    # launched before the data write advances ptr, which ptr0 may alias;
     # the kernel takes only contiguous rows
-    kops.ring_write(state.priorities.view(cap, 1),
-                    state.max_priority.expand(keep, 1).contiguous(), ptr0)
-    rb.add_batch(state.base, batch)
+    rows = state.max_priority.expand(n, 1).contiguous()
+    rb.add_batch(state.base, batch,
+                 extra=[(state.priorities.view(cap, 1), rows)])
     return state
 
 

@@ -49,6 +49,42 @@ def test_ring_write_kernel_matches_plain(dev, cap, n, ptr, width, lo,
     assert rops.LAUNCH_COUNTS["ring_write"] == 1
 
 
+# Pendulum's six replay fields (widths 3, 1, 1, 3, 1, 1), then the
+# priorities' (capacity, 1) view and a field of (2, 3) rows
+FIELD_ROWS = [(3,), (1,), (), (3,), (), (), (1,), (2, 3)]
+
+
+@pytest.mark.parametrize("cap,n,ptr,fields,lo,rows_local", [
+    (40, 12, 5, 6, None, 40),
+    (13, 8, 9, 7, None, 13),            # wraps mid-batch, 7 fields
+    (13, 13, 12, 8, None, 13),          # n == capacity, 8 fields
+    (32, 12, 22, 7, 24, 8),             # a window of a wrapping write
+    (262_144, 512, 100_000, 6, None, 262_144),   # a round, mid-ring
+    (262_144, 512, 262_000, 7, None, 262_144),   # a PER round, wrapping
+    (262_144, 512, 131_072 - 300, 7, 131_072, 65_536),  # straddles a window
+])
+def test_ring_write_fields_kernel_matches_plain(dev, cap, n, ptr, fields,
+                                                lo, rows_local):
+    """Every field of a write in one launch, bit for bit, mixed widths."""
+    g = torch.Generator(device=dev).manual_seed(cap + ptr + fields)
+    datas = [torch.randn((rows_local,) + r, generator=g, device=dev)
+             for r in FIELD_ROWS[:fields]]
+    batches = [torch.randn((n,) + r, generator=g, device=dev)
+               for r in FIELD_ROWS[:fields]]
+    p = torch.tensor(ptr, dtype=torch.int32, device=dev)
+    kw = {} if lo is None else {
+        "capacity": cap,
+        "window_start": torch.tensor(lo, dtype=torch.int32, device=dev)}
+    got = rops.ring_write_fields([d.clone() for d in datas], batches, p,
+                                 **kw)
+    want = rops.ring_write_fields_ref([d.clone() for d in datas], batches,
+                                      p, **kw)
+    for gd, wd, d in zip(got, want, datas):
+        torch.testing.assert_close(gd, wd, rtol=0, atol=0)
+        assert not torch.equal(gd, d)
+    assert rops.LAUNCH_COUNTS["ring_write"] == 1
+
+
 @pytest.mark.parametrize("rows,lo", [(37, None), (16, 10),
                                      (262_144, None)])
 def test_ring_gather_kernel_matches_plain(dev, rows, lo):
@@ -78,6 +114,26 @@ def test_kernel_wrappers_validate_operands(dev):
     with pytest.raises(TypeError):
         rops.ring_gather(data, torch.zeros(4, dtype=torch.int64,
                                            device=dev))
+    assert sum(rops.LAUNCH_COUNTS.values()) == 0
+
+
+@pytest.mark.parametrize("pool,rows", [((8, 2, 3), (3, 6)),
+                                       ((8, 3, 1), (3, 3)),
+                                       ((8, 2, 3), (3, 3, 2))])
+def test_ring_write_row_shape_mismatch_raises(dev, pool, rows):
+    """Rows of another shape but the same width are refused by every
+    ring-write wrapper, as the plain versions refuse them."""
+    ptr = torch.zeros((), dtype=torch.int32, device=dev)
+    data, batch = (torch.zeros(pool, device=dev),
+                   torch.ones(rows, device=dev))
+    with pytest.raises(RuntimeError, match="do not match"):
+        rops.ring_write(data, batch, ptr)
+    with pytest.raises(RuntimeError, match="do not match"):
+        rops.ring_write_rowloop(data, batch, ptr)
+    with pytest.raises(RuntimeError, match="do not match"):
+        rops.ring_write_fields([torch.zeros(8, device=dev), data],
+                               [torch.ones(3, device=dev), batch], ptr)
+    assert not data.any()
     assert sum(rops.LAUNCH_COUNTS.values()) == 0
 
 
@@ -186,15 +242,16 @@ def test_megastep_on_the_card_goes_through_the_kernels(dev):
     tr._warmup()
     rops.reset_launch_counts()
     metrics = tr.megastep()
-    assert dict(rops.LAUNCH_COUNTS) == {"ring_write": 6 * 2,
+    # one ring-write launch a round for all six fields
+    assert dict(rops.LAUNCH_COUNTS) == {"ring_write": 2,
                                         "ring_gather": 6 * 2 * 2}
     assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
     assert int(tr.replay.ptr) == (64 + 64) % 100
 
 
 def test_per_megastep_on_the_card_goes_through_the_kernels(dev):
-    """Per round 7 ring writes (6 fields + priorities); per update 7
-    gathers (6 fields + the priority mass), one top-k, one scatter."""
+    """Per round one ring-write launch (6 fields + priorities); per update
+    7 gathers (6 fields + the priority mass), one top-k, one scatter."""
     from repro_torch.core import SpreezeConfig, SpreezeTrainer
     from repro_torch.rl import AlgoHP
     cfg = SpreezeConfig(num_envs=4, chunk_len=8, batch_size=64,
@@ -205,7 +262,7 @@ def test_per_megastep_on_the_card_goes_through_the_kernels(dev):
     tr._warmup()
     rops.reset_launch_counts()
     metrics = tr.megastep()
-    assert dict(rops.LAUNCH_COUNTS) == {"ring_write": 7 * 2,
+    assert dict(rops.LAUNCH_COUNTS) == {"ring_write": 2,
                                         "ring_gather": 7 * 2 * 2,
                                         "per_topk": 2 * 2,
                                         "priority_scatter": 2 * 2}
@@ -229,7 +286,7 @@ def test_td3_ddpg_megastep_on_the_card_goes_through_the_kernels(
     rops.reset_launch_counts()
     metrics = tr.megastep()
     per_row = 7 if prioritized else 6
-    expect = {"ring_write": per_row * 2, "ring_gather": per_row * 2 * 2}
+    expect = {"ring_write": 2, "ring_gather": per_row * 2 * 2}
     if prioritized:
         expect.update(per_topk=2 * 2, priority_scatter=2 * 2)
     assert dict(rops.LAUNCH_COUNTS) == expect
@@ -574,8 +631,24 @@ def _binding_case(name, dev):
     i32 = dict(device=dev, dtype=torch.int32)
     if name == "ring_write_capacity":
         d = torch.ones((8, 3), **f32)
-        return lambda: ops.ring_write(d, torch.ones((5, 3), **f32),
+        return lambda: ops.ring_write([d], [torch.ones((5, 3), **f32)],
                                       torch.zeros(1, **i32), None, 4)
+    if name in ("ring_write_fields", "ring_write_no_fields",
+                "ring_write_batches", "ring_write_field_rows",
+                "ring_write_batch_rows", "ring_write_row_shape"):
+        fields = {"ring_write_fields": 9, "ring_write_no_fields": 0}.get(
+            name, 2)
+        d = [torch.ones((8, 3), **f32) for _ in range(fields)]
+        b = [torch.ones((5, 3), **f32) for _ in range(fields)]
+        if name == "ring_write_batches":
+            b = b[:1]
+        if name == "ring_write_field_rows":
+            d[1] = torch.ones((7, 3), **f32)
+        if name == "ring_write_batch_rows":
+            b[1] = torch.ones((4, 3), **f32)
+        if name == "ring_write_row_shape":
+            b[1] = torch.ones((5, 3, 1), **f32)
+        return lambda: ops.ring_write(d, b, torch.zeros(1, **i32), None, 8)
     if name in ("per_topk_k", "per_topk_scratch"):
         k = 9 if name == "per_topk_k" else 4
         pri = torch.ones(8, **f32)
@@ -615,9 +688,11 @@ def _binding_case(name, dev):
 
 
 @pytest.mark.parametrize("name", [
-    "ring_write_capacity", "per_topk_k", "per_topk_scratch", "flash_heads",
-    "flash_head_dim", "decode_group", "decode_empty_cache", "ssd_dims",
-    "ssd_chunk", "ring_write_rowloop_capacity", "ring_gather_rowloop_rows",
+    "ring_write_capacity", "ring_write_fields", "ring_write_no_fields",
+    "ring_write_batches", "ring_write_field_rows", "ring_write_batch_rows",
+    "ring_write_row_shape", "per_topk_k", "per_topk_scratch", "flash_heads", "flash_head_dim",
+    "decode_group", "decode_empty_cache", "ssd_dims", "ssd_chunk",
+    "ring_write_rowloop_capacity", "ring_gather_rowloop_rows",
     "per_scores_rows"])
 def test_binding_checks_with_numbers_raise(dev, name):
     """Every check in binding.cpp whose message holds an integer raises a

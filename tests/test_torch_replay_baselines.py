@@ -16,6 +16,7 @@ import torch
 
 from test_torch_bridge import n, t
 from test_torch_per_ops import ALPHA, _assert_scores_close
+from test_torch_replay_ops import emulate_ring_write_kernel
 
 from repro.kernels import replay_ops as jops
 from repro_torch.benchmarks import replay_kernels as bench
@@ -80,6 +81,31 @@ def test_ring_write_rowloop_matches_jax(cap, nrows, ptr, row):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, np.asarray(jops.ring_write_ref(
         jnp.asarray(data), jnp.asarray(batch), jnp.int32(ptr))))
+
+
+@pytest.mark.parametrize("cap,nrows,ptr,row", [
+    (13, 8, 9, (3,)),       # wraps mid-batch
+    (13, 13, 12, ()),       # n == capacity
+    (10, 4, 8, (2, 3)),     # trailing dims
+    (10, 3, -1, (1,)),      # a negative ptr: the floor wraps it
+    (10, 3, -23, (1,)),
+    (10, 3, 25, (1,)),      # ptr past the capacity
+])
+def test_ring_write_rowloop_kernel_index_math(cap, nrows, ptr, row):
+    """The write kernel's grid and index rule with the row-at-a-time
+    baseline's floor remainder (emulated in numpy) give what the JAX
+    rowloop kernel (interpret mode) and ``ring_write_ref`` give."""
+    rng = np.random.default_rng(cap * 10 + nrows)
+    data = rng.standard_normal((cap,) + row).astype(np.float32)
+    batch = rng.standard_normal((nrows,) + row).astype(np.float32)
+    (got,) = emulate_ring_write_kernel([data], [batch], ptr, cap,
+                                       floor_mod=True)
+    np.testing.assert_array_equal(got, n(rops.ring_write_ref(
+        t(data), t(batch), t(np.int32(ptr)))))
+    np.testing.assert_array_equal(got, _jax_rowloop_write(data, batch, ptr))
+    if ptr < 0:     # C's remainder alone would skip the first rows
+        (trunc,) = emulate_ring_write_kernel([data], [batch], ptr, cap)
+        assert not np.array_equal(trunc, got)
 
 
 def test_ring_write_rowloop_over_capacity_raises():

@@ -80,6 +80,139 @@ def test_ring_write_dtype_mismatch_raises():
                         torch.zeros((), dtype=torch.int32))
 
 
+# Pendulum's six replay fields (widths 3, 1, 1, 3, 1, 1) and a field of
+# (2, 3) rows: the trainer's round, one field more
+FIELD_ROWS = [(3,), (1,), (), (3,), (), (), (2, 3)]
+
+
+def _fields(rng, rows, nrows):
+    datas = [rng.standard_normal((rows,) + r).astype(np.float32)
+             for r in FIELD_ROWS]
+    batches = [rng.standard_normal((nrows,) + r).astype(np.float32)
+               for r in FIELD_ROWS]
+    return datas, batches
+
+
+# (capacity, rows of the pool, n, ptr, window_start)
+FIELD_CASES = {
+    "mid_ring": (40, 40, 12, 5, None),
+    "wraps": (13, 13, 8, 9, None),           # wraps mid-batch
+    "n_is_capacity": (13, 13, 13, 12, None),
+    # slots 22..31 and (wrapped) 0, 1: a window of slots 24..31 keeps 8
+    "window": (32, 8, 12, 22, 24),
+}
+
+
+@pytest.mark.parametrize("case", FIELD_CASES)
+def test_ring_write_fields_matches_jax(case):
+    """Every field of one write, uneven widths, against the JAX kernel
+    (interpret mode) and its oracle, and against ``ring_write_ref`` field
+    by field."""
+    cap, rows, nrows, ptr, lo = FIELD_CASES[case]
+    rng = np.random.default_rng(nrows * 100 + ptr)
+    datas, batches = _fields(rng, rows, nrows)
+    kw = {} if lo is None else {"capacity": cap, "window_start": lo}
+    got = kops.ring_write_fields([t(d) for d in datas],
+                                 [t(b) for b in batches],
+                                 t(np.int32(ptr)), **kw)
+    assert len(got) == len(FIELD_ROWS)
+    assert not np.array_equal(n(got[0]), datas[0])    # rows were written
+    for d, b, g in zip(datas, batches, got):
+        want_kernel, want_ref = _jax_write(d, b, ptr, **kw)
+        np.testing.assert_array_equal(n(g), want_kernel)
+        np.testing.assert_array_equal(n(g), want_ref)
+        np.testing.assert_array_equal(n(g), n(rops.ring_write_ref(
+            t(d), t(b), t(np.int32(ptr)), **kw)))
+
+
+def emulate_ring_write_kernel(datas, batches, ptr, cap, lo=0,
+                              floor_mod=False, widths=None, threads=256):
+    """numpy model of ``ring_write_kernel`` in ``csrc/ring_ops.cu`` over
+    the whole grid: (ceil(n * widest / threads), fields) blocks of
+    ``threads``; thread x of block (bx, by) takes element e = bx *
+    threads + x of field by, row i = e // width and feature e - i *
+    width, and writes it to slot (ptr + i) % cap (C's remainder, the
+    sign of the dividend) less ``lo``, or, with ``floor_mod`` (the
+    row-at-a-time baseline: no window), to the remainder taken as a
+    floor; only slots inside the pool are written. ``widths`` overrides
+    the row widths, to model a faulty kernel."""
+    rows_local, nrows = datas[0].shape[0], batches[0].shape[0]
+    widths = widths or [d.size // rows_local for d in datas]
+    blocks = -(-nrows * max(widths) // threads)
+    out = [d.copy() for d in datas]
+    for by, width in enumerate(widths):
+        dst, src = out[by].reshape(-1), batches[by].reshape(-1)
+        e = np.arange(blocks * threads)
+        e = e[e < nrows * width]
+        i = e // width
+        f = e - i * width
+        dest = np.fmod(np.int64(ptr) + i, cap)
+        dest = np.where(dest < 0, dest + cap, dest) if floor_mod else \
+            dest - lo
+        inside = (dest >= 0) & (dest < rows_local)
+        dst[dest[inside] * width + f[inside]] = src[e[inside]]
+    return out
+
+
+@pytest.mark.parametrize("case", FIELD_CASES)
+def test_ring_write_kernel_index_math(case):
+    """The kernel's grid and index rule, emulated in numpy, give what the
+    plain versions give, for every field."""
+    cap, rows, nrows, ptr, lo = FIELD_CASES[case]
+    rng = np.random.default_rng(nrows + ptr)
+    datas, batches = _fields(rng, rows, nrows)
+    got = emulate_ring_write_kernel(datas, batches, ptr, cap, lo or 0)
+    kw = {} if lo is None else {"capacity": cap, "window_start": lo}
+    want = rops.ring_write_fields_ref([t(d) for d in datas],
+                                      [t(b) for b in batches],
+                                      t(np.int32(ptr)), **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, n(w))
+
+
+@pytest.mark.parametrize("mutation", ["field_width", "row_offset",
+                                      "no_window"])
+def test_ring_write_kernel_emulation_catches_a_fault(mutation):
+    """The emulation above is strict enough to catch a faulty kernel: a
+    field width off by one, a slot off by one, a window not applied."""
+    cap, rows, nrows, ptr, lo = FIELD_CASES["window"]
+    rng = np.random.default_rng(7)
+    datas, batches = _fields(rng, rows, nrows)
+    want = rops.ring_write_fields_ref([t(d) for d in datas],
+                                      [t(b) for b in batches],
+                                      t(np.int32(ptr)), capacity=cap,
+                                      window_start=lo)
+    widths = [d.size // rows for d in datas]
+    if mutation == "field_width":
+        widths[0] -= 1
+    got = emulate_ring_write_kernel(
+        datas, batches, ptr + (mutation == "row_offset"), cap,
+        0 if mutation == "no_window" else lo, widths=widths)
+    assert not all(np.array_equal(g, n(w)) for g, w in zip(got, want))
+
+
+def test_ring_write_fields_count_mismatch_raises():
+    with pytest.raises(ValueError, match="2 batches into 1 fields"):
+        kops.ring_write_fields([torch.zeros(4, 2)],
+                               [torch.zeros(2, 2), torch.zeros(2, 2)],
+                               torch.zeros((), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("pool,rows", [((8, 2, 3), (3, 6)),
+                                       ((8, 3, 1), (3, 3)),
+                                       ((8, 2, 3), (3, 3, 2))])
+def test_ring_write_row_shape_mismatch_raises(pool, rows):
+    """A batch whose rows hold as many elements as the pool's but in
+    another shape is refused by the plain versions, as the kernel's
+    binding refuses it."""
+    ptr = torch.zeros((), dtype=torch.int32)
+    with pytest.raises(ValueError, match="do not match"):
+        kops.ring_write(torch.zeros(pool), torch.ones(rows), ptr)
+    with pytest.raises(ValueError, match="do not match"):
+        kops.ring_write_fields([torch.zeros(8), torch.zeros(pool)],
+                               [torch.ones(3), torch.ones(rows)], ptr)
+
+
 @pytest.mark.parametrize("lo,rows", [(0, 37), (10, 16)])
 @pytest.mark.parametrize("row", [(), (3,)])
 def test_ring_gather_matches_jax(lo, rows, row):
@@ -112,3 +245,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         rops.ring_write(data, torch.zeros(2, 3), ptr)
     with pytest.raises(ValueError, match="CUDA"):
         rops.ring_gather(data, torch.zeros(4, dtype=torch.int32))
+
+
+def test_ring_write_fields_refuses_cpu_tensors():
+    """The one-launch write refuses a pool off the card before anything
+    is built, as the one-field wrapper does."""
+    with pytest.raises(ValueError, match="CUDA"):
+        rops.ring_write_fields([torch.zeros(8, 3), torch.zeros(8)],
+                               [torch.zeros(2, 3), torch.zeros(2)],
+                               torch.zeros((), dtype=torch.int32))

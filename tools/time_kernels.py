@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""decode_attention and priority_scatter on the card: time against bound,
-plain version and library call, and where priority_scatter's time goes.
+"""decode_attention, priority_scatter and the ring write on the card: time
+against bound, plain version and library call, and where the host-bound
+calls' time goes.
 
     python3 tools/time_kernels.py [--src DIR] [--label NAME]
+                                  [--only decode_attention priority_scatter
+                                          ring_write]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's); its kernels build into that checkout's
@@ -17,8 +20,17 @@ heads); one update's re-prioritisation (k 8,192 distinct rows of a
 ``index_put_`` also, over 200 back-to-back calls: the device time a call
 (the summed device ops under ``torch.profiler``), and the host's time to
 enqueue a call (no synchronisation until the last); the CUDA-event time
-of the same loop is the larger of the two. One JSON line a kernel, with
-the card's name and power limit. Needs a CUDA device.
+of the same loop is the larger of the two. The ring write's block
+(``chip_smoke.time_ring_write``'s round: the six Pendulum fields, n 512
+rows, at slot 100,000 of 262,144) splits the same three numbers a round
+for each arm: the round as the port's trainer writes it (one
+``ring_write_fields`` call where the timed ``repro_torch`` has it, else
+six ``ring_write`` calls), ``ring_write_rowloop`` x6, ``index_copy_`` x6,
+and the registered ``torch.ops.repro_torch.*`` ops called with no Python
+wrapper, so that the wrapper's share (wrapper arm less raw op), the
+dispatcher's and launch's (raw op) and the device's each get a number.
+One JSON line a kernel, with the card's name and power limit. Needs a
+CUDA device.
 """
 import argparse
 import json
@@ -26,8 +38,11 @@ import os
 import sys
 import time
 
+from device_profile import profiled
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CALLS = 200
+KERNELS = ("decode_attention", "priority_scatter", "ring_write")
 
 
 def enqueue_ms(fn, calls=CALLS):
@@ -61,10 +76,56 @@ def decode_device_us(cs, dev, S, H, KV, calls=50):
             for n, us in per_op.items() if "decode_" in n}
 
 
+def split(cs, fn, calls=CALLS):
+    """A loop of ``fn`` three ways: CUDA-event ms a call, host enqueue ms
+    a call, and the profiler's device ms and device ops a call."""
+    _, busy, ops, _ = profiled(fn, calls)
+    return {"event_ms": cs.event_ms(fn, calls), "enqueue_ms": enqueue_ms(fn),
+            "device_ms": busy, "device_ops": ops}
+
+
+def ring_write_split(cs, rops, dev):
+    """The ring write's round, each arm split (``split``): the trainer's
+    call (``ring_write_fields`` where it exists, else six ``ring_write``
+    calls), the row-at-a-time baseline x6, ``index_copy_`` x6, and the
+    registered ops with no wrapper."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(3)
+    widths = cs.FIELD_WIDTHS.values()
+    datas = [torch.randn((cs.CAPACITY, w), generator=g, device=dev)
+             for w in widths]
+    batches = [torch.randn((cs.ROUND_ROWS, w), generator=g, device=dev)
+               for w in widths]
+    pairs = list(zip(datas, batches))
+    ptr = torch.tensor(100_000, dtype=torch.int32, device=dev)
+    dest = (100_000 + torch.arange(cs.ROUND_ROWS, device=dev)) % cs.CAPACITY
+    op = torch.ops.repro_torch
+    if hasattr(rops, "ring_write_fields"):
+        arms = {"ring_write_fields": lambda: rops.ring_write_fields(
+                    datas, batches, ptr),
+                "raw_ring_write_op": lambda: op.ring_write(
+                    datas, batches, ptr, None, cs.CAPACITY)}
+    else:
+        arms = {"ring_write_x6": lambda: [rops.ring_write(d, b, ptr)
+                                          for d, b in pairs],
+                "raw_ring_write_op_x6": lambda: [
+                    op.ring_write(d, b, ptr, None, cs.CAPACITY)
+                    for d, b in pairs]}
+    arms.update({
+        "ring_write_rowloop_x6": lambda: [rops.ring_write_rowloop(d, b, ptr)
+                                          for d, b in pairs],
+        "raw_ring_write_rowloop_op_x6": lambda: [
+            op.ring_write_rowloop(d, b, ptr) for d, b in pairs],
+        "index_copy_x6": lambda: [d.index_copy_(0, dest, b)
+                                  for d, b in pairs]})
+    return {name: split(cs, fn) for name, fn in arms.items()}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--label", default="")
+    ap.add_argument("--only", nargs="+", default=KERNELS, choices=KERNELS)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -73,7 +134,7 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
-    from device_profile import card_line, profiled
+    from device_profile import card_line
     from repro_torch.kernels import _build
     from repro_torch.kernels import replay_ops as rops
 
@@ -89,25 +150,29 @@ def main():
             ("decode_attention_serving", serving, cs.HEADS, cs.KV_HEADS),
             ("decode_attention_zamba2", serving, cs.ZAMBA_HEADS,
              cs.ZAMBA_HEADS)):
+        if "decode_attention" not in args.only:
+            break
         t = cs.time_decode_attention(dev, cs.SERVE_B, S, H, KV)
         print(json.dumps({**head, "kernel": name, **t,
                           "device_us": decode_device_us(cs, dev, S, H, KV)}),
               flush=True)
         torch.cuda.empty_cache()
 
-    t = cs.time_priority_scatter(rops, dev)
-    pri, idx, vals = cs.scatter_inputs(dev)
-    idx_long = idx.long()
-    split = {}
-    for name, fn in (
-            ("kernel", lambda: rops.priority_scatter(pri, idx, vals)),
-            ("library", lambda: pri.index_put_((idx_long,), vals))):
-        host = enqueue_ms(fn)
-        _, busy, ops, _ = profiled(fn, CALLS)
-        split[name] = {"device_ms": busy, "device_ops": ops,
-                       "enqueue_ms": host}
-    print(json.dumps({**head, "kernel": "priority_scatter", **t,
-                      "per_call": split}), flush=True)
+    if "priority_scatter" in args.only:
+        t = cs.time_priority_scatter(rops, dev)
+        pri, idx, vals = cs.scatter_inputs(dev)
+        idx_long = idx.long()
+        per_call = {
+            "kernel": split(cs, lambda: rops.priority_scatter(pri, idx,
+                                                              vals)),
+            "library": split(cs, lambda: pri.index_put_((idx_long,), vals))}
+        print(json.dumps({**head, "kernel": "priority_scatter", **t,
+                          "per_call": per_call}), flush=True)
+
+    if "ring_write" in args.only:
+        print(json.dumps({**head, "kernel": "ring_write_round",
+                          "per_round": ring_write_split(cs, rops, dev)}),
+              flush=True)
     return 0
 
 
