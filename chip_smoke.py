@@ -170,29 +170,51 @@ def check_ring_write(rops, dev):
 
 
 def check_ring_gather(rops, dev):
+    """Kernel vs plain version, mid-pool, out-of-window, -1 padding and
+    windowed indices: each width alone, then the trainer's update in one
+    launch (the six fields; under PER seven, the priority mass added),
+    1-d pools for the width-1 fields as the trainer keeps them. Returns
+    the max abs error over all cases."""
     import torch
     g = torch.Generator(device=dev).manual_seed(2)
+    g_fields = torch.Generator(device=dev).manual_seed(14)
+    pendulum = [() if w == 1 else (w,) for w in FIELD_WIDTHS.values()]
     worst = 0.0
+
+    def indices(gen, base, rows_local):
+        inside = torch.randint(base, base + rows_local, (BATCH - 64,),
+                               generator=gen, device=dev)
+        outside = torch.cat([
+            torch.full((16,), -1, device=dev),
+            torch.randint(0, base + 1, (16,), generator=gen,
+                          device=dev) - 1,
+            torch.randint(base + rows_local, base + 2 * rows_local,
+                          (32,), generator=gen, device=dev)])
+        return torch.cat([inside, outside]).to(torch.int32)
+
     for rows_local, lo in ((CAPACITY, None), (65_536, 131_072)):
         base = 0 if lo is None else lo
+        kw = {} if lo is None else {
+            "window_start": torch.tensor(lo, dtype=torch.int32,
+                                         device=dev)}
         for width in sorted(set(FIELD_WIDTHS.values())):
             data = torch.randn((rows_local, width), generator=g, device=dev)
-            inside = torch.randint(base, base + rows_local, (BATCH - 64,),
-                                   generator=g, device=dev)
-            outside = torch.cat([
-                torch.full((16,), -1, device=dev),
-                torch.randint(0, base + 1, (16,), generator=g,
-                              device=dev) - 1,
-                torch.randint(base + rows_local, base + 2 * rows_local,
-                              (32,), generator=g, device=dev)])
-            idx = torch.cat([inside, outside]).to(torch.int32)
-            kw = {} if lo is None else {
-                "window_start": torch.tensor(lo, dtype=torch.int32,
-                                             device=dev)}
+            idx = indices(g, base, rows_local)
             got = rops.ring_gather(data, idx, **kw)
             want = rops.ring_gather_ref(data, idx, **kw)
             require(not got[-64:].any(), "out-of-window rows not zero")
             worst = max(worst, float((got - want).abs().max()))
+        for shapes in (pendulum, pendulum + [()]):
+            datas = [torch.randn((rows_local,) + s, generator=g_fields,
+                                 device=dev) for s in shapes]
+            idx = indices(g_fields, base, rows_local)
+            got = rops.ring_gather_fields(datas, idx, **kw)
+            want = rops.ring_gather_fields_ref(datas, idx, **kw)
+            for gd, wd, d in zip(got, want, datas):
+                require(gd.shape == (BATCH,) + d.shape[1:] and
+                        gd[:-64].any() and not gd[-64:].any(),
+                        f"ring_gather of {len(datas)} fields missed one")
+                worst = max(worst, float((gd - wd).abs().max()))
     return worst
 
 
@@ -235,30 +257,35 @@ def time_ring_write(rops, dev, rowloop=False):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
-def time_ring_gather(rops, dev, kernel_fn=None, plain_fn=None):
+def time_ring_gather(rops, dev, rowloop=False):
     """Times one update's gather: the six fields, B = 8192 uniform rows,
-    with ``kernel_fn`` and ``plain_fn`` (``ring_gather`` and its plain
-    version by default, or the row-at-a-time baseline and its own)."""
+    with one ``ring_gather_fields`` launch, or (``rowloop``) the
+    row-at-a-time baseline once a field; the plain version is
+    ``ring_gather_ref`` (or ``ring_gather_rowloop_ref``) once a field,
+    the library call ``index_select``, once a field."""
     import torch
-    kernel_fn = kernel_fn or rops.ring_gather
-    plain_fn = plain_fn or rops.ring_gather_ref
     g = torch.Generator(device=dev).manual_seed(4)
-    data = {k: torch.randn((CAPACITY, w), generator=g, device=dev)
-            for k, w in FIELD_WIDTHS.items()}
+    datas = [torch.randn((CAPACITY, w), generator=g, device=dev)
+             for w in FIELD_WIDTHS.values()]
     idx = torch.randint(0, CAPACITY, (BATCH,), generator=g, device=dev,
                         dtype=torch.int32)
     idx_long = idx.long()
+    plain_fn = rops.ring_gather_rowloop_ref if rowloop else \
+        rops.ring_gather_ref
 
     def kernel():
-        for v in data.values():
-            kernel_fn(v, idx)
+        if not rowloop:
+            rops.ring_gather_fields(datas, idx)
+            return
+        for v in datas:
+            rops.ring_gather_rowloop(v, idx)
 
     def plain():
-        for v in data.values():
+        for v in datas:
             plain_fn(v, idx)
 
     def library():
-        for v in data.values():
+        for v in datas:
             torch.index_select(v, 0, idx_long)
 
     unique_rows = int(torch.unique(idx).numel())
@@ -611,8 +638,9 @@ def run_main_path(rops, dev, megasteps, prioritized=False, algo="sac"):
     """SpreezeTrainer.train with ``algo`` at full width; counters reset
     just before.
     Per warmup chunk or round: one ring-write launch for every field (the
-    priorities too under PER); per update: one gather per field, plus the
-    priority mass, one top-k and one scatter under PER."""
+    priorities too under PER); per update: one gather launch for every
+    field (the priority mass too under PER), and one top-k and one
+    scatter under PER."""
     import math
     import torch
     from repro_torch._tree import tree_leaves
@@ -635,10 +663,8 @@ def run_main_path(rops, dev, megasteps, prioritized=False, algo="sac"):
     hist = tr.train(max_seconds=600.0,
                     max_frames=warm_chunks * per_round + rounds * per_round)
     launches = dict(rops.LAUNCH_COUNTS)
-    per_row = len(ring.data) + (1 if prioritized else 0)
     updates = rounds * cfg.updates_per_round
-    expect = {"ring_write": warm_chunks + rounds,
-              "ring_gather": per_row * updates}
+    expect = {"ring_write": warm_chunks + rounds, "ring_gather": updates}
     if prioritized:
         expect.update(per_topk=updates, priority_scatter=updates)
     require(tr.total_updates == rounds * cfg.updates_per_round,
@@ -703,8 +729,8 @@ def time_layers(tr):
 def time_per_update_parts(tr):
     """Host wall time of the four parts of one full-width PER update,
     each with the device synchronised around it: the draws (Gumbel field
-    over the pool + action noise), the sample (top-k, cycling, 7
-    gathers, importance weights), the weighted update, and the
+    over the pool + action noise), the sample (top-k, cycling, one
+    gather launch of 7 fields, importance weights), the weighted update, and the
     re-prioritisation."""
     import torch
     from repro_torch.replay import prioritized as per
@@ -1198,9 +1224,8 @@ def main():
               "per_scores": time_per_scores(rops, dev),
               "ring_write_rowloop": time_ring_write(rops, dev,
                                                     rowloop=True),
-              "ring_gather_rowloop": time_ring_gather(
-                  rops, dev, rops.ring_gather_rowloop,
-                  rops.ring_gather_rowloop_ref)}
+              "ring_gather_rowloop": time_ring_gather(rops, dev,
+                                                      rowloop=True)}
     for name in errs:
         print(f"{name}: max_abs_err {errs[name]} " + " ".join(
             f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}"

@@ -9,8 +9,10 @@ with its arms:
   remainder, so no longer a row-at-a-time write), ``plain``
   (``ring_write_ref``); a write of n rows that wraps at the ring's end
   mid-batch;
-* ``ring_gather``: ``kernel``, ``rowloop``, ``plain`` over B uniform
-  indices;
+* ``ring_gather``: ``kernel`` (``ring_gather``), ``rowloop``
+  (``ring_gather_rowloop``: the same blocked kernel with the clamping
+  index rule, so no longer a row-at-a-time gather), ``plain``
+  (``ring_gather_ref``) over B uniform indices;
 * ``per_scores``: ``kernel`` and ``plain`` over a half-empty pool (the
   ``-inf`` path runs);
 * ``per_topk``: ``kernel`` (the fused ``per_topk``), ``global_topk`` (the

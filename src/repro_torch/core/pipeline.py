@@ -7,11 +7,12 @@ One round steps ``num_envs`` pendulums for ``chunk_len`` steps under the
 actor, applies the n-step transform, writes the rows into the
 device-resident replay ring (the ``ring_write`` kernel, one launch for
 all the fields) and runs ``updates_per_round`` updates, each on a batch
-that the ``ring_gather`` kernel reads (one launch per field). With
-``prioritized=True`` the same write also tags the new rows with the max
-priority (one more field of that launch), and each update draws its
-batch with the ``per_topk`` kernel, gathers the drawn rows' priority mass (one more
-``ring_gather``), weighs the critic loss by importance and writes the
+that the ``ring_gather`` kernel reads (one launch for all the fields).
+With ``prioritized=True`` the same write also tags the new rows with the
+max priority (one more field of that launch), and each update draws its
+batch with the ``per_topk`` kernel, gathers the drawn rows' priority
+mass (one more field of the gather's launch), weighs the critic loss by
+importance and writes the
 new priorities back with ``priority_scatter``. ``megastep`` runs
 ``rounds_per_dispatch`` rounds in one call. It runs eagerly: the
 state, the ring and the optimizer moments are updated in place (the

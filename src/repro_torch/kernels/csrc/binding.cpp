@@ -9,6 +9,7 @@
 
 #include <optional>
 #include <string>
+#include <vector>
 
 #include <ATen/core/Tensor.h>
 #include <c10/cuda/CUDAException.h>
@@ -120,20 +121,60 @@ void ring_write(c10::ArrayRef<at::Tensor> data,
   write_fields(data, batch, ptr, window_start, capacity, false);
 }
 
-void ring_gather(const at::Tensor& data, const at::Tensor& idx,
-                 const std::optional<at::Tensor>& window_start,
-                 at::Tensor out) {
-  check_operand(data, "data", at::kFloat);
+// One launch gathers every field of an update at the same indices: the
+// fields share idx, the window and rows_local, and each may have its own
+// row shape. Returns each field's (len(idx),) + data[k].shape[1:] rows,
+// allocated here: made in Python, the outputs took more host time than
+// the rest of the call. clamp picks the row-at-a-time baseline's index
+// rule.
+std::vector<at::Tensor> gather_fields(
+    c10::ArrayRef<at::Tensor> data, const at::Tensor& idx,
+    const std::optional<at::Tensor>& window_start, bool clamp) {
+  const int64_t nfields = static_cast<int64_t>(data.size());
+  TORCH_CHECK(nfields >= 1 && nfields <= kMaxRingFields, "ring_gather of ",
+              num(nfields), " fields: takes 1 to ", num(kMaxRingFields));
   check_operand(idx, "idx", at::kInt);
-  check_operand(out, "out", at::kFloat);
-  TORCH_CHECK(out.size(0) == idx.numel() && row_width(out) == row_width(data),
-              "out must be (len(idx), row width of data)");
-  const c10::cuda::CUDAGuard guard(data.device());
-  launch_ring_gather(out.data_ptr<float>(), data.data_ptr<float>(),
-                     idx.data_ptr<int32_t>(), window_ptr(window_start),
-                     idx.numel(), row_width(data), data.size(0),
+  TORCH_CHECK(idx.dim() == 1, "idx must be 1-d");
+  const int32_t* lo = window_ptr(window_start);
+  TORCH_CHECK(!window_start.has_value() ||
+                  window_start->device() == idx.device(),
+              "window_start is not on idx's device");
+  const int64_t bsz = idx.size(0);
+  const int64_t rows_local = data[0].dim() ? data[0].size(0) : 0;
+  if (clamp) {
+    TORCH_CHECK(rows_local >= 1, "ring_gather_rowloop needs at least 1 "
+                "data row, got ", num(rows_local));
+  }
+  const c10::cuda::CUDAGuard guard(idx.device());
+  std::vector<at::Tensor> out;
+  out.reserve(nfields);
+  GatherFields fields{};
+  for (int64_t k = 0; k < nfields; ++k) {
+    check_operand(data[k], "data", at::kFloat);
+    TORCH_CHECK(data[k].device() == idx.device(),
+                "a field is not on idx's device");
+    TORCH_CHECK(data[k].dim() >= 1 && data[k].size(0) == rows_local,
+                "field ", num(k), " does not hold field 0's ",
+                num(rows_local), " rows");
+    std::vector<int64_t> shape(data[k].sizes().begin(),
+                               data[k].sizes().end());
+    shape[0] = bsz;
+    out.push_back(data[k].new_empty(shape));
+    fields.data[k] = data[k].data_ptr<float>();
+    fields.out[k] = out.back().data_ptr<float>();
+    fields.width[k] = row_width(data[k]);
+  }
+  launch_ring_gather(fields, static_cast<int>(nfields),
+                     idx.data_ptr<int32_t>(), lo, bsz, rows_local, clamp,
                      c10::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
+std::vector<at::Tensor> ring_gather(
+    c10::ArrayRef<at::Tensor> data, const at::Tensor& idx,
+    const std::optional<at::Tensor>& window_start) {
+  return gather_fields(data, idx, window_start, false);
 }
 
 void check_vector(const at::Tensor& t, const char* name,
@@ -150,23 +191,11 @@ void ring_write_rowloop(at::Tensor data, const at::Tensor& batch,
                true);
 }
 
-void ring_gather_rowloop(const at::Tensor& data, const at::Tensor& idx,
-                         at::Tensor out) {
-  check_operand(data, "data", at::kFloat);
-  check_vector(idx, "idx", at::kInt);
-  check_operand(out, "out", at::kFloat);
-  TORCH_CHECK(data.dim() >= 1 && data.size(0) >= 1,
-              "ring_gather_rowloop needs at least 1 data row, got ",
-              num(data.dim() ? data.size(0) : 0));
-  TORCH_CHECK(out.size(0) == idx.numel() && row_width(out) == row_width(data),
-              "out must be (len(idx), row width of data)");
-  if (idx.numel() == 0) return;
-  const c10::cuda::CUDAGuard guard(data.device());
-  launch_ring_gather_rowloop(out.data_ptr<float>(), data.data_ptr<float>(),
-                             idx.data_ptr<int32_t>(), idx.numel(),
-                             row_width(data), data.size(0),
-                             c10::cuda::getCurrentCUDAStream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+// The row-at-a-time baseline's gather: one field, no window, a negative
+// index taken from the end once and the rest clamped into the pool.
+at::Tensor ring_gather_rowloop(const at::Tensor& data,
+                               const at::Tensor& idx) {
+  return gather_fields(data, idx, std::nullopt, true)[0];
 }
 
 void per_scores(const at::Tensor& priorities, const at::Tensor& gumbel,
@@ -369,8 +398,8 @@ void ssd_scan(const at::Tensor& x, const at::Tensor& dtA, const at::Tensor& B_,
 TORCH_LIBRARY(repro_torch, m) {
   m.def("ring_write(Tensor(a!)[] data, Tensor[] batch, Tensor ptr, "
         "Tensor? window_start, int capacity) -> ()");
-  m.def("ring_gather(Tensor data, Tensor idx, Tensor? window_start, "
-        "Tensor(a!) out) -> ()");
+  m.def("ring_gather(Tensor[] data, Tensor idx, Tensor? window_start) "
+        "-> Tensor[]");
   m.def("per_topk(Tensor priorities, Tensor gumbel, Tensor? window_start, "
         "Tensor(a!) scratch, Tensor(b!) scores, Tensor(c!) idx, "
         "float alpha, int k) -> ()");
@@ -380,8 +409,7 @@ TORCH_LIBRARY(repro_torch, m) {
         "float alpha) -> ()");
   m.def("ring_write_rowloop(Tensor(a!) data, Tensor batch, Tensor ptr) "
         "-> ()");
-  m.def("ring_gather_rowloop(Tensor data, Tensor idx, Tensor(a!) out) "
-        "-> ()");
+  m.def("ring_gather_rowloop(Tensor data, Tensor idx) -> Tensor");
   m.def("rmsnorm(Tensor x, Tensor weight, Tensor(a!) out, float eps) -> ()");
   m.def("flash_attention(Tensor q, Tensor k, Tensor v, Tensor(a!) out, "
         "bool causal, int? window, float scale) -> ()");

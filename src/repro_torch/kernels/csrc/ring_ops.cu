@@ -15,11 +15,10 @@
 // writes the same. At 3.35 TB/s that is a few hundred nanoseconds, far
 // below the few microseconds a launch costs and the host's time to enqueue
 // one, so both are bound by the launch and the host, not by HBM
-// bandwidth. So the write takes every field of a round in one launch:
-// the fields' pointers and row widths travel in a table passed by value
-// (RingFields, a __grid_constant__ parameter), blockIdx.y picks the field
-// and blockIdx.x runs over its n * width elements. The gather still
-// launches once per field.
+// bandwidth. So each takes every field of a round (the write) or of an
+// update (the gather) in one launch: the fields' pointers and row widths
+// travel in a table passed by value (RingFields, GatherFields: a
+// __grid_constant__ parameter), and blockIdx.y picks the field.
 //
 // ptr and window_start are read from device memory inside the kernels, so
 // a caller never synchronises with the host to learn where to write.
@@ -30,22 +29,16 @@
 // (_ring_gather_rowloop_kernel): the first, row-at-a-time ring kernels,
 // which the repo keeps as the baseline the blocked kernels above are
 // measured against. The TPU versions hold the whole pool in VMEM and
-// copy one row per step of a sequential loop. The row-at-a-time write
-// keeps its own index rule (no window, the slot taken mod rows as a
-// floor) but is launch_ring_write on a one-field table with floor_mod
-// set, so it no longer copies a row at a time: against ring_write it
-// differs only in that rule and in taking one field a call. The gather
-// stays naive: one thread
-// copies one whole row, with no window, no blocking and no shared memory,
-// so neighbouring threads touch addresses a row apart and the copies do
-// not coalesce. Both move what the kernels above move (the rows, the
-// indices), so the same byte bound holds.
-//
-// The gather has no bounds check in the TPU kernel, so an index outside
-// the pool reads what the interpreter's dynamic slice gives: a negative
-// index is taken from the end once, and the rest is clamped into the
-// pool. The kernel applies the same rule, which keeps every read inside
-// data.
+// copy one row per step of a sequential loop. Each keeps its own index
+// rule but runs the blocked kernel on a one-field table with that rule's
+// template flag, so neither copies a row at a time any more: against
+// ring_write and ring_gather they differ only in the index rule and in
+// taking one field a call. The write's rule: no window, the slot taken
+// mod rows as a floor. The gather's: the TPU kernel has no bounds check,
+// so an index outside the pool reads what the interpreter's dynamic slice
+// gives; a negative index is taken from the end once, and the rest is
+// clamped into the pool. The kernel applies the same rule, which keeps
+// every read inside data.
 
 #include "ring_ops.h"
 
@@ -53,8 +46,8 @@ namespace {
 
 constexpr int kWriteThreads = 256;
 constexpr int kGatherThreads = 128;
-constexpr int kGatherRows = 64;  // rows a gather block copies
-constexpr int kRowloopThreads = 128;
+constexpr int kGatherRows = 128;  // rows a gather block copies
+static_assert(kGatherThreads >= kGatherRows, "one index load a thread");
 
 // One thread per (row, feature) element of field blockIdx.y, features
 // fastest: neighbouring threads store to neighbouring addresses of a
@@ -87,47 +80,69 @@ __global__ void __launch_bounds__(kWriteThreads)
   }
 }
 
-// Each block takes kGatherRows consecutive output rows: it loads their
-// int32 indices once into shared memory, then its threads copy those whole
-// rows element by element, features fastest, so the output stores of the
-// block are one contiguous run.
-__global__ void ring_gather_kernel(float* __restrict__ out,
-                                   const float* __restrict__ data,
-                                   const int32_t* __restrict__ idx,
-                                   const int32_t* __restrict__ window_start,
-                                   int64_t bsz, int64_t feat,
-                                   int64_t rows_local) {
-  __shared__ int64_t src[kGatherRows];
+// Block (x, y) copies kGatherRows consecutive output rows of field y. Its
+// threads load those rows' int32 indices once into shared memory, one a
+// thread, each turned into a source row (in 64 bits, so no index
+// overflows): less *window_start, -1 outside the window (a row of zeros);
+// or, with kClamp, taken from the end once when negative and clamped into
+// the pool. Then they copy the rows element by element, features
+// fastest, so the block's stores are one contiguous run. Index is int32_t
+// where every offset into a field fits in it (the launcher checks), so
+// the per-element divide is a 32-bit one.
+template <typename Index, bool kClamp>
+__global__ void __launch_bounds__(kGatherThreads)
+    ring_gather_kernel(const __grid_constant__ GatherFields fields,
+                       const int32_t* __restrict__ idx,
+                       const int32_t* __restrict__ window_start,
+                       int64_t bsz, int64_t rows_local) {
+  __shared__ Index src[kGatherRows];
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kGatherRows;
-  const int64_t rows = bsz - row0 < kGatherRows ? bsz - row0 : kGatherRows;
-  const int64_t lo = window_start ? *window_start : 0;
-  for (int64_t r = threadIdx.x; r < rows; r += blockDim.x) {
-    const int64_t j = static_cast<int64_t>(idx[row0 + r]) - lo;
-    src[r] = (j >= 0 && j < rows_local) ? j : -1;  // -1: outside, zeros
+  const int rows = bsz - row0 < kGatherRows ? static_cast<int>(bsz - row0)
+                                            : kGatherRows;
+  if (static_cast<int>(threadIdx.x) < rows) {
+    int64_t j = idx[row0 + threadIdx.x];
+    if constexpr (kClamp) {
+      if (j < 0) j += rows_local;
+      j = j < 0 ? 0 : (j >= rows_local ? rows_local - 1 : j);
+    } else {
+      if (window_start) j -= *window_start;
+      if (j < 0 || j >= rows_local) j = -1;
+    }
+    src[threadIdx.x] = static_cast<Index>(j);
   }
   __syncthreads();
-  float* dst = out + row0 * feat;
-  for (int64_t e = threadIdx.x; e < rows * feat; e += blockDim.x) {
-    const int64_t r = e / feat;
-    const int64_t j = src[r];
+  const Index feat = static_cast<Index>(fields.width[blockIdx.y]);
+  const float* __restrict__ data = fields.data[blockIdx.y];
+  float* __restrict__ dst =
+      fields.out[blockIdx.y] + static_cast<Index>(row0) * feat;
+  const Index elems = static_cast<Index>(rows) * feat;
+  for (Index e = threadIdx.x; e < elems; e += kGatherThreads) {
+    const Index r = e / feat;
+    const Index j = src[r];
     dst[e] = j >= 0 ? data[j * feat + (e - r * feat)] : 0.0f;
   }
 }
 
-__global__ void ring_gather_rowloop_kernel(float* __restrict__ out,
-                                           const float* __restrict__ data,
-                                           const int32_t* __restrict__ idx,
-                                           int64_t bsz, int64_t feat,
-                                           int64_t rows) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= bsz) return;
-  int64_t j = idx[i];
-  if (j < 0) j += rows;
-  j = j < 0 ? 0 : (j >= rows ? rows - 1 : j);
-  for (int64_t f = 0; f < feat; ++f) {
-    out[i * feat + f] = data[j * feat + f];
+template <typename Index>
+void gather_with_index(const dim3 grid, const GatherFields& fields,
+                       const int32_t* idx, const int32_t* window_start,
+                       int64_t bsz, int64_t rows_local, bool clamp,
+                       cudaStream_t stream) {
+  if (clamp) {
+    ring_gather_kernel<Index, true><<<grid, kGatherThreads, 0, stream>>>(
+        fields, idx, window_start, bsz, rows_local);
+  } else {
+    ring_gather_kernel<Index, false><<<grid, kGatherThreads, 0, stream>>>(
+        fields, idx, window_start, bsz, rows_local);
   }
+}
+
+int64_t widest_field(const int64_t* width, int nfields) {
+  int64_t widest = 0;
+  for (int k = 0; k < nfields; ++k) {
+    widest = width[k] > widest ? width[k] : widest;
+  }
+  return widest;
 }
 
 }  // namespace
@@ -136,10 +151,7 @@ void launch_ring_write(const RingFields& fields, int nfields,
                        const int32_t* ptr, const int32_t* window_start,
                        int64_t n, int64_t capacity, int64_t rows_local,
                        bool floor_mod, cudaStream_t stream) {
-  int64_t widest = 0;
-  for (int k = 0; k < nfields; ++k) {
-    widest = fields.width[k] > widest ? fields.width[k] : widest;
-  }
+  const int64_t widest = widest_field(fields.width, nfields);
   const int64_t blocks = (n * widest + kWriteThreads - 1) / kWriteThreads;
   if (blocks == 0) return;
   const dim3 grid(static_cast<unsigned>(blocks),
@@ -153,22 +165,22 @@ void launch_ring_write(const RingFields& fields, int nfields,
   }
 }
 
-void launch_ring_gather(float* out, const float* data, const int32_t* idx,
-                        const int32_t* window_start, int64_t bsz,
-                        int64_t feat, int64_t rows_local,
+void launch_ring_gather(const GatherFields& fields, int nfields,
+                        const int32_t* idx, const int32_t* window_start,
+                        int64_t bsz, int64_t rows_local, bool clamp,
                         cudaStream_t stream) {
   const int64_t blocks = (bsz + kGatherRows - 1) / kGatherRows;
-  ring_gather_kernel<<<static_cast<unsigned>(blocks), kGatherThreads, 0,
-                       stream>>>(out, data, idx, window_start, bsz, feat,
-                                 rows_local);
-}
-
-void launch_ring_gather_rowloop(float* out, const float* data,
-                                const int32_t* idx, int64_t bsz,
-                                int64_t feat, int64_t rows,
-                                cudaStream_t stream) {
-  const int64_t blocks = (bsz + kRowloopThreads - 1) / kRowloopThreads;
-  ring_gather_rowloop_kernel<<<static_cast<unsigned>(blocks),
-                               kRowloopThreads, 0, stream>>>(
-      out, data, idx, bsz, feat, rows);
+  if (blocks == 0) return;
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>(nfields));
+  // the largest offset into a field, and the loop's last step past it
+  const int64_t span = (bsz > rows_local ? bsz : rows_local) *
+                       widest_field(fields.width, nfields);
+  if (span < (int64_t{1} << 31) - kGatherThreads) {
+    gather_with_index<int32_t>(grid, fields, idx, window_start, bsz,
+                               rows_local, clamp, stream);
+  } else {
+    gather_with_index<int64_t>(grid, fields, idx, window_start, bsz,
+                               rows_local, clamp, stream);
+  }
 }

@@ -29,17 +29,22 @@ void launch_ring_write(const RingFields& fields, int nfields,
                        int64_t n, int64_t capacity, int64_t rows_local,
                        bool floor_mod, cudaStream_t stream);
 
-// out[j] = data[idx[j] - *window_start] for in-window indices, else a row
-// of zeros. data is (rows_local, feat), idx (bsz,), out (bsz, feat).
-void launch_ring_gather(float* out, const float* data, const int32_t* idx,
-                        const int32_t* window_start, int64_t bsz,
-                        int64_t feat, int64_t rows_local,
-                        cudaStream_t stream);
+// The fields of one ring gather: each field k is a (rows_local,
+// width[k]) float32 pool data[k] read into a (bsz, width[k]) out[k].
+// Passed to the kernel by value, as RingFields is.
+struct GatherFields {
+  const float* data[kMaxRingFields];
+  float* out[kMaxRingFields];
+  int64_t width[kMaxRingFields];
+};
 
-// The row-at-a-time gather baseline (no window): out[i] = data[j] for j = idx[i], taken as j + rows when negative and
-// then clamped to [0, rows - 1] (rows >= 1): what the TPU kernel's
-// unchecked row reads give.
-void launch_ring_gather_rowloop(float* out, const float* data,
-                                const int32_t* idx, int64_t bsz,
-                                int64_t feat, int64_t rows,
-                                cudaStream_t stream);
+// For each of the nfields fields, out[j] = data[idx[j] - *window_start]
+// for in-window indices, else a row of zeros, in one launch.
+// window_start == nullptr means 0. With clamp (the row-at-a-time
+// baseline's rule: no window, rows_local >= 1) a negative index is taken
+// from the end once and the rest clamped to [0, rows_local - 1]: what
+// the TPU kernel's unchecked row reads give.
+void launch_ring_gather(const GatherFields& fields, int nfields,
+                        const int32_t* idx, const int32_t* window_start,
+                        int64_t bsz, int64_t rows_local, bool clamp,
+                        cudaStream_t stream);

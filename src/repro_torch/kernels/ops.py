@@ -1,6 +1,7 @@
 """Public kernel ops: the counterpart of ``repro/kernels/ops.py``'s
 replay ops (``ring_write`` and ``ring_write_fields`` / ``ring_gather``
-/ ``per_topk`` / ``priority_scatter``), the bench baselines
+and ``ring_gather_fields`` / ``per_topk`` / ``priority_scatter``), the
+bench baselines
 (``per_scores`` / ``ring_write_rowloop`` / ``ring_gather_rowloop``) and
 model ops (``rmsnorm`` / ``flash_attention`` / ``decode_attention`` /
 ``ssd_scan``).
@@ -49,6 +50,15 @@ def ring_gather(data: torch.Tensor, idx: torch.Tensor, **kw
     if data.device.type == "cpu":
         return _replay.ring_gather_ref(data, idx, **kw)
     return _replay.ring_gather(data, idx, **kw)
+
+
+def ring_gather_fields(datas: Sequence[torch.Tensor], idx: torch.Tensor,
+                       **kw):
+    """Batched random row gather of several fields at the same indices:
+    one kernel launch for all of them."""
+    if datas[0].device.type == "cpu":
+        return _replay.ring_gather_fields_ref(datas, idx, **kw)
+    return _replay.ring_gather_fields(datas, idx, **kw)
 
 
 def per_topk(priorities: torch.Tensor, gumbel: torch.Tensor, alpha: float,

@@ -1,11 +1,13 @@
 """Replay kernels: the ring write (one launch for every field of a
-round), the uniform gather, the fused PER score + top-k selection, the
-priority scatter, and the bench baselines (the PER score pass and the
-row-at-a-time ring write and gather).
+round), the uniform gather (one launch for every field of an update),
+the fused PER score + top-k selection, the priority scatter, and the
+bench baselines (the PER score pass and the row-at-a-time ring write and
+gather).
 
 Counterpart of ``repro/kernels/replay_ops.py``'s ``ring_write`` (here
 also ``ring_write_fields``, several fields at the same slots) /
-``ring_gather`` / ``per_topk`` / ``priority_scatter`` / ``per_scores`` /
+``ring_gather`` (here also ``ring_gather_fields``, several fields at the
+same indices) / ``per_topk`` / ``priority_scatter`` / ``per_scores`` /
 ``ring_write_rowloop`` / ``ring_gather_rowloop``, their ``*_ref`` oracles
 and ``merge_topk_candidates``. The kernels are CUDA C++ for Hopper
 (``csrc/ring_ops.cu``,
@@ -27,7 +29,7 @@ the host.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 
@@ -36,11 +38,10 @@ from repro_torch.kernels import (LAUNCH_COUNTS, check_cuda_operand,  # noqa: F40
 from repro_torch.kernels._build import load_kernels
 
 Window = Union[None, int, torch.Tensor]
-
-
-def _as2d(x: torch.Tensor) -> torch.Tensor:
-    """(rows, ...) -> (rows, features); scalar rows get one feature."""
-    return x.reshape(x.shape[0], -1)
+# fields one ring-write or ring-gather launch takes (``kMaxRingFields`` in
+# ``csrc/ring_ops.h``, checked by the binding); the plain versions of the
+# gather refuse the same counts
+MAX_RING_FIELDS = 8
 
 
 def _window_tensor(window_start: Window, device) -> Optional[torch.Tensor]:
@@ -163,25 +164,40 @@ def ring_write_fields_ref(datas: Sequence[torch.Tensor],
 # ring gather
 # --------------------------------------------------------------------------- #
 
+def ring_gather_fields(datas: Sequence[torch.Tensor], idx: torch.Tensor,
+                       *, window_start: Window = None) -> List[torch.Tensor]:
+    """``data[idx - window_start]`` for each pool of ``datas`` and a
+    (batch,) int32 vector of global ring slots, with ONE launch of the
+    CUDA kernel for all the fields (at most 8); out-of-window rows
+    (negative padding included) come back as zeros.
+
+    The fields share ``idx``, the window and their rows; each has its own
+    row shape, and its output is ``(len(idx),) + data.shape[1:]``, made by
+    the binding. The binding checks every operand and raises
+    ``RuntimeError``; only a pool off the card is refused here, before
+    anything is built."""
+    data0 = datas[0]
+    if not data0.is_cuda:
+        raise ValueError(f"data must be a CUDA tensor, got {data0.device}")
+    load_kernels()
+    outs = torch.ops.repro_torch.ring_gather(
+        datas, idx, _window_tensor(window_start, data0.device))
+    if len(idx):
+        LAUNCH_COUNTS["ring_gather"] += 1
+    return outs
+
+
 def ring_gather(data: torch.Tensor, idx: torch.Tensor, *,
                 window_start: Window = None) -> torch.Tensor:
     """``data[idx - window_start]`` for a (batch,) int32 vector of global
     ring slots, with the CUDA kernel; out-of-window rows (negative
-    padding included) come back as zeros."""
-    check_cuda_operand(data, "data", torch.float32)
-    check_cuda_operand(idx, "idx", torch.int32)
-    if idx.dim() != 1:
-        raise ValueError(f"idx must be 1-d, got shape {tuple(idx.shape)}")
-    out = torch.empty((idx.shape[0],) + tuple(data.shape[1:]),
-                      dtype=data.dtype, device=data.device)
-    if idx.shape[0] == 0:
-        return out
-    load_kernels()
-    torch.ops.repro_torch.ring_gather(
-        _as2d(data), idx, _window_tensor(window_start, data.device),
-        _as2d(out))
-    LAUNCH_COUNTS["ring_gather"] += 1
-    return out
+    padding included) come back as zeros. A one-field
+    ``ring_gather_fields``."""
+    if not data.is_cuda:
+        raise ValueError(f"data must be a CUDA tensor, got {data.device}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx has dtype {idx.dtype}, expected torch.int32")
+    return ring_gather_fields([data], idx, window_start=window_start)[0]
 
 
 def ring_gather_ref(data: torch.Tensor, idx: torch.Tensor, *,
@@ -194,6 +210,18 @@ def ring_gather_ref(data: torch.Tensor, idx: torch.Tensor, *,
     mask = inside.reshape((-1,) + (1,) * (data.dim() - 1))
     return torch.where(mask, rows, torch.zeros((), dtype=data.dtype,
                                                device=data.device))
+
+
+def ring_gather_fields_ref(datas: Sequence[torch.Tensor], idx: torch.Tensor,
+                           *, window_start: Window = None
+                           ) -> List[torch.Tensor]:
+    """Plain PyTorch ``ring_gather_fields``: ``ring_gather_ref`` field by
+    field; 1 to 8 fields, as the kernel's binding takes."""
+    if not 1 <= len(datas) <= MAX_RING_FIELDS:
+        raise ValueError(f"ring_gather of {len(datas)} fields: takes 1 to "
+                         f"{MAX_RING_FIELDS}")
+    return [ring_gather_ref(d, idx, window_start=window_start)
+            for d in datas]
 
 
 # --------------------------------------------------------------------------- #
@@ -390,19 +418,21 @@ def _check_rowloop_gather(data: torch.Tensor, idx: torch.Tensor):
 
 def ring_gather_rowloop(data: torch.Tensor, idx: torch.Tensor
                         ) -> torch.Tensor:
-    """The row-at-a-time gather with the CUDA kernel: ``out[i] =
-    data[idx[i]]``, no window. Indices outside the pool follow
-    ``ring_gather_rowloop_ref``."""
-    _check_rowloop_gather(data, idx)
-    check_cuda_operand(data, "data", torch.float32)
-    check_cuda_operand(idx, "idx", torch.int32)
-    out = torch.empty((idx.shape[0],) + tuple(data.shape[1:]),
-                      dtype=data.dtype, device=data.device)
-    if idx.shape[0] == 0:
-        return out
+    """The row-at-a-time kernel's gather, with the CUDA ring-gather kernel
+    on one field: ``out[i] = data[idx[i]]``, no window. Indices outside
+    the pool follow ``ring_gather_rowloop_ref``. The binding checks the
+    rest and raises ``RuntimeError``."""
+    if not data.is_cuda:
+        raise ValueError(f"data must be a CUDA tensor, got {data.device}")
+    if data.dtype != torch.float32:
+        raise TypeError(f"data has dtype {data.dtype}, expected "
+                        "torch.float32")
+    if data.dim() == 0 or data.shape[0] == 0:
+        raise ValueError("ring_gather_rowloop needs at least one data row")
     load_kernels()
-    torch.ops.repro_torch.ring_gather_rowloop(_as2d(data), idx, _as2d(out))
-    LAUNCH_COUNTS["ring_gather_rowloop"] += 1
+    out = torch.ops.repro_torch.ring_gather_rowloop(data, idx)
+    if len(idx):
+        LAUNCH_COUNTS["ring_gather_rowloop"] += 1
     return out
 
 

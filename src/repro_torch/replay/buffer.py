@@ -3,10 +3,11 @@ Counterpart of the uniform half of ``repro/replay/buffer.py``.
 
 The pool lives on the device; ``add_batch`` writes new rows into it with
 one ring-write launch for all the fields and ``sample`` reads a batch
-with the gather kernel (``kernels.ops`` chooses kernel or plain version
-by the pool's device). Both work in place on the ``ReplayState``'s
-tensors, the analogue of the JAX package's donated ring. ``ptr`` and ``size`` are
-device int32 scalars; nothing here reads them back to the host.
+with one gather launch for all the fields (``kernels.ops`` chooses
+kernel or plain version by the pool's device). Both work in place on
+the ``ReplayState``'s tensors, the analogue of the JAX package's donated
+ring. ``ptr`` and ``size`` are device int32 scalars; nothing here reads
+them back to the host.
 """
 from __future__ import annotations
 
@@ -93,11 +94,12 @@ def uniform_indices(state: ReplayState, batch_size: int,
 def sample(state: ReplayState, idx: torch.Tensor
            ) -> Dict[str, torch.Tensor]:
     """Gather the rows for the uniform draws ``idx`` (int32 in [0,
-    max(size, 1)), e.g. from ``uniform_indices``), one gather launch per
-    field. Ring alignment: once the pool is full its oldest live row sits
-    at ``ptr``."""
+    max(size, 1)), e.g. from ``uniform_indices``), one gather launch for
+    every field. Ring alignment: once the pool is full its oldest live
+    row sits at ``ptr``."""
     cap = next(iter(state.data.values())).shape[0]
     offset = torch.where(state.size >= cap, state.ptr,
                          torch.zeros_like(state.ptr))
     idx = torch.remainder(idx + offset, cap)
-    return {k: kops.ring_gather(v, idx) for k, v in state.data.items()}
+    rows = kops.ring_gather_fields(list(state.data.values()), idx)
+    return dict(zip(state.data, rows))

@@ -75,13 +75,15 @@ def sample(state: PrioritizedState, gumbel: torch.Tensor, batch_size: int,
         torch.arange(batch_size, dtype=torch.int32, device=pri.device),
         n_live)
     idx = idx.index_select(0, pos)
-    batch = {k: kops.ring_gather(v, idx) for k, v in state.base.data.items()}
 
     # w_i = (N * P(i))^-beta over the written rows, normalised by the max;
-    # the drawn rows' priority mass comes through the same gather
+    # the drawn rows' priority mass is one more field of the batch's
+    # gather launch
     p = torch.where(live, torch.clamp(pri, min=1e-12) ** alpha, 0.0)
     z = torch.clamp(p.sum(), min=1e-12)
-    p_sel = kops.ring_gather(p.view(-1, 1), idx)[:, 0]
+    data = state.base.data
+    *rows, p_sel = kops.ring_gather_fields(list(data.values()) + [p], idx)
+    batch = dict(zip(data, rows))
     w = (n_live.to(torch.float32) * (p_sel / z)) ** (-beta)
     w = w / torch.clamp(w.max(), min=1e-12)
     return batch, idx, w

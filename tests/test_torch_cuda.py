@@ -104,6 +104,53 @@ def test_ring_gather_kernel_matches_plain(dev, rows, lo):
     assert rops.LAUNCH_COUNTS["ring_gather"] == 1
 
 
+# Pendulum's six replay fields as the trainer keeps them (rew, done and
+# disc 1-d), the PER priority mass (1-d) and a field of (2, 3) rows
+GATHER_ROWS = [(3,), (1,), (), (3,), (), (), (), (2, 3)]
+
+
+@pytest.mark.parametrize("rows,lo,fields", [
+    (37, None, 6), (16, 10, 7), (100, None, 8),
+    (262_144, None, 6),                 # an update's gather
+    (262_144, None, 7),                 # a PER update's, the mass added
+    (65_536, 131_072, 7),               # a window of the ring
+])
+def test_ring_gather_fields_kernel_matches_plain(dev, rows, lo, fields):
+    """Every field of an update's gather in one launch, bit for bit, mixed
+    row shapes; out-of-window rows (-1 padding included) zero."""
+    g = torch.Generator(device=dev).manual_seed(rows + fields)
+    base = lo or 0
+    datas = [torch.randn((rows,) + r, generator=g, device=dev)
+             for r in GATHER_ROWS[:fields]]
+    idx = torch.cat([
+        torch.randint(base, base + rows, (8192 if rows > 1000 else 300,),
+                      generator=g, device=dev),
+        torch.tensor([-1, base - 1, base + rows, 2 * (base + rows)],
+                     device=dev)]).to(torch.int32)
+    kw = {} if lo is None else {
+        "window_start": torch.tensor(lo, dtype=torch.int32, device=dev)}
+    got = rops.ring_gather_fields(datas, idx, **kw)
+    want = rops.ring_gather_fields_ref(datas, idx, **kw)
+    assert len(got) == fields
+    for gd, wd, d in zip(got, want, datas):
+        assert gd.shape == (idx.shape[0],) + d.shape[1:]
+        torch.testing.assert_close(gd, wd, rtol=0, atol=0)
+        assert gd[:-4].any() and not gd[-4:].any()
+    assert rops.LAUNCH_COUNTS["ring_gather"] == 1
+
+
+def test_ring_gather_of_no_rows_launches_nothing(dev):
+    """An empty idx gives each field's (0,) + row outputs and no launch,
+    through both gathers."""
+    datas = [torch.randn((16,) + r, device=dev) for r in GATHER_ROWS]
+    idx = torch.zeros(0, dtype=torch.int32, device=dev)
+    got = rops.ring_gather_fields(datas, idx)
+    assert [tuple(x.shape) for x in got] == [(0,) + r for r in GATHER_ROWS]
+    assert rops.ring_gather_rowloop(datas[0], idx).shape == (0, 3)
+    torch.cuda.synchronize()
+    assert sum(rops.LAUNCH_COUNTS.values()) == 0
+
+
 def test_kernel_wrappers_validate_operands(dev):
     data = torch.zeros((8, 3), device=dev)
     ptr = torch.zeros((), dtype=torch.int32, device=dev)
@@ -242,16 +289,18 @@ def test_megastep_on_the_card_goes_through_the_kernels(dev):
     tr._warmup()
     rops.reset_launch_counts()
     metrics = tr.megastep()
-    # one ring-write launch a round for all six fields
+    # one ring-write launch a round and one gather launch an update, each
+    # for all six fields
     assert dict(rops.LAUNCH_COUNTS) == {"ring_write": 2,
-                                        "ring_gather": 6 * 2 * 2}
+                                        "ring_gather": 2 * 2}
     assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
     assert int(tr.replay.ptr) == (64 + 64) % 100
 
 
 def test_per_megastep_on_the_card_goes_through_the_kernels(dev):
     """Per round one ring-write launch (6 fields + priorities); per update
-    7 gathers (6 fields + the priority mass), one top-k, one scatter."""
+    one gather launch (6 fields + the priority mass), one top-k, one
+    scatter."""
     from repro_torch.core import SpreezeConfig, SpreezeTrainer
     from repro_torch.rl import AlgoHP
     cfg = SpreezeConfig(num_envs=4, chunk_len=8, batch_size=64,
@@ -263,7 +312,7 @@ def test_per_megastep_on_the_card_goes_through_the_kernels(dev):
     rops.reset_launch_counts()
     metrics = tr.megastep()
     assert dict(rops.LAUNCH_COUNTS) == {"ring_write": 2,
-                                        "ring_gather": 7 * 2 * 2,
+                                        "ring_gather": 2 * 2,
                                         "per_topk": 2 * 2,
                                         "priority_scatter": 2 * 2}
     assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
@@ -285,8 +334,7 @@ def test_td3_ddpg_megastep_on_the_card_goes_through_the_kernels(
     tr._warmup()
     rops.reset_launch_counts()
     metrics = tr.megastep()
-    per_row = 7 if prioritized else 6
-    expect = {"ring_write": 2, "ring_gather": per_row * 2 * 2}
+    expect = {"ring_write": 2, "ring_gather": 2 * 2}
     if prioritized:
         expect.update(per_topk=2 * 2, priority_scatter=2 * 2)
     assert dict(rops.LAUNCH_COUNTS) == expect
@@ -655,14 +703,21 @@ def _binding_case(name, dev):
         return lambda: ops.per_topk(
             pri, pri, None, torch.zeros(1, device=dev, dtype=torch.int64),
             torch.empty(k, **f32), torch.empty(k, **i32), 0.6, k)
+    if name in ("ring_gather_fields", "ring_gather_no_fields",
+                "ring_gather_field_rows"):
+        fields = {"ring_gather_fields": 9, "ring_gather_no_fields": 0}.get(
+            name, 2)
+        d = [torch.ones((8, 3), **f32) for _ in range(fields)]
+        if name == "ring_gather_field_rows":
+            d[1] = torch.ones((7, 3), **f32)
+        return lambda: ops.ring_gather(d, torch.zeros(5, **i32), None)
     if name == "ring_write_rowloop_capacity":
         d = torch.ones((4, 3), **f32)
         return lambda: ops.ring_write_rowloop(d, torch.ones((5, 3), **f32),
                                               torch.zeros(1, **i32))
     if name == "ring_gather_rowloop_rows":
         d = torch.ones((0, 3), **f32)
-        return lambda: ops.ring_gather_rowloop(d, torch.zeros(2, **i32),
-                                               torch.empty((2, 3), **f32))
+        return lambda: ops.ring_gather_rowloop(d, torch.zeros(2, **i32))
     if name == "per_scores_rows":
         pri = torch.ones(8, **f32)
         return lambda: ops.per_scores(pri, torch.ones(9, **f32),
@@ -693,7 +748,8 @@ def _binding_case(name, dev):
     "ring_write_row_shape", "per_topk_k", "per_topk_scratch", "flash_heads", "flash_head_dim",
     "decode_group", "decode_empty_cache", "ssd_dims", "ssd_chunk",
     "ring_write_rowloop_capacity", "ring_gather_rowloop_rows",
-    "per_scores_rows"])
+    "per_scores_rows", "ring_gather_fields", "ring_gather_no_fields",
+    "ring_gather_field_rows"])
 def test_binding_checks_with_numbers_raise(dev, name):
     """Every check in binding.cpp whose message holds an integer raises a
     RuntimeError naming the number: streamed into the message as an

@@ -16,7 +16,8 @@ import torch
 
 from test_torch_bridge import n, t
 from test_torch_per_ops import ALPHA, _assert_scores_close
-from test_torch_replay_ops import emulate_ring_write_kernel
+from test_torch_replay_ops import (emulate_ring_gather_kernel,
+                                   emulate_ring_write_kernel)
 
 from repro.kernels import replay_ops as jops
 from repro_torch.benchmarks import replay_kernels as bench
@@ -141,6 +142,31 @@ def test_ring_gather_rowloop_matches_jax(rows, row):
                                              jnp.asarray(idx)))
     np.testing.assert_array_equal(got[:-5], oracle[:-5])
     assert not oracle[-5:].any()
+
+
+@pytest.mark.parametrize("rows,row,bsz", [(10, (2,), 40), (37, (), 300),
+                                          (16, (2, 3), 64)])
+def test_ring_gather_rowloop_kernel_index_math(rows, row, bsz):
+    """The gather kernel's grid with the row-at-a-time baseline's clamping
+    index rule (emulated in numpy, a batch over several blocks of 128
+    rows) gives what the JAX rowloop kernel (interpret mode) and
+    ``ring_gather_rowloop_ref`` give; the window rule gives zeros on the
+    indices outside the pool instead."""
+    rng = np.random.default_rng(rows * 7 + bsz)
+    data = rng.standard_normal((rows,) + row).astype(np.float32)
+    idx = np.concatenate([rng.integers(0, rows, bsz),
+                          [0, rows - 1, rows + 2, -3, -rows - 3, 2**31 - 1,
+                           -2**31]]).astype(np.int32)
+    (got,) = emulate_ring_gather_kernel([data], idx, clamp=True)
+    want = np.asarray(jax.jit(functools.partial(
+        jops.ring_gather_rowloop, interpret=True))(jnp.asarray(data),
+                                                   jnp.asarray(idx)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, n(rops.ring_gather_rowloop_ref(
+        t(data), t(idx))))
+    (windowed,) = emulate_ring_gather_kernel([data], idx)
+    np.testing.assert_array_equal(windowed[:-5], got[:-5])
+    assert not windowed[-5:].any() and got[-5:].any()
 
 
 def test_merge_topk_candidates_matches_jax():

@@ -254,3 +254,147 @@ def test_ring_write_fields_refuses_cpu_tensors():
         rops.ring_write_fields([torch.zeros(8, 3), torch.zeros(8)],
                                [torch.zeros(2, 3), torch.zeros(2)],
                                torch.zeros((), dtype=torch.int32))
+
+
+# Pendulum's six replay fields as the trainer keeps them (obs (3,), act
+# (1,), rew, done and disc 1-d), a seventh 1-d field (the PER priority
+# mass) and a field of (2, 3) rows
+GATHER_ROWS = [(3,), (1,), (), (3,), (), (), (), (2, 3)]
+
+# (rows of the pool, window_start)
+GATHER_CASES = {"mid_pool": (37, None), "window": (16, 10)}
+
+
+def _gather_inputs(rng, rows, lo):
+    """Pools of GATHER_ROWS and indices: inside the window, some outside
+    it, -1 padding and the window's two neighbours."""
+    base = lo or 0
+    datas = [rng.standard_normal((rows,) + r).astype(np.float32)
+             for r in GATHER_ROWS]
+    idx = np.concatenate([
+        rng.integers(base, base + rows, 50),       # inside the window
+        rng.integers(0, base + 2 * rows, 20),      # some outside it
+        [-1, -1, base - 1, base + rows]]).astype(np.int32)
+    return datas, idx
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_ring_gather_fields_matches_jax(case):
+    """Every field of one gather, uneven row shapes, bit for bit against
+    the JAX kernel (interpret mode) and its oracle, and against the
+    port's ``ring_gather_ref`` field by field."""
+    rows, lo = GATHER_CASES[case]
+    rng = np.random.default_rng(rows + (lo or 0))
+    datas, idx = _gather_inputs(rng, rows, lo)
+    kw = {} if lo is None else {"window_start": lo}
+    got = kops.ring_gather_fields([t(d) for d in datas], t(idx), **kw)
+    assert len(got) == len(GATHER_ROWS)
+    for d, g in zip(datas, got):
+        g = n(g)
+        assert g.shape == (len(idx),) + d.shape[1:]
+        want_kernel = np.asarray(jops.ring_gather(
+            jnp.asarray(d), jnp.asarray(idx), window_start=lo or 0,
+            interpret=True))
+        want_ref = np.asarray(jops.ring_gather_ref(
+            jnp.asarray(d), jnp.asarray(idx), window_start=lo or 0))
+        np.testing.assert_array_equal(g, want_kernel)
+        np.testing.assert_array_equal(g, want_ref)
+        np.testing.assert_array_equal(g, n(rops.ring_gather_ref(
+            t(d), t(idx), **kw)))
+        assert g[:50].any() and not g[-4:].any()
+
+
+def emulate_ring_gather_kernel(datas, idx, lo=0, clamp=False, widths=None,
+                               threads=128, rows_per_block=128):
+    """numpy model of ``ring_gather_kernel`` in ``csrc/ring_ops.cu`` over
+    the whole grid: (ceil(bsz / rows_per_block), fields) blocks of
+    ``threads``. Block (bx, by) takes output rows row0 = bx *
+    rows_per_block onwards: each row's source is idx - ``lo``, or -1 (a
+    row of zeros) outside the pool; with ``clamp`` (the row-at-a-time
+    baseline's rule: no window) a negative index is taken from the end
+    once and the rest clamped into the pool. Thread x then takes the
+    block's elements e = x, x + threads, ...: row r = e // width, feature
+    e - r * width, stored at row0 * width + e. ``widths`` overrides the
+    row widths, to model a faulty kernel."""
+    rows_local, bsz = datas[0].shape[0], idx.shape[0]
+    widths = widths or [d.size // rows_local for d in datas]
+    outs = []
+    for data, width in zip(datas, widths):
+        src_flat = data.reshape(-1)
+        dst = np.zeros(bsz * (data.size // rows_local), np.float32)
+        for row0 in range(0, bsz, rows_per_block):
+            rows = min(rows_per_block, bsz - row0)
+            j = idx[row0:row0 + rows].astype(np.int64)
+            if clamp:
+                j = np.clip(np.where(j < 0, j + rows_local, j), 0,
+                            rows_local - 1)
+            else:
+                j = j - lo
+                j = np.where((j >= 0) & (j < rows_local), j, -1)
+            for x in range(threads):
+                e = np.arange(x, rows * width, threads)
+                r = e // width
+                src = j[r]
+                at = row0 * width + e
+                keep = at < dst.size          # a faulty width's overrun
+                dst[at[keep]] = np.where(
+                    src >= 0, src_flat[np.maximum(src, 0) * width + e -
+                                       r * width], 0.0)[keep]
+        outs.append(dst.reshape((bsz,) + data.shape[1:]))
+    return outs
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+@pytest.mark.parametrize("rows_per_block", [128, 16])
+def test_ring_gather_kernel_index_math(case, rows_per_block):
+    """The kernel's grid and index rule, emulated in numpy, give what the
+    plain versions give, for every field; 16 rows a block makes the
+    74-row batch span several blocks, the last one ragged."""
+    rows, lo = GATHER_CASES[case]
+    rng = np.random.default_rng(rows * 3 + (lo or 0))
+    datas, idx = _gather_inputs(rng, rows, lo)
+    got = emulate_ring_gather_kernel(datas, idx, lo or 0,
+                                     rows_per_block=rows_per_block)
+    kw = {} if lo is None else {"window_start": lo}
+    want = rops.ring_gather_fields_ref([t(d) for d in datas], t(idx), **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, n(w))
+
+
+@pytest.mark.parametrize("mutation", ["field_width", "row_offset",
+                                      "no_window"])
+def test_ring_gather_kernel_emulation_catches_a_fault(mutation):
+    """The emulation above is strict enough to catch a faulty kernel: a
+    field width off by one, an index off by one, a window not applied."""
+    rows, lo = GATHER_CASES["window"]
+    rng = np.random.default_rng(7)
+    datas, idx = _gather_inputs(rng, rows, lo)
+    want = rops.ring_gather_fields_ref([t(d) for d in datas], t(idx),
+                                       window_start=lo)
+    widths = [d.size // rows for d in datas]
+    if mutation == "field_width":
+        widths[0] -= 1
+    got = emulate_ring_gather_kernel(
+        datas, idx + (mutation == "row_offset"),
+        0 if mutation == "no_window" else lo, widths=widths)
+    assert not all(np.array_equal(g, n(w)) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("fields", [0, 9])
+def test_ring_gather_fields_count_raises(fields):
+    """1 to 8 fields a gather, as the kernel's binding takes."""
+    datas = [torch.zeros(4, 2) for _ in range(fields)]
+    idx = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"{fields} fields: takes 1 to 8"):
+        rops.ring_gather_fields_ref(datas, idx)
+    if fields:
+        with pytest.raises(ValueError, match="takes 1 to 8"):
+            kops.ring_gather_fields(datas, idx)
+
+
+def test_ring_gather_fields_refuses_cpu_tensors():
+    """The one-launch gather refuses a pool off the card before anything
+    is built, as the one-field wrapper does."""
+    with pytest.raises(ValueError, match="CUDA"):
+        rops.ring_gather_fields([torch.zeros(8, 3), torch.zeros(8)],
+                                torch.zeros(4, dtype=torch.int32))

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""decode_attention, priority_scatter and the ring write on the card: time
-against bound, plain version and library call, and where the host-bound
-calls' time goes.
+"""decode_attention, priority_scatter, the ring write and the ring gather
+on the card: time against bound, plain version and library call, and
+where the host-bound calls' time goes.
 
     python3 tools/time_kernels.py [--src DIR] [--label NAME]
                                   [--only decode_attention priority_scatter
-                                          ring_write]
+                                          ring_write ring_gather]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's); its kernels build into that checkout's
@@ -29,6 +29,12 @@ six ``ring_write`` calls), ``ring_write_rowloop`` x6, ``index_copy_`` x6,
 and the registered ``torch.ops.repro_torch.*`` ops called with no Python
 wrapper, so that the wrapper's share (wrapper arm less raw op), the
 dispatcher's and launch's (raw op) and the device's each get a number.
+The ring gather's block does the same for an update's gather
+(``chip_smoke.time_ring_gather``'s: the six Pendulum fields, B 8,192
+uniform rows of 262,144): the trainer's gather (one
+``ring_gather_fields`` call where the timed ``repro_torch`` has it, else
+six ``ring_gather`` calls), ``ring_gather_rowloop`` x6, ``index_select``
+x6 and the raw ops.
 One JSON line a kernel, with the card's name and power limit. Needs a
 CUDA device.
 """
@@ -42,7 +48,8 @@ from device_profile import profiled
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CALLS = 200
-KERNELS = ("decode_attention", "priority_scatter", "ring_write")
+KERNELS = ("decode_attention", "priority_scatter", "ring_write",
+           "ring_gather")
 
 
 def enqueue_ms(fn, calls=CALLS):
@@ -121,6 +128,45 @@ def ring_write_split(cs, rops, dev):
     return {name: split(cs, fn) for name, fn in arms.items()}
 
 
+def ring_gather_split(cs, rops, dev):
+    """An update's gather, each arm split (``split``): the trainer's call
+    (``ring_gather_fields`` where it exists, else six ``ring_gather``
+    calls), the row-at-a-time baseline x6, ``index_select`` x6, and the
+    registered ops with no wrapper (which make their outputs where the
+    timed tree has ``ring_gather_fields``, else write into outputs made
+    once)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(4)
+    datas = [torch.randn((cs.CAPACITY, w), generator=g, device=dev)
+             for w in cs.FIELD_WIDTHS.values()]
+    idx = torch.randint(0, cs.CAPACITY, (cs.BATCH,), generator=g,
+                        device=dev, dtype=torch.int32)
+    idx_long = idx.long()
+    op = torch.ops.repro_torch
+    if hasattr(rops, "ring_gather_fields"):
+        arms = {"ring_gather_fields": lambda: rops.ring_gather_fields(
+                    datas, idx),
+                "raw_ring_gather_op": lambda: op.ring_gather(
+                    datas, idx, None),
+                "raw_ring_gather_rowloop_op_x6": lambda: [
+                    op.ring_gather_rowloop(d, idx) for d in datas]}
+    else:
+        pairs = [(d, torch.empty((cs.BATCH, d.shape[1]), device=dev))
+                 for d in datas]
+        arms = {"ring_gather_x6": lambda: [rops.ring_gather(d, idx)
+                                           for d in datas],
+                "raw_ring_gather_op_x6": lambda: [
+                    op.ring_gather(d, idx, None, o) for d, o in pairs],
+                "raw_ring_gather_rowloop_op_x6": lambda: [
+                    op.ring_gather_rowloop(d, idx, o) for d, o in pairs]}
+    arms.update({
+        "ring_gather_rowloop_x6": lambda: [rops.ring_gather_rowloop(d, idx)
+                                           for d in datas],
+        "index_select_x6": lambda: [torch.index_select(d, 0, idx_long)
+                                    for d in datas]})
+    return {name: split(cs, fn) for name, fn in arms.items()}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
@@ -172,6 +218,11 @@ def main():
     if "ring_write" in args.only:
         print(json.dumps({**head, "kernel": "ring_write_round",
                           "per_round": ring_write_split(cs, rops, dev)}),
+              flush=True)
+
+    if "ring_gather" in args.only:
+        print(json.dumps({**head, "kernel": "ring_gather_update",
+                          "per_update": ring_gather_split(cs, rops, dev)}),
               flush=True)
     return 0
 
