@@ -41,10 +41,11 @@ and prints no result line):
      ``F.scaled_dot_product_attention``), timing only, and flash's float32
      SIMT kernel beside its bf16 tensor-core one; the same for
      ``ssd_scan`` at full-width mamba2-130m's and zamba2-1.2b's prefill
-     shapes, a ragged single chunk and a small shape (float32 within 1e-5
-     of the largest |plain|, since the scan's sums run over N and the
-     chunk; bfloat16 one rounding step more), timed with no library call
-     (no PyTorch call computes the scan);
+     shapes, mamba2's width over 8 chunks, a ragged single chunk and a
+     small shape (float32 within 1e-5 of the largest |plain|, since the
+     scan's sums run over N and the chunk; bfloat16 one rounding step
+     more), timed with no library call (no PyTorch call computes the
+     scan), its float32 SIMT kernels beside its bf16 tensor-core ones;
   8. serve on the card against serving on the CPU, same parameters and
      prompts, prefill plus 8 decode steps: at float32 compute reduced
      qwen2-0.5b, reduced mamba2-130m and reduced zamba2-1.2b (5 layers),
@@ -979,13 +980,14 @@ def scan_close(got, want):
 
 def check_ssd_scan(dev):
     """The scan kernel against its plain version, y and the final state,
-    bf16 and f32: both full-width prefill scans, a ragged single chunk
-    (L = S = 100, not a multiple of the 64-row tiles) and a small shape.
-    Returns the max abs error."""
+    bf16 and f32: both full-width prefill scans, mamba2's width over 8
+    chunks (S 2048), a ragged single chunk (L = S = 100, not a multiple of
+    the 64-row tiles) and a small shape. Returns the max abs error."""
     import torch
     from repro_torch.kernels import ssd_scan as ssd
     worst = 0.0
-    shapes = list(SCAN_SHAPES.values()) + [(2, 100, 4, 64, 128, 256),
+    shapes = list(SCAN_SHAPES.values()) + [(2, 2048, 24, 64, 128, 256),
+                                           (2, 100, 4, 64, 128, 256),
                                            (1, 64, 2, 16, 8, 16)]
     for dtype in (torch.bfloat16, torch.float32):
         for B, S, H, P, N, chunk in shapes:
@@ -999,16 +1001,18 @@ def check_ssd_scan(dev):
 
 
 def time_ssd_scan(dev, arch):
-    """Kernel and plain version, bf16, at ``arch``'s prefill scan. Bound:
-    each operand read once (x, B_, C_ as the reference hands them, B and C
-    broadcast to every head; dtA float32), y and the final state written
-    once, over 3.35 TB/s; the reference's full L x L products (C B^T,
-    masked scores times x, C state^T and x^T B per chunk and head) over
-    the bf16 tensor peak; the larger of the two."""
+    """Kernel and plain version, bf16, at ``arch``'s prefill scan, and the
+    float32 kernels (SIMT) on the same values upcast. Bound: each operand
+    read once (x, B_, C_ as the reference hands them, B and C broadcast to
+    every head; dtA float32), y and the final state written once, over
+    3.35 TB/s; the reference's full L x L products (C B^T, masked scores
+    times x, C state^T and x^T B per chunk and head) over the bf16 tensor
+    peak; the larger of the two."""
     import torch
     from repro_torch.kernels import ssd_scan as ssd
     B, S, H, P, N, L = SCAN_SHAPES[arch]
     args = scan_inputs(dev, 15, torch.bfloat16, B, S, H, P, N)
+    f32 = [a.float() for a in args]
     nbytes = 2 * (2 * B * S * H * P + 2 * B * S * H * N + B * H * P * N) \
         + 4 * B * S * H
     flops = B * H * (S // L) * 2 * (L * L * N + L * L * P + 2 * L * P * N)
@@ -1018,6 +1022,8 @@ def time_ssd_scan(dev, arch):
                            warmup=3),
             "plain_ms": event_ms(lambda: ssd.ssd_scan_ref(*args, chunk=L),
                                  iters=20, warmup=3),
+            "simt_f32_ms": event_ms(lambda: ssd.ssd_scan(*f32, chunk=L),
+                                    iters=20, warmup=3),
             "library_ms": None, "library": "none (no PyTorch call)",
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",

@@ -355,15 +355,13 @@ void decode_attention(const at::Tensor& q, const at::Tensor& k_cache,
       static_cast<float>(scale), bf16, c10::cuda::getCurrentCUDAStream()));
 }
 
-void ssd_scan(const at::Tensor& x, const at::Tensor& dtA, const at::Tensor& B_,
-              const at::Tensor& C_, at::Tensor y, at::Tensor final_state,
-              int64_t chunk) {
+std::vector<at::Tensor> ssd_scan(const at::Tensor& x, const at::Tensor& dtA,
+                                 const at::Tensor& B_, const at::Tensor& C_,
+                                 int64_t chunk) {
   const bool bf16 = check_activation(x, "x");
   check_operand(dtA, "dtA", at::kFloat);
   check_operand(B_, "B_", x.scalar_type());
   check_operand(C_, "C_", x.scalar_type());
-  check_operand(y, "y", x.scalar_type());
-  check_operand(final_state, "final_state", x.scalar_type());
   TORCH_CHECK(x.dim() == 4 && B_.dim() == 4, "x must be (B, S, H, P) and "
               "B_, C_ (B, S, H, N)");
   const int64_t B = x.size(0), S = x.size(1), H = x.size(2), P = x.size(3);
@@ -374,23 +372,28 @@ void ssd_scan(const at::Tensor& x, const at::Tensor& dtA, const at::Tensor& B_,
   TORCH_CHECK(dtA.dim() == 3 && dtA.size(0) == B && dtA.size(1) == S &&
                   dtA.size(2) == H,
               "dtA must be (B, S, H)");
-  TORCH_CHECK(y.sizes() == x.sizes(), "y must have x's shape");
-  TORCH_CHECK(final_state.dim() == 4 && final_state.size(0) == B &&
-                  final_state.size(1) == H && final_state.size(2) == P &&
-                  final_state.size(3) == N,
-              "final_state must be (B, H, P, N)");
   TORCH_CHECK(P >= 1 && P <= kMaxSsdDim && N >= 1 && N <= kMaxSsdDim,
               "ssd_scan takes P and N in [1, ", num(kMaxSsdDim), "]");
   TORCH_CHECK(chunk >= 1 && chunk <= kMaxSsdChunk && S % chunk == 0,
               "ssd_scan needs a chunk in [1, ", num(kMaxSsdChunk),
               "] that divides S");
-  TORCH_CHECK(B < 65536 && H < 65536 && S * H < (int64_t{1} << 31),
+  TORCH_CHECK(B < 65536 && H < 65536 && S * H < (int64_t{1} << 31) &&
+                  B * H < (int64_t{1} << 31),
               "ssd_scan shape out of range");
   const c10::cuda::CUDAGuard guard(x.device());
+  // the outputs, and the float32 scratch of the three passes (model_ops.h),
+  // from the caching allocator on the current stream
+  at::Tensor y = x.new_empty(x.sizes());
+  at::Tensor final_state = x.new_empty({B, H, P, N});
+  const auto f32 = x.options().dtype(at::kFloat);
+  at::Tensor acum = x.new_empty({B, H, S}, f32);
+  at::Tensor states = x.new_empty({B, H, S / chunk, P, N}, f32);
   C10_CUDA_CHECK(launch_ssd_scan(
       y.data_ptr(), final_state.data_ptr(), x.data_ptr(),
-      dtA.data_ptr<float>(), B_.data_ptr(), C_.data_ptr(), B, S, H, P, N,
-      chunk, bf16, c10::cuda::getCurrentCUDAStream()));
+      dtA.data_ptr<float>(), B_.data_ptr(), C_.data_ptr(),
+      acum.data_ptr<float>(), states.data_ptr<float>(), B, S, H, P, N, chunk,
+      bf16, c10::cuda::getCurrentCUDAStream()));
+  return {y, final_state};
 }
 
 }  // namespace
@@ -415,8 +418,8 @@ TORCH_LIBRARY(repro_torch, m) {
         "bool causal, int? window, float scale) -> ()");
   m.def("decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, "
         "Tensor valid_len, Tensor(a!) out, float scale) -> ()");
-  m.def("ssd_scan(Tensor x, Tensor dtA, Tensor B_, Tensor C_, "
-        "Tensor(a!) y, Tensor(b!) final_state, int chunk) -> ()");
+  m.def("ssd_scan(Tensor x, Tensor dtA, Tensor B_, Tensor C_, int chunk) "
+        "-> Tensor[]");
 }
 
 TORCH_LIBRARY_IMPL(repro_torch, CUDA, m) {

@@ -88,9 +88,13 @@ constexpr int kMaxSsdDim = 128;
 // Mamba-2 SSD chunked scan, float32 math: x (B, S, H, P) pre-scaled by dt,
 // dtA (B, S, H) float32, B_ and C_ (B, S, H, N) like x; y like x and
 // final_state (B, H, P, N) like x. Chunks of L rows, S % L == 0; the state
-// starts at zero. Requires L <= kMaxSsdChunk, P and N <= kMaxSsdDim.
+// starts at zero. Scratch, float32: acum (B, H, S) takes each chunk's
+// cumulative sum of dtA, states (B, H, S / L, P, N) each chunk's own state
+// contribution and then the state it starts from. Three kernels: the
+// chunk states, the state recurrence, y. Requires L <= kMaxSsdChunk, P
+// and N <= kMaxSsdDim.
 cudaError_t launch_ssd_scan(void* y, void* final_state, const void* x,
                             const float* dtA, const void* B_, const void* C_,
-                            int64_t B, int64_t S, int64_t H, int64_t P,
-                            int64_t N, int64_t L, bool bf16,
-                            cudaStream_t stream);
+                            float* acum, float* states, int64_t B, int64_t S,
+                            int64_t H, int64_t P, int64_t N, int64_t L,
+                            bool bf16, cudaStream_t stream);

@@ -4,9 +4,11 @@ updating the (P, N) state; all in float32, y and the final state cast
 back to x's dtype.
 
 Counterpart of ``repro/kernels/ssd_scan.py:ssd_scan`` and of its oracle
-``repro/kernels/ref.py:ssd_ref``. ``ssd_scan`` launches the CUDA kernel
-(``csrc/ssd_scan.cu``, one block per (b, h) walking its chunks) and only
-that: a tensor that is not on a CUDA device is refused. ``ssd_scan_ref``
+``repro/kernels/ref.py:ssd_ref``. ``ssd_scan`` launches the CUDA kernels
+(``csrc/ssd_scan.cu``: the chunks' own states, the state recurrence over
+the chunks, then y, each pass spread over the (b, h, chunk) cells; the
+binding makes the outputs and the float32 scratch) and only that: a
+tensor that is not on a CUDA device is refused. ``ssd_scan_ref``
 is the plain PyTorch version, the kernel's chunk loop batched over
 (B, H) with torch products (``kernels.ops`` picks between the two by the
 operand's device).
@@ -53,15 +55,13 @@ def ssd_scan(x: torch.Tensor, dtA: torch.Tensor, B_: torch.Tensor,
     heads). The kernel takes P, N <= 128 and a chunk of at most 256 (the
     binding enforces its limits). Returns (y (B, S, H, P),
     final_state (B, H, P, N)), both x's dtype."""
-    Bb, S, H, P, N, L = _dims(x, dtA, B_, C_, chunk)
+    L = _dims(x, dtA, B_, C_, chunk)[-1]
     check_cuda_operand(x, "x")
     check_cuda_operand(dtA, "dtA", torch.float32)
     check_cuda_operand(B_, "B_", x.dtype)
     check_cuda_operand(C_, "C_", x.dtype)
-    y = torch.empty_like(x)
-    final_state = x.new_empty((Bb, H, P, N))
     load_kernels()
-    torch.ops.repro_torch.ssd_scan(x, dtA, B_, C_, y, final_state, L)
+    y, final_state = torch.ops.repro_torch.ssd_scan(x, dtA, B_, C_, L)
     LAUNCH_COUNTS["ssd_scan"] += 1
     return y, final_state
 

@@ -627,6 +627,10 @@ def assert_scan_close(got, want):
     (1, 512, 3, 64, 128, 256),       # mamba2's P, N and chunk
     (2, 512, 2, 128, 128, 128),      # the largest P and N
     (1, 300, 2, 100, 100, 300 // 2),  # P, N not multiples of 16
+    (1, 2048, 2, 64, 128, 256),      # 8 chunks: mamba2's P, N, chunk
+    (2, 2048, 3, 64, 64, 256),       # 8 chunks: zamba2's
+    (1, 1024, 2, 64, 128, 64),       # 16 chunks of one tile
+    (1, 1024, 3, 64, 64, 64),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_kernel_matches_plain(dev, B, S, H, P, N, chunk, dtype):
@@ -641,6 +645,28 @@ def test_ssd_scan_kernel_matches_plain(dev, B, S, H, P, N, chunk, dtype):
     assert_scan_close(y, wy)
     assert_scan_close(fin, wfin)
     assert rops.LAUNCH_COUNTS["ssd_scan"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_takes_an_unaligned_base(dev, dtype):
+    """x, B_ and C_ one element past a 16-byte boundary: the kernels load
+    element by element and agree with the plain version."""
+    B, S, H, P, N, chunk = 1, 512, 2, 64, 64, 128
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def shifted(shape):
+        n = B * S * H * shape
+        flat = torch.randn(n + 1, generator=g, device=dev) * 0.5
+        return flat.to(dtype)[1:].view(B, S, H, shape)
+
+    x, Bm, Cm = shifted(P), shifted(N), shifted(N)
+    dtA = -torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=dev)) * 0.3
+    assert x.data_ptr() % 16 and Bm.data_ptr() % 16
+    y, fin = ssd.ssd_scan(x, dtA, Bm, Cm, chunk=chunk)
+    wy, wfin = ssd.ssd_scan_ref(x, dtA, Bm, Cm, chunk=chunk)
+    assert_scan_close(y, wy)
+    assert_scan_close(fin, wfin)
 
 
 def test_ssd_scan_wrapper_validates_operands(dev):
@@ -738,7 +764,6 @@ def _binding_case(name, dev):
     x = torch.ones((1, S, 2, P), **f32)
     b = torch.ones((1, S, 2, 8), **f32)
     return lambda: ops.ssd_scan(x, -torch.ones((1, S, 2), **f32), b, b,
-                                torch.empty_like(x), x.new_empty((1, 2, P, 8)),
                                 chunk)
 
 

@@ -2,6 +2,7 @@
 """Where the port's serving path spends its time on the card.
 
     python3 tools/profile_serve.py [--arch qwen2-0.5b|mamba2-130m|zamba2-1.2b]
+                                   [--src DIR]
 
 Builds the full-width model (qwen2-0.5b unless ``--arch`` names another
 served one; random weights from seed 0, bf16 compute),
@@ -10,8 +11,10 @@ prefills 8 prompts of 1024 tokens, warms up, then runs one prefill and
 phase: host wall time per call, device busy time (the summed duration
 of every device op; one stream, so they do not overlap), the device's
 idle share of the wall, device ops per call, the device time of the
-port's own kernels, and the ops that take the most device time. Needs a
-CUDA device.
+port's own kernels (``ssd_scan`` also as the sum of all its passes), and
+the ops that take the most device time. ``--src`` names the ``src``
+directory whose ``repro_torch`` runs (default: this checkout's), so two
+versions are profiled from one checkout. Needs a CUDA device.
 """
 import argparse
 import json
@@ -24,22 +27,29 @@ STEPS = 16
 B, PROMPT, GEN = 8, 1024, 64
 # the device functions of src/repro_torch/kernels/csrc/{rmsnorm,
 # flash_attention,decode_attention,ssd_scan}.cu
-# flash_attention.cu has two: flash_tc_kernel (bf16) and flash_kernel (f32)
+# flash_attention.cu has two: flash_tc_kernel (bf16) and flash_kernel (f32).
+# ssd_scan.cu runs three passes: the chunk states (bf16 on the tensor
+# cores, f32 SIMT), the state recurrence, and y (again two kernels);
+# ssd_scan_kernel is the one-pass kernel of older trees, which
+# --src may name.
 PORT_KERNELS = ("rmsnorm_kernel", "flash_tc_kernel", "flash_kernel",
                 "decode_split_kernel", "decode_combine_kernel",
+                "ssd_chunk_state_tc_kernel", "ssd_chunk_state_kernel",
+                "ssd_state_pass_kernel", "ssd_y_tc_kernel", "ssd_y_kernel",
                 "ssd_scan_kernel")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--src", default=os.path.join(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))), "src"))
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("profile_serve: no CUDA device is available")
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "src"))
+    sys.path.insert(0, os.path.abspath(args.src))
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape, RunConfig
     from repro_torch.data.tokens import make_batch
@@ -71,8 +81,11 @@ def main():
         wall, busy, ops, per_op = profiled(fn, reps)
         port = {k: sum(v for n, v in per_op.items() if k in n) / 1e3
                 for k in PORT_KERNELS}
+        port["ssd_scan (all passes)"] = sum(
+            v for n, v in per_op.items() if "ssd_" in n) / 1e3
         print(json.dumps({
             "card": card, "arch": args.arch, "phase": name, "calls": reps,
+            "src": os.path.abspath(args.src),
             "wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": 1 - busy / wall,
             "device_ops": ops, "port_kernels_ms": port,

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""decode_attention, priority_scatter, the ring write and the ring gather
-on the card: time against bound, plain version and library call, and
-where the host-bound calls' time goes.
+"""decode_attention, priority_scatter, the ring write, the ring gather and
+the SSD scan on the card: time against bound, plain version and library
+call, and where the host-bound calls' time goes.
 
     python3 tools/time_kernels.py [--src DIR] [--label NAME]
                                   [--only decode_attention priority_scatter
-                                          ring_write ring_gather]
+                                          ring_write ring_gather ssd_scan]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's); its kernels build into that checkout's
@@ -35,6 +35,10 @@ uniform rows of 262,144): the trainer's gather (one
 ``ring_gather_fields`` call where the timed ``repro_torch`` has it, else
 six ``ring_gather`` calls), ``ring_gather_rowloop`` x6, ``index_select``
 x6 and the raw ops.
+The scan's block (``--only ssd_scan``) runs ``ssd_scan`` at both of
+``chip_smoke.SCAN_SHAPES`` (mamba2-130m's and zamba2-1.2b's prefill scan),
+in bf16 and in float32, and splits a call the same three ways over 20
+calls after 3, with the device time of each kernel the call launches.
 One JSON line a kernel, with the card's name and power limit. Needs a
 CUDA device.
 """
@@ -49,14 +53,15 @@ from device_profile import profiled
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CALLS = 200
 KERNELS = ("decode_attention", "priority_scatter", "ring_write",
-           "ring_gather")
+           "ring_gather", "ssd_scan")
+SCAN_CALLS = 20
 
 
-def enqueue_ms(fn, calls=CALLS):
+def enqueue_ms(fn, calls=CALLS, warmup=20):
     """Host milliseconds a call of ``fn`` over ``calls`` calls, with no
     synchronisation between them."""
     import torch
-    for _ in range(20):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -89,6 +94,35 @@ def split(cs, fn, calls=CALLS):
     _, busy, ops, _ = profiled(fn, calls)
     return {"event_ms": cs.event_ms(fn, calls), "enqueue_ms": enqueue_ms(fn),
             "device_ms": busy, "device_ops": ops}
+
+
+def kernel_name(name):
+    """A device function's name without its namespace and arguments:
+    ``ssd_y_tc_kernel<4, 8>`` for the profiler's full C++ name."""
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ")
+
+
+def ssd_scan_split(cs, dev, arch, dtype):
+    """One scan call at ``arch``'s prefill shape in ``dtype``: CUDA-event
+    ms, host enqueue ms and profiler device ms a call (``split``'s three,
+    over SCAN_CALLS calls after 3), and the device ms a call of each
+    kernel it launches."""
+    from repro_torch.kernels import ssd_scan as ssd
+    B, S, H, P, N, L = cs.SCAN_SHAPES[arch]
+    args = cs.scan_inputs(dev, 15, dtype, B, S, H, P, N)
+
+    def fn():
+        return ssd.ssd_scan(*args, chunk=L)
+
+    fn()
+    _, busy, ops, per_op = profiled(fn, SCAN_CALLS)
+    return {"event_ms": cs.event_ms(fn, SCAN_CALLS, warmup=3),
+            "enqueue_ms": enqueue_ms(fn, SCAN_CALLS, warmup=3),
+            "device_ms": busy, "device_ops": ops,
+            "device_ms_by_kernel": {kernel_name(n): us / 1e3
+                                    for n, us in per_op.items()},
+            "shape": [B, S, H, P, N, L]}
 
 
 def ring_write_split(cs, rops, dev):
@@ -224,6 +258,14 @@ def main():
         print(json.dumps({**head, "kernel": "ring_gather_update",
                           "per_update": ring_gather_split(cs, rops, dev)}),
               flush=True)
+
+    for arch in cs.SSM_ARCHS if "ssd_scan" in args.only else ():
+        for dtype in (torch.bfloat16, torch.float32):
+            print(json.dumps({**head, "kernel": "ssd_scan", "arch": arch,
+                              "dtype": str(dtype).replace("torch.", ""),
+                              **ssd_scan_split(cs, dev, arch, dtype)}),
+                  flush=True)
+            torch.cuda.empty_cache()
     return 0
 
 
