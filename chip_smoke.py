@@ -12,7 +12,8 @@ and prints no result line):
      card at the training path's shapes (max abs error must be 0: the ring
      ops, the row-at-a-time baselines and the scatter copy, the score pass
      and the top-k compute the plain version's bits), then time kernel,
-     plain version and the library call with CUDA events; then run the
+     plain version and the library call with CUDA events (and count
+     per_topk's device launches a call under the profiler); then run the
      replay-kernel bench (``repro_torch.benchmarks.replay_kernels``, the
      path of ``per_scores`` and the two row-at-a-time kernels) at its
      tiny and full presets, counters reset just before each and read
@@ -125,6 +126,22 @@ def event_ms(fn, iters=200, warmup=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_launches(fn, calls=20):
+    """Device ops (kernels, copies, fills) a call of ``fn`` enqueues,
+    counted under torch.profiler after a warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA
+               for e in prof.events()) / calls
 
 
 def check_ring_write(rops, dev):
@@ -301,24 +318,26 @@ def time_ring_gather(rops, dev, rowloop=False):
 
 def _per_pool(dev, g, rows, live, ties=()):
     """A priority window with ``live`` written rows and a Gumbel field;
-    rows in ``ties`` share one priority and one Gumbel value among the
-    best scores."""
+    rows in ``ties`` (every row for ``"all"``) share one priority and one
+    Gumbel value among the best scores."""
     import torch
     pri = torch.zeros(rows, device=dev)
     pri[:live] = torch.rand(live, generator=g, device=dev) * 5 + 1e-3
     u = torch.rand(rows, generator=g, device=dev).clamp_(min=1e-12)
     gumbel = -torch.log(-torch.log(u))
     if ties:
-        t = torch.tensor(ties, device=dev)
+        t = (torch.arange(rows, device=dev) if ties == "all"
+             else torch.tensor(ties, device=dev))
         pri[t], gumbel[t] = 4.0, 30.0
     return pri, gumbel
 
 
 def check_per_topk(rops, dev):
     """Kernel vs plain version at the training path's shapes (rows
-    262144, k 8192): a full pool, fewer live rows than k, crafted ties
-    across tiles, and a window. Returns the max abs error over the finite
-    scores and all indices."""
+    262144, k 8192): a full pool, fewer live rows than k, crafted ties,
+    every row at one score, 16384 tied rows across the k-th key, and a
+    window. Returns the max abs error over the finite scores and all
+    indices."""
     import torch
     g = torch.Generator(device=dev).manual_seed(5)
     worst = 0.0
@@ -326,6 +345,9 @@ def check_per_topk(rops, dev):
     for rows, live, lo, tie in ((CAPACITY, CAPACITY, None, ()),
                                 (CAPACITY, 5000, None, ()),
                                 (CAPACITY, CAPACITY, None, ties),
+                                (CAPACITY, CAPACITY, None, "all"),
+                                (CAPACITY, CAPACITY, None,
+                                 tuple(range(3, CAPACITY, 16))),
                                 (65_536, 65_536, 131_072, ())):
         pri, gumbel = _per_pool(dev, g, rows, live, tie)
         kw = {} if lo is None else {
@@ -337,7 +359,8 @@ def check_per_topk(rops, dev):
         require(torch.equal(fin, torch.isfinite(gs)), "per_topk -inf slots")
         require(bool(fin.sum() == min(live, BATCH)), "per_topk live count")
         if tie:
-            require(gi[:len(tie)].tolist() == list(tie),
+            tied = list(range(rows) if tie == "all" else tie)[:BATCH]
+            require(gi[:len(tied)].tolist() == tied,
                     "per_topk ties out of index order")
         if live < BATCH:
             require(bool((gi[live:] == rops.IDX_SENTINEL).all()),
@@ -375,8 +398,9 @@ def check_priority_scatter(rops, dev):
 
 
 def time_per_topk(rops, dev):
-    """Times one PER draw's selection: rows 262144 (a full pool), k 8192.
-    The library call is the score ops plus ``torch.topk(sorted=True)``."""
+    """Times one PER draw's selection: rows 262144 (a full pool), k 8192,
+    and counts its device launches a call under the profiler. The library
+    call is the score ops plus ``torch.topk(sorted=True)``."""
     import torch
     g = torch.Generator(device=dev).manual_seed(7)
     pri, gumbel = _per_pool(dev, g, CAPACITY, CAPACITY)
@@ -394,7 +418,9 @@ def time_per_topk(rops, dev):
                 lambda: rops.per_topk_ref(pri, gumbel, ALPHA, BATCH)),
             "library_ms": event_ms(library),
             "library": "score ops + torch.topk(sorted=True)",
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "device_launches": device_launches(
+                lambda: rops.per_topk(pri, gumbel, ALPHA, BATCH))}
 
 
 def scatter_inputs(dev):

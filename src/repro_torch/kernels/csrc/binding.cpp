@@ -7,8 +7,12 @@
 // source that includes PyTorch's headers, and only the light ones
 // (torch/library.h, not torch/extension.h), to keep the build short.
 
+#include <map>
+#include <mutex>
 #include <optional>
 #include <string>
+#include <tuple>
+#include <utility>
 #include <vector>
 
 #include <ATen/core/Tensor.h>
@@ -198,49 +202,85 @@ at::Tensor ring_gather_rowloop(const at::Tensor& data,
   return gather_fields(data, idx, std::nullopt, true)[0];
 }
 
-void per_scores(const at::Tensor& priorities, const at::Tensor& gumbel,
-                at::Tensor out, double alpha) {
+// The two (rows,) vectors of a PER op on one device; returns rows.
+int64_t check_per_vectors(const at::Tensor& priorities,
+                          const at::Tensor& gumbel) {
   check_vector(priorities, "priorities", at::kFloat);
   check_vector(gumbel, "gumbel", at::kFloat);
-  check_vector(out, "out", at::kFloat);
   const int64_t rows = priorities.size(0);
-  TORCH_CHECK(gumbel.size(0) == rows && out.size(0) == rows, "gumbel has ",
-              num(gumbel.size(0)), " rows and out ", num(out.size(0)),
-              ", priorities ", num(rows));
-  if (rows == 0) return;
+  TORCH_CHECK(gumbel.size(0) == rows, "gumbel has ", num(gumbel.size(0)),
+              " rows, priorities ", num(rows));
+  TORCH_CHECK(gumbel.device() == priorities.device(),
+              "gumbel is not on priorities' device");
+  return rows;
+}
+
+// The scores, allocated here: made in Python, the output and its checks
+// took more host time than the launch.
+at::Tensor per_scores(const at::Tensor& priorities, const at::Tensor& gumbel,
+                      double alpha) {
+  const int64_t rows = check_per_vectors(priorities, gumbel);
   const c10::cuda::CUDAGuard guard(priorities.device());
+  at::Tensor out = priorities.new_empty({rows});
+  if (rows == 0) return out;
   launch_per_scores(out.data_ptr<float>(), priorities.data_ptr<float>(),
                     gumbel.data_ptr<float>(), static_cast<float>(alpha),
                     rows, c10::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
 }
 
-void per_topk(const at::Tensor& priorities, const at::Tensor& gumbel,
-              const std::optional<at::Tensor>& window_start,
-              at::Tensor scratch, at::Tensor scores, at::Tensor idx,
-              double alpha, int64_t k) {
-  check_vector(priorities, "priorities", at::kFloat);
-  check_vector(gumbel, "gumbel", at::kFloat);
-  check_vector(scratch, "scratch", at::kLong);
-  check_vector(scores, "scores", at::kFloat);
-  check_vector(idx, "idx", at::kInt);
-  const int64_t rows = priorities.size(0);
-  TORCH_CHECK(gumbel.size(0) == rows, "gumbel and priorities differ");
-  TORCH_CHECK(k >= 1 && k <= rows, "per_topk of k=", num(k), " from a ",
+// per_topk's state for the current stream of t's device (per_ops.h): made
+// zeroed at the stream's first call and left zeroed by every call. The
+// map is never destroyed, so no tensor outlives the allocator at exit.
+const at::Tensor& topk_state(const at::Tensor& t, cudaStream_t stream) {
+  static std::mutex mu;
+  static auto* states =
+      new std::map<std::pair<int, cudaStream_t>, at::Tensor>();
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_pair(static_cast<int>(t.get_device()), stream);
+  auto it = states->find(key);
+  if (it == states->end()) {
+    it = states->emplace(key, t.new_zeros({per_topk_state_words()},
+                                          t.options().dtype(at::kInt)))
+             .first;
+  }
+  return it->second;
+}
+
+// The k best scores and their global rows, both allocated here with the
+// scratch (per_topk_scratch_keys), so the Python wrapper allocates
+// nothing.
+std::tuple<at::Tensor, at::Tensor> per_topk(
+    const at::Tensor& priorities, const at::Tensor& gumbel,
+    const std::optional<at::Tensor>& window_start, double alpha,
+    int64_t k) {
+  const int64_t rows = check_per_vectors(priorities, gumbel);
+  TORCH_CHECK(k >= 0 && k <= rows, "per_topk of k=", num(k), " from a ",
               num(rows), "-row window");
   TORCH_CHECK(rows < 0x7fffffff, "per_topk needs rows < 2**31 - 1");
-  TORCH_CHECK(scores.size(0) == k && idx.size(0) == k,
-              "scores and idx must hold k entries");
-  TORCH_CHECK(scratch.size(0) >= per_topk_scratch_keys(rows, k),
-              "scratch holds ", num(scratch.size(0)), " keys, needs ",
-              num(per_topk_scratch_keys(rows, k)));
+  const int32_t* lo = window_ptr(window_start);
+  TORCH_CHECK(!window_start.has_value() ||
+                  window_start->device() == priorities.device(),
+              "window_start is not on priorities' device");
   const c10::cuda::CUDAGuard guard(priorities.device());
-  launch_per_topk(scores.data_ptr<float>(), idx.data_ptr<int32_t>(),
-                  priorities.data_ptr<float>(), gumbel.data_ptr<float>(),
-                  window_ptr(window_start), static_cast<float>(alpha), rows,
-                  k, reinterpret_cast<uint64_t*>(scratch.data_ptr<int64_t>()),
-                  c10::cuda::getCurrentCUDAStream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  at::Tensor scores = priorities.new_empty({k});
+  at::Tensor idx = priorities.new_empty({k}, priorities.options().dtype(
+                                                 at::kInt));
+  if (k == 0) return {scores, idx};
+  at::Tensor scratch = priorities.new_empty(
+      {per_topk_scratch_keys(rows, k)},
+      priorities.options().dtype(at::kLong));
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream();
+  const at::Tensor& state = topk_state(priorities, stream);
+  C10_CUDA_CHECK(launch_per_topk(
+      scores.data_ptr<float>(), idx.data_ptr<int32_t>(),
+      priorities.data_ptr<float>(), gumbel.data_ptr<float>(), lo,
+      static_cast<float>(alpha), rows, k,
+      reinterpret_cast<uint64_t*>(scratch.data_ptr<int64_t>()),
+      reinterpret_cast<uint32_t*>(state.data_ptr<int32_t>()),
+      sm_count(priorities), stream));
+  return {scores, idx};
 }
 
 void priority_scatter(at::Tensor priorities, const at::Tensor& idx,
@@ -404,12 +444,11 @@ TORCH_LIBRARY(repro_torch, m) {
   m.def("ring_gather(Tensor[] data, Tensor idx, Tensor? window_start) "
         "-> Tensor[]");
   m.def("per_topk(Tensor priorities, Tensor gumbel, Tensor? window_start, "
-        "Tensor(a!) scratch, Tensor(b!) scores, Tensor(c!) idx, "
-        "float alpha, int k) -> ()");
+        "float alpha, int k) -> (Tensor, Tensor)");
   m.def("priority_scatter(Tensor(a!) priorities, Tensor idx, "
         "Tensor values, Tensor? window_start) -> ()");
-  m.def("per_scores(Tensor priorities, Tensor gumbel, Tensor(a!) out, "
-        "float alpha) -> ()");
+  m.def("per_scores(Tensor priorities, Tensor gumbel, float alpha) "
+        "-> Tensor");
   m.def("ring_write_rowloop(Tensor(a!) data, Tensor batch, Tensor ptr) "
         "-> ()");
   m.def("ring_gather_rowloop(Tensor data, Tensor idx) -> Tensor");

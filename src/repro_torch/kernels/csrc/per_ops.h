@@ -7,15 +7,14 @@
 
 #include <cuda_runtime.h>
 
-// Keys a tile of the top-k sort holds (one block sorts one tile in
-// shared memory: 4096 * 8 B = 32 KB). The Python wrapper sizes the scratch
-// with the same constant.
-constexpr int64_t kPerTopkTile = 4096;
-
 // uint64 keys of scratch per_topk needs for `rows` candidates and `k`
-// winners: two buffers of tiles * min(k, tile) keys, the tile count
-// rounded up to a power of two.
+// winners: k winners and up to `rows` keys of the k-th key's bin.
 int64_t per_topk_scratch_keys(int64_t rows, int64_t k);
+
+// uint32 words of per_topk's state: zero when a call starts, and left
+// zero by every call. The caller keeps one per stream that calls it and
+// zeroes it once when it makes it.
+int64_t per_topk_state_words();
 
 // out[i] = alpha * log(max(p[i], 1e-12)) + g[i] where p[i] > 0, else
 // -inf: the Gumbel-top-k sampling score of every row, as per_topk scores
@@ -28,11 +27,14 @@ void launch_per_scores(float* out, const float* priorities,
 // p == 0) over the rows of the window, sorted by descending score, the
 // lower row first among equal scores; out_idx holds the global row
 // (row + *window_start) or 0x7fffffff where the score is -inf.
-// window_start == nullptr means 0. Requires 1 <= k <= rows.
-void launch_per_topk(float* out_scores, int32_t* out_idx,
-                     const float* priorities, const float* gumbel,
-                     const int32_t* window_start, float alpha, int64_t rows,
-                     int64_t k, uint64_t* scratch, cudaStream_t stream);
+// window_start == nullptr means 0. Requires 1 <= k <= rows < 2**31 - 1.
+// Three launches, spread over `sms` blocks (the card's SM count); returns
+// the first launch error.
+cudaError_t launch_per_topk(float* out_scores, int32_t* out_idx,
+                            const float* priorities, const float* gumbel,
+                            const int32_t* window_start, float alpha,
+                            int64_t rows, int64_t k, uint64_t* scratch,
+                            uint32_t* state, int sms, cudaStream_t stream);
 
 // priorities[idx[i] - *window_start] = values[i] for the in-window
 // indices; where an index repeats, the write of the largest i wins. The

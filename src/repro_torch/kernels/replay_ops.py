@@ -232,8 +232,6 @@ def ring_gather_fields_ref(datas: Sequence[torch.Tensor], idx: torch.Tensor,
 # window than k): it stays out of every live index range, and PER sampling
 # never dereferences such a slot (draws past the live count cycle).
 IDX_SENTINEL = 2**31 - 1
-# keys one block of the CUDA top-k sorts (``csrc/per_ops.h``)
-PER_TOPK_TILE = 4096
 
 
 def per_scores_ref(priorities: torch.Tensor, gumbel: torch.Tensor,
@@ -250,16 +248,21 @@ def per_scores_ref(priorities: torch.Tensor, gumbel: torch.Tensor,
 def per_scores(priorities: torch.Tensor, gumbel: torch.Tensor,
                alpha: float) -> torch.Tensor:
     """The Gumbel-top-k scores of every row (``per_scores_ref``) with the
-    CUDA kernel, bit for bit; the caller takes a top-k of them."""
-    check_cuda_operand(priorities, "priorities", torch.float32)
-    check_cuda_operand(gumbel, "gumbel", torch.float32)
-    if priorities.dim() != 1 or gumbel.shape != priorities.shape:
-        raise ValueError(f"priorities {tuple(priorities.shape)} and gumbel "
+    CUDA kernel, bit for bit; the caller takes a top-k of them. The
+    binding makes the output and checks dtypes and layout (raising
+    ``RuntimeError``); refused here: a tensor off the card and a shape
+    mismatch."""
+    shape = priorities.shape
+    if not priorities.is_cuda:
+        raise ValueError(f"priorities must be a CUDA tensor, got "
+                         f"{priorities.device}")
+    if len(shape) != 1 or gumbel.shape != shape:
+        raise ValueError(f"priorities {tuple(shape)} and gumbel "
                          f"{tuple(gumbel.shape)} must be one (rows,) shape")
-    out = torch.empty_like(priorities)
     load_kernels()
-    torch.ops.repro_torch.per_scores(priorities, gumbel, out, float(alpha))
-    LAUNCH_COUNTS["per_scores"] += 1
+    out = torch.ops.repro_torch.per_scores(priorities, gumbel, float(alpha))
+    if shape[0]:
+        LAUNCH_COUNTS["per_scores"] += 1
     return out
 
 
@@ -281,14 +284,6 @@ def _check_topk(rows: int, k: int):
                          f"indices), got {rows}")
 
 
-def per_topk_scratch_keys(rows: int, k: int) -> int:
-    """int64 keys of scratch the CUDA top-k needs: two buffers of
-    ``tiles * min(k, tile)`` keys, the tile count rounded up to a power of
-    two (``per_topk_scratch_keys`` in ``csrc/per_ops.cu``)."""
-    tiles = 1 << max(0, (-(-rows // PER_TOPK_TILE) - 1).bit_length())
-    return 2 * tiles * min(k, PER_TOPK_TILE)
-
-
 def per_topk(priorities: torch.Tensor, gumbel: torch.Tensor, alpha: float,
              k: int, *, window_start: Window = None):
     """Fused PER selection with the CUDA kernel: the k best Gumbel scores
@@ -298,7 +293,8 @@ def per_topk(priorities: torch.Tensor, gumbel: torch.Tensor, alpha: float,
     descending score with the lower row first among equal scores
     (``jax.lax.top_k``'s order); indices are offset by ``window_start``,
     and slots scoring ``-inf`` carry ``IDX_SENTINEL``. ``k > rows``
-    raises."""
+    raises. The binding makes the outputs and the scratch, and checks
+    the rest (raising ``RuntimeError``)."""
     (rows,) = priorities.shape
     _check_topk(rows, k)
     check_cuda_operand(priorities, "priorities", torch.float32)
@@ -306,18 +302,12 @@ def per_topk(priorities: torch.Tensor, gumbel: torch.Tensor, alpha: float,
     if gumbel.shape != priorities.shape:
         raise ValueError(f"gumbel {tuple(gumbel.shape)} does not match "
                          f"priorities {tuple(priorities.shape)}")
-    dev = priorities.device
-    scores = torch.empty((k,), dtype=torch.float32, device=dev)
-    idx = torch.empty((k,), dtype=torch.int32, device=dev)
-    if k == 0:
-        return scores, idx
-    scratch = torch.empty((per_topk_scratch_keys(rows, k),),
-                          dtype=torch.int64, device=dev)
     load_kernels()
-    torch.ops.repro_torch.per_topk(priorities, gumbel,
-                                   _window_tensor(window_start, dev),
-                                   scratch, scores, idx, float(alpha), k)
-    LAUNCH_COUNTS["per_topk"] += 1
+    scores, idx = torch.ops.repro_torch.per_topk(
+        priorities, gumbel, _window_tensor(window_start, priorities.device),
+        float(alpha), k)
+    if k:
+        LAUNCH_COUNTS["per_topk"] += 1
     return scores, idx
 
 

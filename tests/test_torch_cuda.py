@@ -186,8 +186,8 @@ def test_ring_write_row_shape_mismatch_raises(dev, pool, rows):
 
 def _pool(dev, rows, live, seed, ties=()):
     """Priorities with ``live`` written rows (a tenth of them zeroed) and
-    a Gumbel field; rows in ``ties`` share one priority and one Gumbel
-    value among the best scores."""
+    a Gumbel field; rows in ``ties`` (every row for ``"all"``) share one
+    priority and one Gumbel value among the best scores."""
     g = torch.Generator(device=dev).manual_seed(seed)
     pri = torch.zeros(rows, device=dev)
     pri[:live] = torch.rand(live, generator=g, device=dev) * 5 + 1e-3
@@ -195,7 +195,8 @@ def _pool(dev, rows, live, seed, ties=()):
     u = torch.rand(rows, generator=g, device=dev).clamp_(min=1e-12)
     gumbel = -torch.log(-torch.log(u))
     if ties:
-        t = torch.tensor(ties, device=dev)
+        t = (torch.arange(rows, device=dev) if ties == "all"
+             else torch.tensor(ties, device=dev))
         pri[t], gumbel[t] = 4.0, 30.0
     return pri, gumbel
 
@@ -209,8 +210,15 @@ def _pool(dev, rows, live, seed, ties=()):
     (65_536, 8192, 65_536, 131_072, ()),  # a window
     (262_144, 8192, 262_144, None, ()),   # the training path's shapes
     (262_144, 8192, 5000, None, ()),
+    (262_144, 8192, 262_144, None, "all"),   # one finite score everywhere
+    # 16,384 tied rows at the best score: the k-th key among them
+    (262_144, 8192, 262_144, None, tuple(range(3, 262_144, 16))),
+    (65_536, 1, 65_536, None, ()),
+    (65_536, 65_536, 65_536, None, ()),       # k = rows
+    (65_536, 8192, 5000, 131_072, ()),        # a window, fewer live than k
 ])
 def test_per_topk_kernel_matches_plain(dev, rows, k, live, lo, ties):
+    """Bit for bit, scores and indices; tied rows win lowest row first."""
     pri, gumbel = _pool(dev, rows, live, rows + k, ties)
     kw = {} if lo is None else {
         "window_start": torch.tensor(lo, dtype=torch.int32, device=dev)}
@@ -219,8 +227,28 @@ def test_per_topk_kernel_matches_plain(dev, rows, k, live, lo, ties):
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
     if ties:
-        assert got[1][:len(ties)].tolist() == [i + (lo or 0) for i in ties]
+        tied = range(rows) if ties == "all" else ties
+        n = min(len(tied), k)
+        assert got[1][:n].tolist() == [i + (lo or 0) for i in tied[:n]]
     assert rops.LAUNCH_COUNTS["per_topk"] == 1
+
+
+def test_per_topk_launches_three_device_ops(dev):
+    """At the training path's shapes (rows 262,144, k 8,192) a call puts
+    at most three ops on the device, counted under torch.profiler, and
+    repeated calls agree (the kernels' state is left zeroed)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pri, gumbel = _pool(dev, 262_144, 262_144, 24)
+    want = rops.per_topk(pri, gumbel, 0.6, 8192)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            got = rops.per_topk(pri, gumbel, 0.6, 8192)
+        torch.cuda.synchronize()
+    ops = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    assert ops <= 3 * 4
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("rows,lo,k,kind", [
@@ -349,7 +377,7 @@ def test_td3_ddpg_megastep_on_the_card_goes_through_the_kernels(
 @pytest.mark.parametrize("rows", [1, 100, 1000, 4097, 262_144, 1_000_003])
 def test_per_scores_kernel_matches_plain(dev, rows):
     """Bit for bit, zeros (-inf) and p below the 1e-12 floor included;
-    1_000_003 rows take more than one grid-stride pass."""
+    row counts that are not a multiple of four end in a ragged tail."""
     g = torch.Generator(device=dev).manual_seed(rows)
     pri = torch.rand(rows, generator=g, device=dev) * 5
     pri[torch.rand(rows, generator=g, device=dev) < 0.5] = 0.0
@@ -360,6 +388,20 @@ def test_per_scores_kernel_matches_plain(dev, rows):
     want = rops.per_scores_ref(pri, gumbel, 0.6)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert torch.equal(torch.isneginf(got), pri == 0)
+    assert rops.LAUNCH_COUNTS["per_scores"] == 1
+
+
+def test_per_scores_kernel_unaligned_matches_plain(dev):
+    """Vectors that start off a 16-byte boundary take the kernel's one
+    row a thread path, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    base = torch.rand(10_001, generator=g, device=dev) * 5
+    base[::5] = 0.0
+    pri = base[1:]
+    gumbel = torch.randn(10_003, generator=g, device=dev)[3:]
+    got = rops.per_scores(pri, gumbel, 0.6)
+    torch.testing.assert_close(got, rops.per_scores_ref(pri, gumbel, 0.6),
+                               rtol=0, atol=0)
     assert rops.LAUNCH_COUNTS["per_scores"] == 1
 
 
@@ -723,12 +765,11 @@ def _binding_case(name, dev):
         if name == "ring_write_row_shape":
             b[1] = torch.ones((5, 3, 1), **f32)
         return lambda: ops.ring_write(d, b, torch.zeros(1, **i32), None, 8)
-    if name in ("per_topk_k", "per_topk_scratch"):
+    if name in ("per_topk_k", "per_topk_rows"):
         k = 9 if name == "per_topk_k" else 4
         pri = torch.ones(8, **f32)
-        return lambda: ops.per_topk(
-            pri, pri, None, torch.zeros(1, device=dev, dtype=torch.int64),
-            torch.empty(k, **f32), torch.empty(k, **i32), 0.6, k)
+        gumbel = pri if name == "per_topk_k" else torch.ones(9, **f32)
+        return lambda: ops.per_topk(pri, gumbel, None, 0.6, k)
     if name in ("ring_gather_fields", "ring_gather_no_fields",
                 "ring_gather_field_rows"):
         fields = {"ring_gather_fields": 9, "ring_gather_no_fields": 0}.get(
@@ -746,8 +787,7 @@ def _binding_case(name, dev):
         return lambda: ops.ring_gather_rowloop(d, torch.zeros(2, **i32))
     if name == "per_scores_rows":
         pri = torch.ones(8, **f32)
-        return lambda: ops.per_scores(pri, torch.ones(9, **f32),
-                                      torch.empty(8, **f32), 0.6)
+        return lambda: ops.per_scores(pri, torch.ones(9, **f32), 0.6)
     if name in ("flash_heads", "flash_head_dim"):
         H, d = (3, 8) if name == "flash_heads" else (2, 256)
         q = torch.ones((1, 4, H, d), **f32)
@@ -770,7 +810,7 @@ def _binding_case(name, dev):
 @pytest.mark.parametrize("name", [
     "ring_write_capacity", "ring_write_fields", "ring_write_no_fields",
     "ring_write_batches", "ring_write_field_rows", "ring_write_batch_rows",
-    "ring_write_row_shape", "per_topk_k", "per_topk_scratch", "flash_heads", "flash_head_dim",
+    "ring_write_row_shape", "per_topk_k", "per_topk_rows", "flash_heads", "flash_head_dim",
     "decode_group", "decode_empty_cache", "ssd_dims", "ssd_chunk",
     "ring_write_rowloop_capacity", "ring_gather_rowloop_rows",
     "per_scores_rows", "ring_gather_fields", "ring_gather_no_fields",

@@ -191,3 +191,158 @@ def test_per_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rops.priority_scatter(t(pri), torch.zeros(4, dtype=torch.int32),
                               torch.zeros(4))
+
+
+# --------------------------------------------------------------------------- #
+# A numpy model of the CUDA per_topk's three launches (csrc/per_ops.cu),
+# held against the plain versions on crafted ties before any card time
+# --------------------------------------------------------------------------- #
+
+DIGIT_BITS = 13                  # kDigitBits: the first digit's bits
+DIGIT_SHIFT = 64 - DIGIT_BITS
+BINS = 1 << DIGIT_BITS
+NEG_INF_HIGH = 0xff800000        # key_high(-inf)
+U64 = np.uint64
+
+
+def _key_high(scores):
+    """``key_high``: the float32 bits mapped so that a higher score gives
+    a smaller uint32 (-0.0 taken as +0.0)."""
+    b = scores.astype(np.float32).view(np.uint32).copy()
+    b[b == 0x80000000] = 0
+    return ~np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint32)
+
+
+def _from_key_high(high):
+    o = (~high).astype(np.uint32)
+    return np.where(o & 0x80000000, o & 0x7fffffff,
+                    ~o).astype(np.uint32).view(np.float32)
+
+
+def _model_select(cand, need, digit):
+    """``select_candidates``: the need smallest of the candidate keys (all
+    in the digit's bin) by 8-bit digit histograms; -> (keys, passes)."""
+    threshold, passes = ~U64(0), 0
+    if need < len(cand):
+        prefix, mask = U64(digit) << U64(DIGIT_SHIFT), ~U64(0) << U64(
+            DIGIT_SHIFT)
+        rank, shift = need, DIGIT_SHIFT
+        while True:
+            width = min(shift, 8)
+            shift -= width
+            dmask = U64((1 << width) - 1)
+            under = cand[(cand & mask) == prefix]
+            hist = np.bincount(((under >> U64(shift)) & dmask).astype(np.int64),
+                               minlength=256)
+            d = int(np.searchsorted(np.cumsum(hist), rank))
+            rank -= int(hist[:d].sum())
+            prefix |= U64(d) << U64(shift)
+            mask |= dmask << U64(shift)
+            passes += 1
+            if hist[d] == rank or shift == 0:
+                threshold = prefix | U64((1 << shift) - 1)
+                break
+    taken = cand[cand <= threshold]
+    assert len(taken) == need
+    return taken, passes
+
+
+def _model_per_topk(scores, k, lo=0, seed=0):
+    """The kernel's phases on numpy: (1) the histogram of the keys' top 12
+    bits, the digit and each bin's first slot; (2) the winners placed by
+    bin (in a shuffled order, as the atomics leave it) and the digit's
+    candidates selected; (3) rank by counting inside each bin, unpacked.
+    -> (scores, indices, what the select did)."""
+    rows = len(scores)
+    high = _key_high(scores)
+    live = high != NEG_INF_HIGH
+    keys = (high.astype(U64) << U64(32)) | np.arange(rows, dtype=U64)
+    bins = (keys >> U64(DIGIT_SHIFT)).astype(np.int64)
+    # launch 1
+    count = np.bincount(bins[live], minlength=BINS)
+    start = np.cumsum(count) - count
+    n_keys = int(count.sum())
+    if n_keys <= k:
+        digit, before = BINS, n_keys
+    else:
+        digit = int(np.nonzero((start < k) & (k <= start + count))[0][0])
+        before = int(start[digit])
+    slots = np.where(np.arange(BINS) <= digit, start, 0)
+    w = min(k, n_keys)
+    # launch 2
+    order = np.random.default_rng(seed).permutation(rows)
+    win = np.zeros(w, U64)
+    cand = []
+    for r in order[live[order]]:
+        if bins[r] < digit:
+            win[slots[bins[r]]] = keys[r]
+            slots[bins[r]] += 1
+        elif bins[r] == digit:
+            cand.append(keys[r])
+    passes = 0
+    if digit < BINS:
+        win[before:], passes = _model_select(np.array(cand, U64), k - before,
+                                             digit)
+    # launch 3
+    out_s = np.full(k, -np.inf, np.float32)
+    out_i = np.full(k, rops.IDX_SENTINEL, np.int32)
+    for j in range(w):
+        b = int(win[j] >> U64(DIGIT_SHIFT))
+        first = slots[b - 1] if b else 0
+        last = w if b == digit else slots[b]
+        pos = first + int(np.count_nonzero(win[first:last] < win[j]))
+        out_s[pos] = _from_key_high(np.array([win[j] >> U64(32)], np.uint32))[0]
+        out_i[pos] = int(win[j] & U64(0xffffffff)) + lo
+    return out_s, out_i, {"digit": digit, "candidates": len(cand),
+                          "passes": passes}
+
+
+def _crafted(case, rows, seed):
+    """Priorities and Gumbel draws for the model's cases."""
+    pri, g = _pool(rows, rows, seed)
+    if case == "all_equal":            # one finite score on every row
+        pri[:], g[:] = 1.5, 0.25
+    elif case == "straddle":           # ties across the k-th key
+        pri[::7], g[::7] = 4.0, 14.0
+        pri[[3, 500]], g[[3, 500]] = 4.0, 15.0
+    elif case == "one_bin":            # distinct scores in one 12-bit bin
+        pri[:] = 1.0
+        g[:] = 3.5 + np.arange(rows, dtype=np.float32) * np.float32(2**-20)
+        g[:] = np.random.default_rng(seed).permutation(g)
+    elif case == "few_live":
+        pri[40:] = 0.0
+        pri[[5, 17]] = 0.0
+    elif case == "neg_inf_gumbel":     # -inf from g, not only from p == 0
+        g[::3] = -np.inf
+    return pri, g
+
+
+@pytest.mark.parametrize("case,rows,k,lo", [
+    ("random", 3000, 1, 0),
+    ("random", 3000, 3000, 0),
+    ("random", 4096, 300, 4096),
+    ("all_equal", 2048, 100, 0),
+    ("all_equal", 2048, 2048, 7),
+    ("straddle", 3000, 300, 0),
+    ("one_bin", 3000, 777, 0),
+    ("few_live", 1000, 64, 300),
+    ("neg_inf_gumbel", 1000, 900, 0),
+])
+def test_topk_model_matches_plain_and_jax(case, rows, k, lo):
+    """The model of the CUDA kernel's select, compaction and rank by
+    counting equals ``per_topk_ref`` bit for bit, and the JAX kernel (in
+    interpret mode) and its oracle as ``_check_topk`` holds them."""
+    pri, g = _crafted(case, rows, seed=rows + k)
+    scores = n(rops.per_scores_ref(t(pri), t(g), ALPHA))
+    ms, mi, how = _model_per_topk(scores, k, lo, seed=k)
+    ws, wi = rops.per_topk_ref(t(pri), t(g), ALPHA, k, window_start=lo)
+    np.testing.assert_array_equal(ms.view(np.uint32), n(ws).view(np.uint32))
+    np.testing.assert_array_equal(mi, n(wi))
+    kernel, ref = _jax_topk(pri, g, k, window_start=lo)
+    _check_topk((t(ms), t(mi)), kernel, ref, pri, lo)
+    if case == "all_equal" and k < rows:
+        # the score settles nothing: the row's digits decide, lowest first
+        assert how["candidates"] == rows and how["passes"] > 2
+        np.testing.assert_array_equal(mi, np.arange(k) + lo)
+    if case == "one_bin":
+        assert how["candidates"] == rows and 1 < how["passes"] <= 3

@@ -24,8 +24,8 @@ from device_profile import card_line, profiled
 MEGASTEPS = 2
 # the device functions of src/repro_torch/kernels/csrc/*.cu
 PORT_KERNELS = ("ring_write_kernel", "ring_gather_kernel",
-                "score_sort_tile_kernel", "merge_round_kernel",
-                "unpack_kernel", "priority_scatter_kernel")
+                "topk_count_kernel", "topk_place_kernel", "topk_sort_kernel",
+                "priority_scatter_kernel")
 
 
 def main():

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""decode_attention, priority_scatter, the ring write, the ring gather and
-the SSD scan on the card: time against bound, plain version and library
-call, and where the host-bound calls' time goes.
+"""decode_attention, priority_scatter, the ring write, the ring gather,
+the SSD scan and the PER selection and score pass on the card: time
+against bound, plain version and library call, and where the host-bound
+calls' time goes.
 
     python3 tools/time_kernels.py [--src DIR] [--label NAME]
                                   [--only decode_attention priority_scatter
-                                          ring_write ring_gather ssd_scan]
+                                          ring_write ring_gather ssd_scan
+                                          per_topk per_scores]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's); its kernels build into that checkout's
@@ -39,6 +41,13 @@ The scan's block (``--only ssd_scan``) runs ``ssd_scan`` at both of
 ``chip_smoke.SCAN_SHAPES`` (mamba2-130m's and zamba2-1.2b's prefill scan),
 in bf16 and in float32, and splits a call the same three ways over 20
 calls after 3, with the device time of each kernel the call launches.
+The PER blocks (``--only per_topk per_scores``) take
+``chip_smoke.time_per_topk``'s and ``time_per_scores``'s inputs (a full
+262,144-row pool; ``per_topk`` draws k 8,192) and split a call the same
+three ways for the wrapper, the raw ``torch.ops.repro_torch.*`` op (with
+outputs and scratch made once where the timed tree's op takes them) and
+the library call, and list each launch of one call in order with its
+device microseconds.
 One JSON line a kernel, with the card's name and power limit. Needs a
 CUDA device.
 """
@@ -53,7 +62,7 @@ from device_profile import profiled
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CALLS = 200
 KERNELS = ("decode_attention", "priority_scatter", "ring_write",
-           "ring_gather", "ssd_scan")
+           "ring_gather", "ssd_scan", "per_topk", "per_scores")
 SCAN_CALLS = 20
 
 
@@ -123,6 +132,100 @@ def ssd_scan_split(cs, dev, arch, dtype):
             "device_ms_by_kernel": {kernel_name(n): us / 1e3
                                     for n, us in per_op.items()},
             "shape": [B, S, H, P, N, L]}
+
+
+def launch_trace(fn, calls=50, tries=3):
+    """Each device op of one call of ``fn`` in launch order, with its
+    device microseconds averaged over ``calls`` calls under
+    torch.profiler (after a warm-up call). A trace whose op count is not
+    a multiple of ``calls`` (the profiler dropped events) is taken
+    again, up to ``tries`` times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+        per_call = len(ev) // calls
+        if per_call * calls == len(ev):
+            return [{"name": kernel_name(ev[i].name),
+                     "us": sum(ev[c * per_call + i].time_range.elapsed_us()
+                               for c in range(calls)) / calls}
+                    for i in range(per_call)]
+    return {"error": f"{len(ev)} device ops over {calls} calls"}
+
+
+def takes(op, arg):
+    """Whether the registered op ``op`` has an argument named ``arg``
+    (the parent's PER ops take their outputs and scratch)."""
+    return any(a.name == arg for a in op.default._schema.arguments)
+
+
+def per_topk_split(cs, rops, dev):
+    """One PER selection at the training path's shapes, each arm split
+    (``split``): the wrapper, the raw op (outputs and scratch made once
+    where the timed tree's op takes them) and the library call (score
+    ops + ``torch.topk``); then each launch of a wrapper call."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(7)
+    pri, gumbel = cs._per_pool(dev, g, cs.CAPACITY, cs.CAPACITY)
+    a, k = cs.ALPHA, cs.BATCH
+    op = torch.ops.repro_torch.per_topk
+    if takes(op, "scratch"):
+        scratch = torch.empty((rops.per_topk_scratch_keys(cs.CAPACITY, k),),
+                              dtype=torch.int64, device=dev)
+        scores = torch.empty(k, device=dev)
+        idx = torch.empty(k, dtype=torch.int32, device=dev)
+
+        def raw():
+            op(pri, gumbel, None, scratch, scores, idx, a, k)
+    else:
+        def raw():
+            op(pri, gumbel, None, a, k)
+
+    def library():
+        s = torch.where(pri > 0.0, a * torch.log(torch.clamp(pri, min=1e-12)),
+                        float("-inf")) + gumbel
+        torch.topk(s, k, sorted=True)
+
+    def wrapper():
+        rops.per_topk(pri, gumbel, a, k)
+
+    arms = {"per_topk": wrapper, "raw_per_topk_op": raw, "library": library}
+    return {"per_call": {name: split(cs, fn) for name, fn in arms.items()},
+            "launches": launch_trace(wrapper)}
+
+
+def per_scores_split(cs, rops, dev):
+    """The score pass over a full pool, split as ``per_topk_split``: the
+    wrapper, the raw op (its output made once where the timed tree's op
+    takes one) and each launch of a wrapper call."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(12)
+    pri, gumbel = cs._per_pool(dev, g, cs.CAPACITY, cs.CAPACITY)
+    op = torch.ops.repro_torch.per_scores
+    if takes(op, "out"):
+        out = torch.empty_like(pri)
+
+        def raw():
+            op(pri, gumbel, out, cs.ALPHA)
+    else:
+        def raw():
+            op(pri, gumbel, cs.ALPHA)
+
+    def wrapper():
+        rops.per_scores(pri, gumbel, cs.ALPHA)
+
+    arms = {"per_scores": wrapper, "raw_per_scores_op": raw}
+    return {"per_call": {name: split(cs, fn) for name, fn in arms.items()},
+            "launches": launch_trace(wrapper)}
 
 
 def ring_write_split(cs, rops, dev):
@@ -258,6 +361,16 @@ def main():
         print(json.dumps({**head, "kernel": "ring_gather_update",
                           "per_update": ring_gather_split(cs, rops, dev)}),
               flush=True)
+
+    if "per_topk" in args.only:
+        print(json.dumps({**head, "kernel": "per_topk",
+                          **cs.time_per_topk(rops, dev),
+                          **per_topk_split(cs, rops, dev)}), flush=True)
+
+    if "per_scores" in args.only:
+        print(json.dumps({**head, "kernel": "per_scores",
+                          **cs.time_per_scores(rops, dev),
+                          **per_scores_split(cs, rops, dev)}), flush=True)
 
     for arch in cs.SSM_ARCHS if "ssd_scan" in args.only else ():
         for dtype in (torch.bfloat16, torch.float32):
