@@ -20,8 +20,9 @@ and prints no result line):
      just after, every oracle check holding;
   4. port on the card against port on the CPU, same start state and same
      draws, small sizes, SAC, TD3 and DDPG, each with uniform and with
-     prioritized replay: every replay row, priority, counter and
-     parameter agrees;
+     prioritized replay, then SAC on CartPole, Reacher and Hopper, and
+     SAC through the eager loop, ``sync_mode`` and the queue transfer:
+     every replay row, priority, counter, env state and parameter agrees;
   5. drive ``SpreezeTrainer.train`` at the reference's full widths
      (hidden 256x256, batch 8192, capacity 262144, 16 envs x 32 steps,
      4 updates a round, 4 rounds a megastep): SAC with uniform replay and
@@ -33,6 +34,17 @@ and prints no result line):
      write, update round) and a megastep with CUDA synchronisation around
      each, for each of those paths, and the parts of one PER update; then
      run the training launcher once (``rl --algo td3 --seconds 2``);
+  6b. drive, each with exact launch counts: SAC uniform on CartPole,
+     Reacher and Hopper (4 megasteps each); the eager loop's
+     ``queue-sync`` (Table 1's arm: host queue of 5000, ``sync_mode``;
+     1 + rounds // 5 ring writes), ``queue-qs20000`` (Table 2's row:
+     1 + rounds // 40 writes) and ``spreeze-nofuse``; the async runtime
+     (eval every 4 rounds through the SSD channel, viz every 8 into a
+     temporary directory), its eval returns held against an inline
+     run's, round by round; then print, not assert, the rates of
+     ``spreeze``, ``spreeze-nofuse``, ``queue-qs20000`` and
+     ``queue-sync`` and the eval time inline against async, in turns,
+     and run ``rl --transfer queue --queue-size 5000 --sync --seconds 2``;
   7. hold the LM model kernels (rmsnorm, flash_attention,
      decode_attention) against their plain versions on the card at the
      serving path's shapes, in float32 (max abs error <= 1e-5: the
@@ -65,9 +77,11 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -587,18 +601,30 @@ class HostDraws:
         return ((self._to(-torch.log(-torch.log(u))),)
                 + self._noises(noises, batch_size, act_dim))
 
-    def eval_reset(self, n):
+    def _round(self, stream, n, round_i):
+        import torch
+        gen = torch.Generator().manual_seed(stream * 1_000_003 + round_i)
         return {k: self._to(v)
-                for k, v in self.env.reset_draws(n, self.gen).items()}
+                for k, v in self.env.reset_draws(n, gen).items()}
+
+    def eval_reset(self, n, round_i):
+        return self._round(1, n, round_i)
+
+    def viz_reset(self, round_i):
+        return self._round(2, 1, round_i)
 
 
-def check_device_vs_cpu(dev, prioritized=False, algo="sac"):
-    """The port's megastep with ``algo`` on the card (kernels) against the
-    port on the CPU (plain versions) from one start state with the same
-    draws. The CPU side is the one the test suite holds against the JAX
-    package. Under PER the batch (100) exceeds the 96 rows written before
-    the first update, so the first round's updates cycle their draws and
-    re-prioritise repeated rows."""
+def check_device_vs_cpu(dev, prioritized=False, algo="sac",
+                        env_name="pendulum", **loop):
+    """The port's megastep with ``algo`` on ``env_name`` on the card
+    (kernels) against the port on the CPU (plain versions) from one start
+    state with the same draws. The CPU side is the one the test suite
+    holds against the JAX package. Under PER the batch (100) exceeds the
+    96 rows written before the first update, so the first round's updates
+    cycle their draws and re-prioritise repeated rows. ``loop`` holds
+    config fields of the eager loop (``fused=False``, ``sync_mode``, the
+    queue transfer): its 6 rounds then run one ``eager_round`` at a
+    time."""
     import numpy as np
     from repro_torch import interop
     from repro_torch._tree import tree_leaves
@@ -609,17 +635,18 @@ def check_device_vs_cpu(dev, prioritized=False, algo="sac"):
     def cfg(device):
         # capacity 100 is not a multiple of the 32 rows a round writes:
         # writes wrap mid-batch, and sampling runs past the alignment
-        return SpreezeConfig(algo=algo, num_envs=4, chunk_len=8,
+        return SpreezeConfig(env_name=env_name, algo=algo, num_envs=4,
+                             chunk_len=8,
                              batch_size=100 if prioritized else 256,
                              replay_capacity=100, warmup_frames=64,
                              updates_per_round=2, rounds_per_dispatch=2,
                              prioritized=prioritized,
                              hp=AlgoHP(hidden=(64, 64)), seed=5,
-                             device=device)
+                             device=device, **loop)
 
-    cpu = SpreezeTrainer(cfg("cpu"), draws=HostDraws(make("pendulum"), 11,
+    cpu = SpreezeTrainer(cfg("cpu"), draws=HostDraws(make(env_name), 11,
                                                      "cpu"))
-    gpu = SpreezeTrainer(cfg("cuda"), draws=HostDraws(make("pendulum"), 11,
+    gpu = SpreezeTrainer(cfg("cuda"), draws=HostDraws(make(env_name), 11,
                                                       dev))
     gpu.state = interop.algo_state_from_numpy(
         interop.algo_state_to_numpy(cpu.state), dev)
@@ -628,7 +655,11 @@ def check_device_vs_cpu(dev, prioritized=False, algo="sac"):
     for tr in (cpu, gpu):
         tr._warmup()
         for _ in range(3):
-            tr.megastep()
+            if tr.use_fused:
+                tr.megastep()
+            else:
+                tr.eager_round()
+                tr.eager_round()
     # float32 on both devices; cuBLAS and the CPU BLAS sum in different
     # orders, and 12 Adam steps carry that rounding into the parameters
     rtol, atol = 1e-3, 1e-4
@@ -654,31 +685,44 @@ def check_device_vs_cpu(dev, prioritized=False, algo="sac"):
         for a, b in zip(tree_leaves(w_state[k]), tree_leaves(g_state[k])):
             np.testing.assert_allclose(b, a, rtol, atol, err_msg=k)
             worst = max(worst, float(np.abs(a - b).max()))
-    for k in ("mean_rew", "critic_loss"):
-        np.testing.assert_allclose(
-            interop.to_numpy(gpu.last_metrics[k]),
-            interop.to_numpy(cpu.last_metrics[k]), rtol, atol, err_msg=k)
+    for k in cpu.env_states:
+        np.testing.assert_allclose(interop.to_numpy(gpu.env_states[k]),
+                                   interop.to_numpy(cpu.env_states[k]),
+                                   rtol, atol, err_msg=k)
+    if cpu.use_fused:
+        for k in ("mean_rew", "critic_loss"):
+            np.testing.assert_allclose(
+                interop.to_numpy(gpu.last_metrics[k]),
+                interop.to_numpy(cpu.last_metrics[k]), rtol, atol,
+                err_msg=k)
+    if cpu.cfg.transfer == "queue":
+        require(gpu.transfer.q.frames_dropped ==
+                cpu.transfer.q.frames_dropped and
+                len(gpu.transfer.q.cycle_times) ==
+                len(cpu.transfer.q.cycle_times), "queue counters differ")
     return worst, rtol, atol
 
 
-def run_main_path(rops, dev, megasteps, prioritized=False, algo="sac"):
-    """SpreezeTrainer.train with ``algo`` at full width; counters reset
-    just before.
+def run_main_path(rops, dev, megasteps, prioritized=False, algo="sac",
+                  env_name="pendulum"):
+    """SpreezeTrainer.train with ``algo`` on ``env_name`` at full width,
+    eval inline; counters reset just before.
     Per warmup chunk or round: one ring-write launch for every field (the
     priorities too under PER); per update: one gather launch for every
     field (the priority mass too under PER), and one top-k and one
     scatter under PER."""
-    import math
     import torch
     from repro_torch._tree import tree_leaves
     from repro_torch.core import SpreezeConfig, SpreezeTrainer
     from repro_torch.rl import AlgoHP
 
-    cfg = SpreezeConfig(algo=algo, num_envs=16, batch_size=BATCH,
+    cfg = SpreezeConfig(env_name=env_name, algo=algo, num_envs=16,
+                        batch_size=BATCH,
                         replay_capacity=CAPACITY, warmup_frames=2048,
                         chunk_len=32, updates_per_round=4,
                         rounds_per_dispatch=4, eval_every_rounds=16,
-                        eval_episodes=4, seed=0, prioritized=prioritized,
+                        eval_episodes=4, async_eval=False, seed=0,
+                        prioritized=prioritized,
                         per_alpha=ALPHA, per_beta=0.4,
                         hp=AlgoHP(hidden=(256, 256)), device="cuda")
     tr = SpreezeTrainer(cfg)
@@ -721,6 +765,162 @@ def run_main_path(rops, dev, megasteps, prioritized=False, algo="sac"):
             all(math.isfinite(r) for r in hist.eval_returns),
             f"eval returns {hist.eval_returns}")
     return tr, hist, launches
+
+
+def full_config(**kw):
+    """The reference's default SpreezeConfig at full width (Pendulum, SAC,
+    hidden 256x256, 16 envs x 32 steps, batch 8192, capacity 262144, K 4,
+    R 4) on the card, with ``kw`` over it."""
+    from repro_torch.core import SpreezeConfig
+    from repro_torch.rl import AlgoHP
+    base = dict(num_envs=16, batch_size=BATCH, replay_capacity=CAPACITY,
+                warmup_frames=2048, chunk_len=32, updates_per_round=4,
+                rounds_per_dispatch=4, eval_episodes=4, seed=0,
+                hp=AlgoHP(hidden=(256, 256)), device="cuda")
+    return SpreezeConfig(**{**base, **kw})
+
+
+# Table 2's settings (benchmarks/table2_throughput.py:run_config): chunk
+# 16, warmup 1024, no eval after round 0
+TABLE2 = dict(chunk_len=16, warmup_frames=1024, eval_every_rounds=10**9)
+# the four transfer arms of Fig. 4a and Table 2, timed in turns
+TRANSFER_ARMS = {
+    "spreeze": dict(TABLE2),
+    "spreeze-nofuse": dict(TABLE2, fused=False),
+    "queue-qs20000": dict(TABLE2, transfer="queue", queue_size=20000),
+    "queue-sync": dict(TABLE2, transfer="queue", queue_size=5000,
+                       sync_mode=True),
+}
+
+
+def run_eager_path(rops, label, rounds, writes, **kw):
+    """One eager-loop main path at full width (``full_config(**kw)``),
+    ``rounds`` rounds after the warmup, counters reset just before:
+    ``writes`` ring writes and one gather launch an update, exactly."""
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import SpreezeTrainer
+    cfg = full_config(**kw)
+    tr = SpreezeTrainer(cfg)
+    require(not tr.use_fused, f"{label} runs fused")
+    per_round = cfg.num_envs * cfg.chunk_len
+    warm = -(-cfg.warmup_frames // per_round) * per_round
+    rops.reset_launch_counts()
+    t = time.perf_counter()
+    hist = tr.train(max_seconds=600.0, max_frames=warm + rounds * per_round)
+    wall = time.perf_counter() - t
+    launches = dict(rops.LAUNCH_COUNTS)
+    expect = {"ring_write": writes,
+              "ring_gather": rounds * cfg.updates_per_round}
+    require(launches == expect,
+            f"{label}: kernel launches {launches} != expected {expect}")
+    stats = hist.transfer_stats
+    if cfg.transfer == "queue":
+        q = tr.transfer.q
+        require(stats["transmission_loss"] == 0.0 and q.frames_dropped == 0,
+                f"{label}: frames dropped {stats}")
+        # the warmup's forced drain, then a drain a full load of rounds
+        load = -(-tr.transfer.drain_min // per_round) * per_round
+        stored = warm + (writes - 1) * load
+        require(int(tr.replay.size) == min(stored, CAPACITY),
+                f"{label}: ring holds {int(tr.replay.size)}, wanted "
+                f"{stored}")
+    else:
+        require(int(tr.replay.size) == tr.total_frames, f"{label}: ring")
+    for leaf in tree_leaves(tr.state.actor) + tree_leaves(tr.state.q):
+        require(bool(torch.isfinite(leaf).all()), f"{label}: not finite")
+    require(all(math.isfinite(r) for r in hist.eval_returns) and
+            len(hist.eval_returns) >= 1, f"{label}: eval {hist.eval_returns}")
+    return hist, launches, wall
+
+
+def run_async_path(rops, viz_dir):
+    """The async host runtime at full width: SAC fused, eval every 4
+    rounds through the SSD channel (``weight_sync="ssd"``), viz every 8
+    rounds into ``viz_dir``; 8 megasteps, counters reset just before.
+    Then the same run with eval inline: each round the async run scored
+    has the inline run's return, within 1e-5 relative."""
+    from repro_torch.core import SpreezeTrainer
+    kw = dict(eval_every_rounds=4, weight_sync="ssd")
+    per_round, megasteps = 16 * 32, 8
+    frames = 2048 + megasteps * 4 * per_round
+    rops.reset_launch_counts()
+    t = time.perf_counter()
+    tr = SpreezeTrainer(full_config(viz_every_rounds=8, viz_dir=viz_dir,
+                                    **kw))
+    hist = tr.train(max_seconds=600.0, max_frames=frames)
+    wall = time.perf_counter() - t
+    launches = dict(rops.LAUNCH_COUNTS)
+    expect = {"ring_write": 4 + 4 * megasteps,
+              "ring_gather": 4 * 4 * megasteps}
+    require(launches == expect,
+            f"async: kernel launches {launches} != expected {expect}")
+    rt = hist.runtime_stats
+    require(rt["published"] == megasteps and rt["eval_done"] >= 1 and
+            rt["viz_done"] >= 1 and not rt["degraded"],
+            f"async runtime stats {rt}")
+    trajs = sorted(f for f in os.listdir(viz_dir) if f.startswith("traj_"))
+    import numpy as np
+    for f in trajs:
+        with np.load(os.path.join(viz_dir, f)) as d:
+            require(d["obs"].shape == (200, 3) and
+                    np.isfinite(d["rew"]).all(), f"viz file {f}")
+    require(len(trajs) == rt["viz_done"], f"viz files {trajs} vs {rt}")
+    inline = SpreezeTrainer(full_config(async_eval=False, **kw)).train(
+        max_seconds=600.0, max_frames=frames)
+    require(inline.eval_rounds == list(range(0, megasteps * 4, 4)),
+            f"inline eval rounds {inline.eval_rounds}")
+    require(hist.eval_rounds[-1] == inline.eval_rounds[-1] and
+            set(hist.eval_rounds) <= set(inline.eval_rounds),
+            f"async eval rounds {hist.eval_rounds}")
+    worst, bitwise = 0.0, True
+    for r, ret in zip(hist.eval_rounds, hist.eval_returns):
+        want = inline.eval_returns[inline.eval_rounds.index(r)]
+        worst = max(worst, abs(ret - want) / max(abs(want), 1e-30))
+        bitwise &= ret == want
+    require(worst <= 1e-5, f"async eval returns {hist.eval_returns} vs "
+            f"inline {inline.eval_returns}: {worst:.3g} relative")
+    return {"wall_s": wall, "eval_rounds": hist.eval_rounds,
+            "eval_returns": hist.eval_returns,
+            "inline_returns": inline.eval_returns,
+            "max_rel_diff": worst, "bit_equal": bitwise,
+            "viz_files": len(trajs), "runtime_stats": rt,
+            "eval_blocked_s": hist.eval_blocked_s,
+            "inline_eval_blocked_s": inline.eval_blocked_s}, launches
+
+
+def timed_train(max_seconds, **kw):
+    """One ``train()`` of ``max_seconds`` after its warmup; its rates."""
+    import torch
+    from repro_torch.core import SpreezeTrainer
+    tr = SpreezeTrainer(full_config(**kw))
+    hist = tr.train(max_seconds=max_seconds)
+    out = {"sampling_hz": hist.sampling_hz, "update_hz": hist.update_hz,
+           "update_frame_hz": hist.update_frame_hz, "wall_s": hist.wall_s,
+           "eval_blocked_s": hist.eval_blocked_s,
+           "evals": len(hist.eval_returns),
+           "transfer_stats": hist.transfer_stats}
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_queue_launcher():
+    """The launcher with the queue ablation, as a user calls it:
+    ``rl --transfer queue --queue-size 5000 --sync --seconds 2``."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(["rl", "--transfer", "queue", "--queue-size", "5000",
+                         "--sync", "--seconds", "2"])
+    text = out.getvalue()
+    report = json.loads(text[text.index("{"):])
+    require(rc == 0 and report["update_hz"] > 0 and
+            report["transfer"]["transmission_loss"] == 0.0,
+            f"queue launcher report {report}")
+    return report
 
 
 def time_layers(tr):
@@ -1286,6 +1486,17 @@ def main():
               f"{'PER' if prioritized else 'uniform'}, 3 megasteps, small):"
               f" params max abs diff {worst:.3g} within rtol {rtol} atol "
               f"{atol}", flush=True)
+    for label, kw in (("cartpole", dict(env_name="cartpole")),
+                      ("reacher", dict(env_name="reacher")),
+                      ("hopper", dict(env_name="hopper")),
+                      ("eager loop", dict(fused=False)),
+                      ("sync_mode", dict(sync_mode=True)),
+                      ("queue transfer, 80 rows",
+                       dict(transfer="queue", queue_size=80))):
+        worst, rtol, atol = check_device_vs_cpu(dev, **kw)
+        print(f"port on cuda vs port on cpu (sac, uniform, {label}, 6 "
+              f"rounds, small): params max abs diff {worst:.3g} within rtol"
+              f" {rtol} atol {atol}", flush=True)
 
     for algo, prioritized, megasteps in (("sac", False, 12),
                                          ("sac", True, 24),
@@ -1314,6 +1525,59 @@ def main():
         torch.cuda.empty_cache()
     print("launcher (rl --algo td3 --seconds 2): " + json.dumps(
         {**run_launcher(), "card": card}), flush=True)
+
+    # the other envs, the eager loop, the queue and the async runtime
+    t_new = time.perf_counter()
+    for env_name in ("cartpole", "reacher", "hopper"):
+        t = time.perf_counter()
+        tr, hist, counts = run_main_path(rops, dev, 4, env_name=env_name)
+        add_launches(counts)
+        print(f"main path (SAC uniform, {env_name}): " + json.dumps(
+            {"megasteps": 4, "sampling_hz": hist.sampling_hz,
+             "update_hz": hist.update_hz,
+             "eval_returns": hist.eval_returns, "launches": counts,
+             "wall_s": time.perf_counter() - t, "card": card}), flush=True)
+        del tr
+        torch.cuda.empty_cache()
+    for label, rounds, writes, kw in (
+            ("queue-sync", 20, 1 + 20 // 5,
+             dict(transfer="queue", queue_size=5000, sync_mode=True,
+                  eval_every_rounds=16)),
+            ("queue-qs20000", 80, 1 + 80 // 40,
+             TRANSFER_ARMS["queue-qs20000"]),
+            ("spreeze-nofuse", 16, 4 + 16, TRANSFER_ARMS["spreeze-nofuse"])):
+        hist, counts, wall = run_eager_path(rops, label, rounds, writes,
+                                            **kw)
+        add_launches(counts)
+        print(f"main path ({label}, {rounds} rounds): " + json.dumps(
+            {"sampling_hz": hist.sampling_hz, "update_hz": hist.update_hz,
+             "transfer_stats": hist.transfer_stats,
+             "eval_returns": hist.eval_returns, "launches": counts,
+             "wall_s": wall, "card": card}), flush=True)
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_viz_") as viz_dir:
+        stats, counts = run_async_path(rops, viz_dir)
+    add_launches(counts)
+    print("main path (async runtime, SSD weight sync, viz, 8 megasteps): "
+          + json.dumps({**stats, "launches": counts, "card": card}),
+          flush=True)
+    agree = "bit-equal to" if stats["bit_equal"] else "within 1e-5 of"
+    print(f"async eval returns {agree} the inline run's "
+          f"({stats['max_rel_diff']:.3g} relative)", flush=True)
+    # Fig. 4a's arms and inline against async eval, 3 s each, in turns
+    for name in list(TRANSFER_ARMS) + list(reversed(TRANSFER_ARMS)):
+        print(f"rates ({name}, 3 s): " + json.dumps(
+            {**timed_train(3.0, **TRANSFER_ARMS[name]), "card": card}),
+            flush=True)
+    for mode in ("inline", "async", "async", "inline"):
+        print(f"eval every 4 rounds ({mode}, 3 s): " + json.dumps(
+            {**timed_train(3.0, eval_every_rounds=4,
+                           async_eval=mode == "async"), "card": card}),
+            flush=True)
+    print("launcher (rl --transfer queue --queue-size 5000 --sync "
+          "--seconds 2): " + json.dumps({**run_queue_launcher(),
+                                         "card": card}), flush=True)
+    print(f"new paths: {time.perf_counter() - t_new:.1f} s", flush=True)
 
     # the LM model kernels, then the serving path
     model_errs = check_model_kernels(dev)

@@ -61,7 +61,10 @@ class Env:
         the observation of the fresh state, as in the JAX package."""
         nstate, _, rew, done = self.step(state, action)
         fresh = self.reset(draws)
-        nstate = {k: torch.where(done, fresh[k], v)
+        # done (n,) against a leaf (n, ...): one flag per env, on the
+        # leading axis (as the reference reshapes it per env)
+        nstate = {k: torch.where(done.view((-1,) + (1,) * (v.dim() - 1)),
+                                 fresh[k], v)
                   for k, v in nstate.items()}
         return nstate, self.observe(nstate), rew, done
 

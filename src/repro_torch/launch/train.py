@@ -1,22 +1,27 @@
 """Training launcher: the ``rl`` mode of ``repro/launch/train.py``.
 
 Spreeze SAC, TD3 or DDPG on a batched PyTorch env: ``SpreezeTrainer``'s
-fused megastep over the device-resident replay ring. Runs on the CUDA
-card unless ``--device cpu`` is given; the device decides between the
-hand-written kernels and their plain versions. Prints the card line and
-then the reference's JSON report (``sampling_hz``, ``update_hz``,
-``update_frame_hz``, ``solved_time_s``, ``final_return``, ``transfer``).
+fused megastep over the device-resident replay ring, or with
+``--transfer queue`` or ``--sync`` the eager per-round loop of the
+paper's Fig. 4a ablations. ``--weight-sync ssd`` sends the weights to
+the async eval workers through ``.npz`` files (the paper's SSD channel).
+Runs on the CUDA card unless ``--device cpu`` is given; the device
+decides between the hand-written kernels and their plain versions.
+Prints the card line and then the reference's JSON report
+(``sampling_hz``, ``update_hz``, ``update_frame_hz``, ``solved_time_s``,
+``final_return``, ``transfer``).
 
 Examples:
   python -m repro_torch.launch.train rl --env pendulum --algo sac --seconds 120
   python -m repro_torch.launch.train rl --algo td3 --seconds 30
+  python -m repro_torch.launch.train rl --transfer queue --queue-size 5000 \\
+      --sync --seconds 30
   python -m repro_torch.launch.train rl --algo ddpg --device cpu \\
       --seconds 2 --num-envs 2 --batch-size 64
 
-Not ported yet: the reference's ``--transfer``, ``--queue-size`` and
-``--sync`` (the queue and sync ablations), ``--weight-sync`` (the SSD
-weight sync) and ``--adapt`` (auto-tune), and the ``lm`` mode; argparse
-refuses them.
+Not ported yet: the reference's ``--adapt`` (auto-tune) and the ``lm``
+mode; argparse refuses them, as it refuses ``--prioritized``, which the
+reference's launcher does not have either.
 """
 from __future__ import annotations
 
@@ -37,6 +42,13 @@ def main(argv=None):
     rl.add_argument("--num-envs", type=int, default=16)
     rl.add_argument("--batch-size", type=int, default=8192)
     rl.add_argument("--updates-per-round", type=int, default=4)
+    rl.add_argument("--transfer", default="shared",
+                    choices=("shared", "queue"))
+    rl.add_argument("--queue-size", type=int, default=20000)
+    rl.add_argument("--sync", action="store_true",
+                    help="partial-parallel baseline (paper Fig. 4a)")
+    rl.add_argument("--weight-sync", default="live",
+                    choices=("live", "ssd"))
     rl.add_argument("--seed", type=int, default=0)
     rl.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -47,6 +59,8 @@ def main(argv=None):
     cfg = SpreezeConfig(env_name=args.env, algo=args.algo,
                         num_envs=args.num_envs, batch_size=args.batch_size,
                         updates_per_round=args.updates_per_round,
+                        transfer=args.transfer, queue_size=args.queue_size,
+                        sync_mode=args.sync, weight_sync=args.weight_sync,
                         seed=args.seed, device=args.device)
     trainer = SpreezeTrainer(cfg)
     hist = trainer.train(

@@ -1,1 +1,1 @@
-"""Training utilities of the port: the optimizer."""
+"""Training utilities of the port: the optimizer and checkpoints."""

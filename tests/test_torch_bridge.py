@@ -2,10 +2,12 @@
 round trip of ``repro_torch.interop``: a JAX ``AlgoState`` / ``ReplayState``
 carried into the port and back out must come back bitwise."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 import repro  # noqa: F401  (sets jax_threefry_partitionable first)
+from repro.envs import make as jmake
 from repro.replay import buffer as jrb
 from repro.rl import sac as jsac
 from repro.rl.base import AlgoHP as JaxHP
@@ -49,6 +51,26 @@ def assert_tree_close(a, b, rtol, atol):
     for x, y in zip(la, lb):
         np.testing.assert_allclose(np.asarray(x), np.asarray(y), rtol=rtol,
                                    atol=atol)
+
+
+def jax_reset_draws(env_name, keys):
+    """The port's reset draws (``Env.reset_draws``' dict) for the resets
+    the JAX env makes from ``keys`` (one per env): what a JAX reset draws,
+    read back from its state, or redrawn from the same split where the
+    state keeps a function of the draw (Reacher's target)."""
+    fresh = jax.vmap(jmake(env_name).reset)(keys)
+    if env_name == "reacher":
+        def radius_angle(key):       # envs/reacher.py:25-30
+            _, _, k3, k4 = jax.random.split(key, 4)
+            return (jax.random.uniform(k3, (), minval=0.3, maxval=0.9),
+                    jax.random.uniform(k4, (), minval=-jnp.pi,
+                                       maxval=jnp.pi))
+        r, ang = jax.vmap(radius_angle)(keys)
+        return {"q": t(fresh["q"]), "qd": t(fresh["qd"]), "r": t(r),
+                "ang": t(ang)}
+    names = {"pendulum": ("th", "thdot"), "cartpole": ("x", "th"),
+             "hopper": ("vx", "z")}[env_name]
+    return {k: t(fresh[k]) for k in names}
 
 
 def jax_sac_state(seed=0, hidden=SMALL_HIDDEN, **hp_kw):

@@ -325,6 +325,88 @@ def test_megastep_on_the_card_goes_through_the_kernels(dev):
     assert int(tr.replay.ptr) == (64 + 64) % 100
 
 
+def _small_trainer(**kw):
+    from repro_torch.core import SpreezeConfig, SpreezeTrainer
+    from repro_torch.rl import AlgoHP
+    cfg = SpreezeConfig(num_envs=4, chunk_len=8, batch_size=64,
+                        replay_capacity=256, warmup_frames=64,
+                        updates_per_round=2, rounds_per_dispatch=2,
+                        eval_episodes=4, hp=AlgoHP(hidden=(64, 64)), **kw)
+    tr = SpreezeTrainer(cfg)
+    tr._warmup()
+    return tr
+
+
+def _on_a_thread(fn, *args):
+    """``fn(*args)`` on a thread of its own (as the async runtime runs
+    its workers); returns its result."""
+    import threading
+    out = {}
+    worker = threading.Thread(target=lambda: out.update(ret=fn(*args)))
+    worker.start()
+    worker.join(120)
+    assert not worker.is_alive() and "ret" in out
+    return out["ret"]
+
+
+def test_snapshot_cloned_before_a_megastep_keeps_the_pre_step_actor(dev):
+    """The megastep updates the actor in place; a snapshot cloned before
+    it (on the train stream, before the Adam steps) keeps the pre-step
+    values bit for bit. The ``overlap_eval`` copy a megastep returns is
+    the actor at its end, and the next megastep leaves it alone."""
+    from repro_torch._tree import tree_leaves
+    tr = _small_trainer(overlap_eval=True)
+    before = [p.cpu() for p in tree_leaves(tr.state.actor)]
+    snap = tr._snapshot_actor()
+    tr.megastep()
+    overlap = tr.last_metrics["actor_snapshot"]
+    at_end = [p.cpu() for p in tree_leaves(tr.state.actor)]
+    tr.megastep()
+    torch.cuda.synchronize()
+    live = [p.cpu() for p in tree_leaves(tr.state.actor)]
+    for got, want in zip(tree_leaves(snap.params), before):
+        assert torch.equal(got.cpu(), want)
+    assert any(not torch.equal(a, b) for a, b in zip(before, at_end))
+    for got, want in zip(tree_leaves(overlap.params), at_end):
+        assert torch.equal(got.cpu(), want)
+    assert any(not torch.equal(a, b) for a, b in zip(at_end, live))
+    assert snap.ready is not None and overlap.ready.query()
+
+
+def test_async_eval_on_its_stream_equals_inline(dev):
+    """The eval worker's result for a snapshot, on its own thread and
+    CUDA stream while the train stream goes on updating the live actor,
+    equals the inline eval of the same weights and round (relative 1e-6:
+    the same kernels on the same inputs)."""
+    tr = _small_trainer()
+    tr.megastep()
+    inline = tr.evaluate(tr.state.actor, 3)
+    snap = tr._snapshot_actor()
+    tr.megastep()
+    got = _on_a_thread(tr._eval_worker_fn, snap, 3)
+    assert got == pytest.approx(inline, rel=1e-6)
+    ssd = _on_a_thread(tr._ssd_materialize, snap)
+    assert _on_a_thread(tr._eval_worker_fn, ssd, 3) == pytest.approx(
+        inline, rel=1e-6)
+
+
+def test_worker_host_read_waits_for_its_own_stream_only(dev):
+    """A worker's ``float(...)`` synchronises its own stream: with the
+    train stream spinning for about a second, the eval worker returns
+    while that work is still running."""
+    tr = _small_trainer()
+    snap = tr._snapshot_actor()
+    _on_a_thread(tr._eval_worker_fn, snap, 0)      # warm up the worker
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)               # ~1 s on the train stream
+    spun = torch.cuda.Event()
+    spun.record()
+    _on_a_thread(tr._eval_worker_fn, snap, 1)
+    still_busy = not spun.query()
+    torch.cuda.synchronize()
+    assert still_busy, "the eval worker waited for the train stream"
+
+
 def test_per_megastep_on_the_card_goes_through_the_kernels(dev):
     """Per round one ring-write launch (6 fields + priorities); per update
     one gather launch (6 fields + the priority mass), one top-k, one

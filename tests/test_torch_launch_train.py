@@ -26,10 +26,35 @@ def test_rl_launcher_prints_the_reference_report(algo, capsys):
     assert "device: cpu" in out
 
 
+@pytest.mark.parametrize("flags,field,value", [
+    (["--transfer", "queue"], "transfer", "queue"),
+    (["--queue-size", "10"], "queue_size", 10),
+    (["--sync"], "sync_mode", True),
+    (["--weight-sync", "ssd"], "weight_sync", "ssd")])
+def test_ported_flags_reach_the_config(monkeypatch, capsys, flags, field,
+                                       value):
+    """``--transfer``, ``--queue-size``, ``--sync`` and ``--weight-sync``
+    set the reference's ``SpreezeConfig`` fields, and the run reports."""
+    from repro_torch import core
+    seen = []
+
+    class Recording(core.SpreezeTrainer):
+        def __init__(self, cfg, *a, **kw):
+            seen.append(cfg)
+            super().__init__(cfg, *a, **kw)
+
+    monkeypatch.setattr(core, "SpreezeTrainer", Recording)
+    assert train.main(["rl"] + flags + TINY) == 0
+    assert len(seen) == 1 and getattr(seen[0], field) == value
+    out = capsys.readouterr().out
+    report = json.loads(out[out.index("{"):])
+    assert report["update_hz"] > 0
+    assert set(report["transfer"]) == {"transfer_cycle_s",
+                                       "transmission_loss", "blocked_time_s"}
+
+
 @pytest.mark.parametrize("flags", [
-    ["--transfer", "queue"], ["--queue-size", "10"], ["--sync"],
-    ["--weight-sync", "ssd"], ["--adapt"], ["--prioritized"],
-    ["--algo", "ppo"]])
+    ["--adapt"], ["--prioritized"], ["--algo", "ppo"]])
 def test_unported_flags_are_refused(flags):
     with pytest.raises(SystemExit) as e:
         train.main(["rl"] + flags + TINY)

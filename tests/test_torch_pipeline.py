@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from test_torch_bridge import (SMALL_HIDDEN, assert_tree_close,
-                               assert_tree_equal, n, t, to_np)
+                               assert_tree_equal, jax_reset_draws, n, t,
+                               to_np)
 
 import repro  # noqa: F401  (jax_threefry_partitionable, as in the trainer)
 from repro.core import SpreezeConfig as JaxConfig
@@ -53,18 +54,28 @@ class JaxDraws:
     per env step ``key, k_act, k_reset = split(key, 3)``
     (core/pipeline.py:415), the actor noise ``normal(k_act, (N, act))``
     (rl/networks.py:76) and one reset per env from ``split(k_reset, N)``
-    (pipeline.py:419, envs/pendulum.py:33-35); per update ``key, k1, k2 =
-    split(key, 3)`` (pipeline.py:461), ``randint(k1, (B,), 0,
-    max(size, 1))`` (replay/buffer.py:166) and the algorithm's action
-    noises from ``k2``: SAC's two of ``k1', k2' = split(k2)``
-    (rl/sac.py:43), TD3's one ``normal(k2, act.shape)`` (rl/td3.py:46),
-    none for DDPG; per PER update the same split (pipeline.py:442), the
-    Gumbel field of ``k1`` (replay/prioritized.py:126-128) and the same
-    noises."""
+    (pipeline.py:419; the env's ``reset``, read back by
+    ``jax_reset_draws``); per update ``key, k1, k2 = split(key, 3)``
+    (pipeline.py:461), ``randint(k1, (B,), 0, max(size, 1))``
+    (replay/buffer.py:166) and the algorithm's action noises from ``k2``:
+    SAC's two of ``k1', k2' = split(k2)`` (rl/sac.py:43), TD3's one
+    ``normal(k2, act.shape)`` (rl/td3.py:46), none for DDPG; per PER
+    update the same split (pipeline.py:442), the Gumbel field of ``k1``
+    (replay/prioritized.py:126-128) and the same noises. Eval at round r
+    resets its episodes from ``split(fold_in(eval_key, r), n)``
+    (pipeline.py:484-486, 705-706) and viz from ``fold_in(viz_key, r)``
+    (pipeline.py:488-492, 943-944)."""
 
-    def __init__(self, key):
+    def __init__(self, key, env_name="pendulum", eval_key=None,
+                 viz_key=None):
         self.key = key
-        self.env = jmake("pendulum")
+        self.env_name = env_name
+        self.eval_key, self.viz_key = eval_key, viz_key
+
+    @classmethod
+    def of(cls, jtr):
+        """The draws of a JAX trainer from where it stands."""
+        return cls(jtr.key, jtr.cfg.env_name, jtr._eval_key, jtr._viz_key)
 
     @staticmethod
     def _noises(k2, noises, batch_size, act_dim):
@@ -75,9 +86,8 @@ class JaxDraws:
     def sampler_step(self, num_envs, act_dim):
         self.key, k_act, k_reset = jax.random.split(self.key, 3)
         eps = jax.random.normal(k_act, (num_envs, act_dim))
-        fresh = jax.vmap(self.env.reset)(jax.random.split(k_reset,
-                                                          num_envs))
-        return t(eps), {"th": t(fresh["th"]), "thdot": t(fresh["thdot"])}
+        return t(eps), jax_reset_draws(self.env_name,
+                                       jax.random.split(k_reset, num_envs))
 
     def update(self, replay, batch_size, act_dim, noises=2):
         self.key, k1, k2 = jax.random.split(self.key, 3)
@@ -92,8 +102,13 @@ class JaxDraws:
             k1, (capacity,), minval=1e-12, maxval=1.0)))
         return (t(gumbel),) + self._noises(k2, noises, batch_size, act_dim)
 
-    def eval_reset(self, n):
-        raise AssertionError("eval is not part of the compared path")
+    def eval_reset(self, n, round_i):
+        return jax_reset_draws(self.env_name, jax.random.split(
+            jax.random.fold_in(self.eval_key, round_i), n))
+
+    def viz_reset(self, round_i):
+        return jax_reset_draws(self.env_name, jax.random.fold_in(
+            self.viz_key, round_i)[None])
 
 
 def _configs(**kw):
@@ -104,14 +119,15 @@ def _configs(**kw):
 
 
 def _carried(jtr):
-    """The JAX trainer's state as numpy, before any donating call."""
+    """The JAX trainer's state as numpy, before any donating call, and
+    its draws from there."""
     return (to_np(jtr.state), to_np(jtr.replay), to_np(jtr.env_states),
-            jtr.key)
+            JaxDraws.of(jtr))
 
 
 def _port(cfg, carried):
-    state, replay, env_states, key = carried
-    tr = SpreezeTrainer(cfg, draws=JaxDraws(key))
+    state, replay, env_states, draws = carried
+    tr = SpreezeTrainer(cfg, draws=draws)
     tr.state = interop.algo_state_from_numpy(state, "cpu")
     tr.replay = (interop.prioritized_from_numpy(replay, "cpu")
                  if cfg.prioritized else
@@ -130,7 +146,7 @@ def test_replayed_draws_reproduce_a_jax_sampler_chunk():
     env_states = dict(jtr.env_states)
     env_states["t"] = jnp.asarray([199, 3, 199, 3], jnp.int32)
     key = jtr.key
-    draws = JaxDraws(key)
+    draws = JaxDraws.of(jtr)
     replayed = [draws.sampler_step(4, 1) for _ in range(cfg.chunk_len)]
     states, exps, key_after, _ = jtr._sampler(actor, env_states, key)
 
@@ -163,9 +179,17 @@ def _megastep_both(jcfg, cfg):
     return jtr, jmetrics, tr, tr.megastep()
 
 
-def _assert_megasteps_close(jtr, jmetrics, tr, metrics):
+def _assert_env_states_close(jtr, tr):
+    want, got = to_np(jtr.env_states), interop.to_numpy(tr.env_states)
+    assert set(want) == set(got)
+    np.testing.assert_array_equal(want["t"], got["t"])
+    assert_tree_close({k: want[k] for k in want if k != "t"},
+                      {k: got[k] for k in want if k != "t"}, RTOL, ATOL)
+
+
+def _assert_trainers_close(jtr, tr):
     """The key schedule, the ring (and under PER the priorities), the
-    algorithm state, the env states and the per-round metrics agree."""
+    algorithm state and the env states agree."""
     cfg = tr.cfg
     assert_tree_equal(np.asarray(jtr.key), np.asarray(tr.draws.key))
     if cfg.prioritized:
@@ -193,10 +217,13 @@ def _assert_megasteps_close(jtr, jmetrics, tr, metrics):
         np.testing.assert_array_equal(getattr(want_s, name).step,
                                       got_s[name]["step"])
     np.testing.assert_array_equal(want_s.step, got_s["step"])
-    want_e, got_e = to_np(jtr.env_states), interop.to_numpy(tr.env_states)
-    np.testing.assert_array_equal(want_e["t"], got_e["t"])
-    assert_tree_close({k: want_e[k] for k in ("th", "thdot")},
-                      {k: got_e[k] for k in ("th", "thdot")}, RTOL, ATOL)
+    _assert_env_states_close(jtr, tr)
+
+
+def _assert_megasteps_close(jtr, jmetrics, tr, metrics):
+    """``_assert_trainers_close``, and the per-round metrics agree."""
+    cfg = tr.cfg
+    _assert_trainers_close(jtr, tr)
     for k in ("mean_rew", "critic_loss"):
         assert metrics[k].shape == (cfg.rounds_per_dispatch,)
         np.testing.assert_allclose(n(metrics[k]), np.asarray(jmetrics[k]),
@@ -232,7 +259,8 @@ def test_megastep_equals_single_rounds():
 
 
 def test_train_reports_rates_and_inline_eval():
-    _, cfg = _configs(eval_every_rounds=2, eval_episodes=2)
+    _, cfg = _configs(eval_every_rounds=2, eval_episodes=2,
+                      async_eval=False)
     tr = SpreezeTrainer(cfg)
     per_dispatch = cfg.num_envs * cfg.chunk_len * cfg.rounds_per_dispatch
     hist = tr.train(max_seconds=60.0, max_frames=64 + 3 * per_dispatch)
@@ -255,7 +283,7 @@ def test_replayed_per_draws_reproduce_a_jax_per_sample():
     jtr._warmup()
     replay = interop.prioritized_from_numpy(to_np(jtr.replay), "cpu")
     for batch_size in (16, 64):
-        draws = JaxDraws(jtr.key)
+        draws = JaxDraws.of(jtr)
         gumbel, eps_next, eps_actor = draws.per_update(
             cfg.replay_capacity, batch_size, 1)
         key, k1, k2 = jax.random.split(jtr.key, 3)
@@ -345,7 +373,7 @@ def test_replayed_update_draws_are_the_jax_updates_noise(monkeypatch, algo):
     jtr = JaxTrainer(jcfg)
     jtr._warmup()
     noises = get_algo(algo).UPDATE_NOISES
-    draws = JaxDraws(jtr.key)
+    draws = JaxDraws.of(jtr)
     idx, *eps = draws.update(jtr.replay, cfg.batch_size, 1, noises)
     key, k1, k2 = jax.random.split(jtr.key, 3)
     assert_tree_equal(np.asarray(key), np.asarray(draws.key))
@@ -387,3 +415,161 @@ def test_td3_ddpg_megastep_matches_jax(monkeypatch, algo, prioritized):
     if prioritized:
         _assert_no_near_ties(gaps, cfg)
     _assert_megasteps_close(jtr, jmetrics, tr, metrics)
+
+
+NEW_ENVS = ("cartpole", "reacher", "hopper")
+
+
+@pytest.mark.parametrize("env_name", NEW_ENVS)
+def test_new_env_megastep_matches_jax(env_name):
+    """``test_megastep_matches_jax`` on CartPole, Reacher and Hopper: their
+    resets come through ``JaxDraws`` (Reacher's target from its radius
+    and angle)."""
+    _assert_megasteps_close(*_megastep_both(*_configs(env_name=env_name)))
+
+
+def _train_both(jcfg, cfg, rounds):
+    """``train()`` of the JAX trainer and of the port for ``rounds`` rounds
+    after the warmup, from the same carried-across state and draws."""
+    jtr = JaxTrainer(jcfg)
+    carried = _carried(jtr)
+    frames = cfg.warmup_frames + rounds * cfg.num_envs * cfg.chunk_len
+    jhist = jtr.train(max_seconds=1e9, max_frames=frames)
+    tr = _port(cfg, carried)
+    hist = tr.train(max_seconds=1e9, max_frames=frames)
+    return jtr, jhist, tr, hist
+
+
+# the eager loop (R = 1), its sync ablation, and the host queue: at 80
+# rows a drain waits for 40 (every other round; the warmup's two chunks
+# arrive in one drain), at 24 every 32-row chunk overflows it, so every
+# frame is dropped and the updates read an empty ring
+EAGER = {"nofuse": dict(fused=False), "sync": dict(sync_mode=True),
+         "queue80": dict(transfer="queue", queue_size=80),
+         "queue24-drops": dict(transfer="queue", queue_size=24),
+         "queue80-sync": dict(transfer="queue", queue_size=80,
+                              sync_mode=True)}
+
+
+@pytest.mark.parametrize("arm", list(EAGER))
+def test_eager_loop_matches_jax(arm):
+    """The JAX trainer's non-fused ``train()`` (sampler chunk, push,
+    flush, update round, once a round) against the port's: every replay
+    row, ``ptr``/``size``, parameter and env state, the counters and the
+    queue's drops and loss."""
+    jtr, jhist, tr, hist = _train_both(*_configs(**EAGER[arm]), rounds=3)
+    assert not tr.use_fused and not jtr.use_fused
+    _assert_trainers_close(jtr, tr)
+    assert (tr.total_frames, tr.total_updates) == (jtr.total_frames,
+                                                   jtr.total_updates)
+    assert hist.warmup_frames == jhist.warmup_frames == 64
+    assert set(hist.transfer_stats) == set(jhist.transfer_stats)
+    if tr.cfg.transfer == "queue":
+        jq, q = jtr.transfer.q, tr.transfer.q
+        assert (q.frames_offered, q.frames_dropped, len(q.cycle_times)) \
+            == (jq.frames_offered, jq.frames_dropped, len(jq.cycle_times))
+        assert (hist.transfer_stats["transmission_loss"]
+                == jhist.transfer_stats["transmission_loss"])
+        if arm == "queue24-drops":
+            assert hist.transfer_stats["transmission_loss"] == 1.0
+            assert int(tr.replay.size) == 0
+        else:
+            assert q.frames_dropped == 0 and len(q.cycle_times) == 1
+
+
+def test_eager_loop_equals_the_megastep():
+    """With the same draws, R eager rounds are one R-round megastep,
+    bitwise."""
+    from repro_torch.core.pipeline import Draws
+    _, fused_cfg = _configs(rounds_per_dispatch=3)
+    _, eager_cfg = _configs(rounds_per_dispatch=3, fused=False)
+    fused, eager = SpreezeTrainer(fused_cfg), SpreezeTrainer(eager_cfg)
+    for tr in (fused, eager):
+        tr.draws = Draws(tr.env, 1, 2, "cpu")
+        tr._warmup()
+    fused.megastep()
+    for _ in range(3):
+        eager.eager_round()
+    assert_tree_equal(interop.algo_state_to_numpy(fused.state),
+                      interop.algo_state_to_numpy(eager.state))
+    assert_tree_equal(interop.replay_to_numpy(fused.replay),
+                      interop.replay_to_numpy(eager.replay))
+    assert_tree_equal(interop.to_numpy(fused.env_states),
+                      interop.to_numpy(eager.env_states))
+
+
+@pytest.mark.parametrize("env_name", ("pendulum",) + NEW_ENVS)
+def test_eval_and_viz_of_a_round_match_jax(env_name):
+    """The port's eval at round r, with ``JaxDraws.eval_reset``, against
+    the JAX trainer's ``_eval(actor, fold_in(_eval_key, r))``, and its viz
+    rollout against ``_viz(actor, fold_in(_viz_key, r))``; every episode
+    runs ``episode_len`` steps, ``done`` ignored."""
+    jcfg, cfg = _configs(env_name=env_name, eval_episodes=3)
+    jtr = JaxTrainer(jcfg)
+    tr = _port(cfg, _carried(jtr))
+    for r in (0, 5):
+        want = float(jtr._eval(jtr.state.actor,
+                               jax.random.fold_in(jtr._eval_key, r)))
+        np.testing.assert_allclose(tr.evaluate(tr.state.actor, r), want,
+                                   RTOL)
+    jobs, jact, jrew = jtr._viz(jtr.state.actor,
+                                jax.random.fold_in(jtr._viz_key, 3))
+    obs, act, rew = tr.viz_episode(tr.state.actor, 3)
+    steps = tr.env.spec.episode_len
+    assert obs.shape == (steps, tr.env.spec.obs_dim)
+    assert act.shape == (steps, tr.env.spec.act_dim)
+    assert rew.shape == (steps,)
+    for got, want in ((obs, jobs), (act, jact), (rew, jrew)):
+        np.testing.assert_allclose(n(got), np.asarray(want), RTOL, ATOL)
+
+
+def test_eval_draws_are_keyed_by_round():
+    """``Draws.eval_reset(n, r)`` depends on r alone: the same numbers
+    whatever was drawn before, on any thread; rounds and the viz stream
+    differ."""
+    import threading
+    from repro_torch.core.pipeline import Draws
+    from repro_torch.envs import make
+    env = make("reacher")
+    a, b = Draws(env, 1, 2, "cpu", 3), Draws(env, 1, 2, "cpu", 3)
+    a.eval_reset(4, 0)
+    a.sampler_step(4, 2)
+    got = {}
+    worker = threading.Thread(target=lambda: got.update(b.eval_reset(4, 7)))
+    worker.start()
+    worker.join(10)
+    assert not worker.is_alive()
+    assert_tree_equal(interop.to_numpy(a.eval_reset(4, 7)),
+                      interop.to_numpy(got))
+    assert not torch.equal(a.eval_reset(4, 7)["q"], a.eval_reset(4, 8)["q"])
+    assert not torch.equal(a.eval_reset(1, 7)["q"], a.viz_reset(7)["q"])
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(transfer="queue", queue_size=101), ValueError),   # > capacity
+    (dict(transfer="queue", prioritized=True), ValueError),
+    (dict(transfer="queue", fused=True), ValueError),
+    (dict(sync_mode=True, fused=True), ValueError),
+    (dict(fused=False, overlap_eval=True), ValueError),
+    (dict(sync_mode=True, async_eval=True), ValueError),
+    (dict(eval_workers=0), ValueError),
+    (dict(viz_workers=0), ValueError),
+    (dict(transfer="pipe"), ValueError),
+    (dict(weight_sync="nfs"), ValueError),
+])
+def test_trainer_refuses_bad_configs(kw, err):
+    _, cfg = _configs(**kw)
+    with pytest.raises(err):
+        SpreezeTrainer(cfg)
+
+
+@pytest.mark.parametrize("field", [
+    "mesh", "placement", "sanitize", "snapshot_dir", "snapshot_every_rounds",
+    "snapshot_min_interval_s", "keep_snapshots", "max_rollbacks",
+    "rollback_lr_backoff", "fault_plan", "resume_from", "use_pallas"])
+def test_config_refuses_fields_not_ported(field):
+    """The reference's fields whose modules (resume, faults, multi-device
+    placement) are still to come, and the Pallas switch the port has no
+    counterpart of."""
+    with pytest.raises(TypeError):
+        SpreezeConfig(**{field: None})
