@@ -45,6 +45,22 @@ and prints no result line):
      ``spreeze``, ``spreeze-nofuse``, ``queue-qs20000`` and
      ``queue-sync`` and the eval time inline against async, in turns,
      and run ``rl --transfer queue --queue-size 5000 --sync --seconds 2``;
+  6c. the resilience paths at full width, each with exact launch counts:
+     SAC uniform (6 megasteps) and PER (4) run without a stop, then
+     preempted (``FaultPlan(preempt_round=12 / 8)``) and resumed from the
+     snapshot, bitwise equal to the uninterrupted run in every leaf of
+     the state, the ring and the env states, the draw state, the
+     counters and the inline eval history (under PER a draw from one
+     Gumbel field then picks the same rows); the async runtime with a
+     state snapshot every 4 rounds and injected SSD and eval failures
+     (bundles written, workers restarted, the latest bundle restored;
+     the publish, write and restore timed); a NaN at round 8 rolled back
+     once with the learning rate halved; a probe that a host read raises
+     inside ``_sanitize_scope()`` and not after it, then ``sanitize=True``
+     on the fused, eager and queue paths, and ``update_hz`` with and
+     without it in turns; ``auto_tune`` at the reference's grids (each
+     candidate's throughput on a line of its own) and ``rl --adapt
+     --seconds 2``;
   7. hold the LM model kernels (rmsnorm, flash_attention,
      decode_attention) against their plain versions on the card at the
      serving path's shapes, in float32 (max abs error <= 1e-5: the
@@ -757,9 +773,11 @@ def run_main_path(rops, dev, megasteps, prioritized=False, algo="sac",
         for leaf in tree_leaves(getattr(tr.state, name)):
             require(bool(torch.isfinite(leaf).all()), f"{name} not finite")
     require(bool(torch.isfinite(tr.state.log_alpha)), "log_alpha")
-    for k, v in tr.last_metrics.items():
+    for k in ("mean_rew", "critic_loss"):
+        v = tr.last_metrics[k]
         require(v.shape == (cfg.rounds_per_dispatch,) and
                 bool(torch.isfinite(v).all()), f"metric {k}")
+    require(bool(tr.last_metrics["carry_finite"]), "carry_finite is False")
     # an eval in every megastep whose rounds hold a multiple of 16
     require(len(hist.eval_returns) == -(-rounds // cfg.eval_every_rounds) and
             all(math.isfinite(r) for r in hist.eval_returns),
@@ -921,6 +939,306 @@ def run_queue_launcher():
             report["transfer"]["transmission_loss"] == 0.0,
             f"queue launcher report {report}")
     return report
+
+
+# --------------------------------------------------------------------------- #
+# resilience: resume, snapshots, rollback, sanitize, auto-tune
+# --------------------------------------------------------------------------- #
+
+def differing_leaves(a, b):
+    """The key paths at which two trainer trees are not bitwise equal."""
+    import torch
+    from repro_torch._tree import leaves_with_path
+    ka, kb = list(leaves_with_path(a)), list(leaves_with_path(b))
+    require([k for k, _ in ka] == [k for k, _ in kb], "tree keys differ")
+    return ["/".join(k) for (k, x), (_, y) in zip(ka, kb)
+            if not torch.equal(x, y)]
+
+
+def path_launches(rounds, warm_chunks=4, updates=4, prioritized=False):
+    """One ring write a warmup chunk and a round, one gather an update
+    (and one top-k and one scatter an update under PER)."""
+    expect = {"ring_write": warm_chunks + rounds,
+              "ring_gather": rounds * updates}
+    if prioritized:
+        expect.update(per_topk=rounds * updates,
+                      priority_scatter=rounds * updates)
+    return expect
+
+
+def counted_train(rops, label, tr, expect, **train_kw):
+    """``tr.train(**train_kw)`` with the counters zeroed just before and
+    read just after; they must equal ``expect``."""
+    rops.reset_launch_counts()
+    t = time.perf_counter()
+    hist = tr.train(max_seconds=600.0, **train_kw)
+    wall = time.perf_counter() - t
+    launches = dict(rops.LAUNCH_COUNTS)
+    require(launches == expect,
+            f"{label}: kernel launches {launches} != expected {expect}")
+    return hist, launches, wall
+
+
+def run_resume_path(rops, root, megasteps, preempt_round, prioritized=False):
+    """SAC at full width with eval inline every 8 rounds: ``megasteps``
+    megasteps without a stop, then the same run preempted at
+    ``preempt_round`` (``FaultPlan``) and resumed from its snapshot. The
+    resumed trainer equals the uninterrupted one bit for bit: every leaf
+    of the state, the ring and the env states, the draw state, the
+    counters and the eval history. Under PER a draw from one fixed
+    Gumbel field then picks the same rows on both."""
+    import torch
+    from repro_torch.core import SpreezeTrainer, faults
+    from repro_torch.replay import prioritized as per
+    kw = dict(eval_every_rounds=8, async_eval=False, prioritized=prioritized,
+              per_alpha=ALPHA, per_beta=0.4)
+    per_round, rounds = 16 * 32, megasteps * 4
+    frames = 2048 + rounds * per_round
+    label = "PER" if prioritized else "uniform"
+    out, launches = {"megasteps": megasteps, "preempt_round": preempt_round}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    ref = SpreezeTrainer(full_config(**kw))
+    hist_ref, counts, out["wall_s"] = counted_train(
+        rops, f"resume {label}, uninterrupted", ref,
+        path_launches(rounds, prioritized=prioritized), max_frames=frames)
+    add(counts)
+    snap_dir = os.path.join(root, label)
+    pre = SpreezeTrainer(full_config(
+        snapshot_dir=snap_dir, snapshot_every_rounds=0,
+        fault_plan=faults.FaultPlan(preempt_round=preempt_round), **kw))
+    rops.reset_launch_counts()
+    t = time.perf_counter()
+    preempted = None
+    try:
+        pre.train(max_seconds=600.0, max_frames=frames)
+    except faults.Preempted as e:
+        preempted = e
+    out["preempted_wall_s"] = time.perf_counter() - t
+    counts = dict(rops.LAUNCH_COUNTS)
+    expect = path_launches(preempt_round, prioritized=prioritized)
+    require(preempted is not None and preempted.round_i == preempt_round,
+            f"resume {label}: the run was not preempted at round "
+            f"{preempt_round}")
+    require(counts == expect, f"resume {label}, preempted: kernel launches "
+            f"{counts} != expected {expect}")
+    add(counts)
+    res = SpreezeTrainer(full_config(snapshot_dir=snap_dir,
+                                     snapshot_every_rounds=0, **kw))
+    hist_res, counts, out["resumed_wall_s"] = counted_train(
+        rops, f"resume {label}, resumed", res,
+        path_launches(rounds - preempt_round, warm_chunks=0,
+                      prioritized=prioritized),
+        max_frames=frames, resume_from=preempted.snapshot_path)
+    add(counts)
+    diff = differing_leaves((ref.state, ref.replay, ref.env_states),
+                            (res.state, res.replay, res.env_states))
+    require(not diff, f"resume {label}: leaves not bitwise equal after the "
+            f"resume: {diff}")
+    require(torch.equal(ref.draws.get_state(), res.draws.get_state()),
+            f"resume {label}: draw states differ")
+    require((ref.total_frames, ref.total_updates) ==
+            (res.total_frames, res.total_updates), f"resume {label}: counters")
+    for k in ("eval_rounds", "eval_returns", "env_frames", "update_steps"):
+        require(getattr(hist_ref, k) == getattr(hist_res, k),
+                f"resume {label}: history {k} {getattr(hist_ref, k)} != "
+                f"{getattr(hist_res, k)}")
+    require(len(hist_ref.eval_returns) == -(-rounds // 8) and
+            all(math.isfinite(r) for r in hist_ref.eval_returns),
+            f"resume {label}: eval {hist_ref.eval_returns}")
+    if prioritized:
+        g = torch.Generator(device="cuda").manual_seed(7)
+        u = torch.rand(CAPACITY, generator=g, device="cuda").clamp_(min=1e-12)
+        gumbel = -torch.log(-torch.log(u))
+        _, idx_ref, w_ref = per.sample(ref.replay, gumbel, BATCH, alpha=ALPHA,
+                                       beta=0.4)
+        _, idx_res, w_res = per.sample(res.replay, gumbel, BATCH, alpha=ALPHA,
+                                       beta=0.4)
+        require(torch.equal(idx_ref, idx_res) and torch.equal(w_ref, w_res),
+                "resume PER: a draw after the resume picks other rows")
+    path = preempted.snapshot_path
+    out.update(bitwise_equal=True, eval_rounds=hist_res.eval_rounds,
+               bundle_mb=os.path.getsize(path) / 1e6)
+    return out, launches
+
+
+def run_async_snapshots(rops, root):
+    """The async runtime at full width with a state snapshot every 4
+    rounds (``snapshot_min_interval_s=0``), eval every 4 rounds through
+    the SSD channel, one injected SSD write failure (round 0) and one
+    transient eval failure (round 4); 6 megasteps. The snapshot worker
+    writes at least one bundle, the supervisor restarts a worker, and the
+    latest bundle restores into a fresh trainer. Then the publish on the
+    train thread, the write and the restore are timed."""
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import SpreezeTrainer, faults
+    from repro_torch.train import resume
+    megasteps = 6
+    cfg = full_config(
+        snapshot_dir=root, snapshot_every_rounds=4, snapshot_min_interval_s=0,
+        eval_every_rounds=4, weight_sync="ssd", worker_heartbeat_s=60,
+        fault_plan=faults.FaultPlan(ssd_oserror_rounds=(0,),
+                                    eval_error_rounds=(4,)))
+    tr = SpreezeTrainer(cfg)
+    hist, launches, wall = counted_train(
+        rops, "async snapshots", tr, path_launches(megasteps * 4),
+        max_frames=2048 + megasteps * 4 * 512)
+    rt = hist.runtime_stats
+    require(rt["state_done"] >= 1 and rt["worker_restarts"] >= 1 and
+            not rt["degraded"] and rt["eval_done"] >= 1,
+            f"async snapshots: runtime stats {rt}")
+    path = resume.latest(root)
+    require(path is not None, "async snapshots: no bundle written")
+    fresh = SpreezeTrainer(cfg)
+    t = time.perf_counter()
+    meta = resume.restore_trainer(fresh, path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    require(meta["round_i"] % 4 == 0 and fresh.total_frames > 2048,
+            f"async snapshots: restored meta {meta}")
+    publish_ms, publish_sync_ms = [], []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        item = resume.publishable(tr, hist, 10**6 + i)
+        publish_ms.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        publish_sync_ms.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    resume.write_bundle(os.path.join(root, "timed"), item)
+    write_s = time.perf_counter() - t
+    bundle_mb = sum(t.numel() * t.element_size()
+                    for t in tree_leaves(item.bundle)) / 1e6
+    return {"wall_s": wall, "runtime_stats": rt, "restored_round": meta[
+        "round_i"], "bundle_mb": bundle_mb,
+        "publish_ms_train_thread": sorted(publish_ms)[2],
+        "publish_ms_with_sync": sorted(publish_sync_ms)[2],
+        "write_s": write_s, "restore_s": restore_s}, launches
+
+
+def run_rollback_path(rops, root):
+    """A NaN written into the actor at round 8 (``FaultPlan``), inline
+    snapshots every 4 rounds, 16 rounds of budget: the poisoned bundle of
+    round 12 is skipped with a warning, the guard trips, the trainer
+    rolls back once to round 8's snapshot with the learning rate halved
+    and runs to the budget: megasteps at rounds 0, 4, 8 (poisoned), 8,
+    12, so 4 + 20 writes and 80 gathers."""
+    import warnings
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import SpreezeTrainer, faults
+    cfg = full_config(snapshot_dir=root, snapshot_every_rounds=4,
+                      snapshot_min_interval_s=0, async_eval=False,
+                      fault_plan=faults.FaultPlan(nan_round=8))
+    tr = SpreezeTrainer(cfg)
+    lr0 = tr.hp.lr
+    rollback_s = []
+    rollback = tr._rollback
+
+    def timed_rollback(*a):
+        t = time.perf_counter()
+        out = rollback(*a)
+        rollback_s.append(time.perf_counter() - t)
+        return out
+
+    tr._rollback = timed_rollback
+    budget = 2048 + 16 * 512
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        hist, launches, wall = counted_train(
+            rops, "NaN rollback", tr, path_launches(20), max_frames=budget)
+    msgs = [str(x.message) for x in w]
+    require(hist.runtime_stats["rollbacks"] == 1 and len(rollback_s) == 1,
+            f"NaN rollback: {hist.runtime_stats}")
+    require(tr.hp.lr == lr0 * 0.5, f"NaN rollback: lr {tr.hp.lr}")
+    require(tr.total_frames == budget, f"NaN rollback: {tr.total_frames}")
+    require(all(bool(torch.isfinite(p).all())
+                for p in tree_leaves(tr.state.actor)), "NaN rollback: actor")
+    require(any("skipping snapshot at round 12" in m for m in msgs) and
+            any("rolled back" in m for m in msgs),
+            f"NaN rollback: warnings {msgs}")
+    return {"wall_s": wall, "rollback_s": rollback_s[0], "lr": tr.hp.lr,
+            "rollbacks": 1}, launches
+
+
+def sanitize_probe(dev):
+    """Inside ``_sanitize_scope()`` a host read of a card tensor raises;
+    after it, it runs."""
+    import torch
+    from repro_torch.core import SpreezeTrainer
+    tr = SpreezeTrainer(full_config(sanitize=True, replay_capacity=4096,
+                                    batch_size=256))
+    x = torch.ones((), device=dev)
+    raised = False
+    with tr._sanitize_scope():
+        require(torch.cuda.get_sync_debug_mode() == 2, "debug mode not set")
+        try:
+            x.item()
+        except RuntimeError:
+            raised = True
+    require(raised, "a .item() inside the sanitize scope did not raise")
+    require(torch.cuda.get_sync_debug_mode() == 0 and x.item() == 1.0,
+            "the sanitize scope did not restore the debug mode")
+
+
+def run_sanitized(rops, label, rounds, writes, **kw):
+    """A sanitized ``train()`` at full width, ``rounds`` rounds after the
+    warmup, counters reset just before: ``writes`` ring writes and a
+    gather an update, exactly; no operation raises under "error"."""
+    import torch
+    from repro_torch.core import SpreezeTrainer
+    tr = SpreezeTrainer(full_config(sanitize=True, **kw))
+    hist, launches, wall = counted_train(
+        rops, f"sanitize {label}", tr,
+        {"ring_write": writes, "ring_gather": rounds * 4},
+        max_frames=2048 + rounds * 512)
+    require(torch.cuda.get_sync_debug_mode() == 0 and hist.update_hz > 0,
+            f"sanitize {label}")
+    return {"rounds": rounds, "update_hz": hist.update_hz, "wall_s": wall,
+            "evals": len(hist.eval_returns)}, launches
+
+
+def run_auto_tune(rops):
+    """``auto_tune("pendulum", "sac")`` at the reference's grids, iters 3,
+    counters reset just before. Its update probe gathers once a call
+    (1 warm-up + 3 timed calls a batch size probed); its megastep probe
+    runs 4 megasteps of r rounds a candidate r: r writes and 4r gathers
+    each."""
+    from repro_torch.core import auto_tune
+    rops.reset_launch_counts()
+    t = time.perf_counter()
+    tuned = auto_tune("pendulum", "sac", iters=3)
+    wall = time.perf_counter() - t
+    launches = dict(rops.LAUNCH_COUNTS)
+    rs = [c["value"] for c in tuned["rpd_log"].candidates]
+    expect = {"ring_gather": 4 * len(tuned["bs_log"].candidates) +
+              sum(4 * 4 * r for r in rs), "ring_write": sum(4 * r for r in rs)}
+    require(launches == expect,
+            f"auto_tune: kernel launches {launches} != expected {expect}")
+    return tuned, wall, launches
+
+
+def run_adapt_launcher():
+    """``rl --adapt --seconds 2``, as a user calls it: the ``[adapt]``
+    line, then a report with every rate > 0."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(["rl", "--adapt", "--seconds", "2"])
+    wall = time.perf_counter() - t
+    text = out.getvalue()
+    adapt = [ln for ln in text.splitlines() if ln.startswith("[adapt]")]
+    report = json.loads(text[text.index("{"):])
+    require(rc == 0 and len(adapt) == 1 and report["update_hz"] > 0,
+            f"adapt launcher: {text[-2000:]}")
+    return adapt[0], report, wall
 
 
 def time_layers(tr):
@@ -1498,8 +1816,8 @@ def main():
               f"rounds, small): params max abs diff {worst:.3g} within rtol"
               f" {rtol} atol {atol}", flush=True)
 
-    for algo, prioritized, megasteps in (("sac", False, 12),
-                                         ("sac", True, 24),
+    for algo, prioritized, megasteps in (("sac", False, 8),
+                                         ("sac", True, 8),
                                          ("td3", False, 6),
                                          ("ddpg", True, 6)):
         label = "PER" if prioritized else "uniform"
@@ -1543,7 +1861,7 @@ def main():
             ("queue-sync", 20, 1 + 20 // 5,
              dict(transfer="queue", queue_size=5000, sync_mode=True,
                   eval_every_rounds=16)),
-            ("queue-qs20000", 80, 1 + 80 // 40,
+            ("queue-qs20000", 40, 1 + 40 // 40,
              TRANSFER_ARMS["queue-qs20000"]),
             ("spreeze-nofuse", 16, 4 + 16, TRANSFER_ARMS["spreeze-nofuse"])):
         hist, counts, wall = run_eager_path(rops, label, rounds, writes,
@@ -1564,20 +1882,77 @@ def main():
     agree = "bit-equal to" if stats["bit_equal"] else "within 1e-5 of"
     print(f"async eval returns {agree} the inline run's "
           f"({stats['max_rel_diff']:.3g} relative)", flush=True)
-    # Fig. 4a's arms and inline against async eval, 3 s each, in turns
+    # Fig. 4a's arms and inline against async eval, 1.5 s each, in turns
     for name in list(TRANSFER_ARMS) + list(reversed(TRANSFER_ARMS)):
-        print(f"rates ({name}, 3 s): " + json.dumps(
-            {**timed_train(3.0, **TRANSFER_ARMS[name]), "card": card}),
+        print(f"rates ({name}, 1.5 s): " + json.dumps(
+            {**timed_train(1.5, **TRANSFER_ARMS[name]), "card": card}),
             flush=True)
     for mode in ("inline", "async", "async", "inline"):
-        print(f"eval every 4 rounds ({mode}, 3 s): " + json.dumps(
-            {**timed_train(3.0, eval_every_rounds=4,
+        print(f"eval every 4 rounds ({mode}, 1.5 s): " + json.dumps(
+            {**timed_train(1.5, eval_every_rounds=4,
                            async_eval=mode == "async"), "card": card}),
             flush=True)
     print("launcher (rl --transfer queue --queue-size 5000 --sync "
           "--seconds 2): " + json.dumps({**run_queue_launcher(),
                                          "card": card}), flush=True)
     print(f"new paths: {time.perf_counter() - t_new:.1f} s", flush=True)
+
+    # resume, snapshots, rollback, sanitize and auto-tune
+    t_res = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_snap_") as root:
+        for megasteps, preempt, prioritized in ((6, 12, False),
+                                                (4, 8, True)):
+            stats, counts = run_resume_path(rops, root, megasteps, preempt,
+                                            prioritized)
+            add_launches(counts)
+            print(f"resume ({'PER' if prioritized else 'uniform'}, preempted"
+                  f" at round {preempt}, resumed): bitwise equal to the "
+                  f"uninterrupted run; " + json.dumps(
+                      {**stats, "launches": counts, "card": card}),
+                  flush=True)
+        stats, counts = run_async_snapshots(rops,
+                                            os.path.join(root, "async"))
+        add_launches(counts)
+        print("async snapshots (every 4 rounds, SSD sync, injected SSD and "
+              "eval failures): " + json.dumps(
+                  {**stats, "launches": counts, "card": card}), flush=True)
+        stats, counts = run_rollback_path(rops, os.path.join(root, "nan"))
+        add_launches(counts)
+        print("NaN rollback (nan_round 8, snapshots every 4 rounds): " +
+              json.dumps({**stats, "launches": counts, "card": card}),
+              flush=True)
+    sanitize_probe(dev)
+    print("sanitize probe: .item() raises inside the scope, runs after it",
+          flush=True)
+    for label, rounds, writes, kw in (
+            ("fused", 16, 4 + 16, {}),
+            ("eager", 8, 4 + 8, dict(fused=False)),
+            ("queue", 10, 1 + 10 // 5, dict(transfer="queue",
+                                            queue_size=5000))):
+        stats, counts = run_sanitized(rops, label, rounds, writes, **kw)
+        add_launches(counts)
+        print(f"sanitize ({label}, sync debug mode \"error\"): " + json.dumps(
+            {**stats, "launches": counts, "card": card}), flush=True)
+    for on in (False, True, True, False):
+        print(f"update_hz (sanitize {'on' if on else 'off'}, 1.5 s): " +
+              json.dumps({**timed_train(1.5, sanitize=on,
+                                        eval_every_rounds=10**9),
+                          "card": card}), flush=True)
+    tuned, wall, counts = run_auto_tune(rops)
+    add_launches(counts)
+    for knob in ("bs", "env", "rpd"):
+        for c in tuned[f"{knob}_log"].candidates:
+            print(f"auto_tune {knob} {c['value']}: throughput "
+                  f"{c['throughput']} ({card})", flush=True)
+    print("auto_tune (reference grids, iters 3): " + json.dumps(
+        {k: tuned[k] for k in ("batch_size", "num_envs",
+                               "rounds_per_dispatch")} |
+        {"wall_s": wall, "launches": counts, "card": card}), flush=True)
+    line, report, wall = run_adapt_launcher()
+    print(f"launcher (rl --adapt --seconds 2): {line}; " + json.dumps(
+        {**report, "wall_s": wall, "card": card}), flush=True)
+    print(f"resilience paths: {time.perf_counter() - t_res:.1f} s",
+          flush=True)
 
     # the LM model kernels, then the serving path
     model_errs = check_model_kernels(dev)

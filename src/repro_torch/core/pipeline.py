@@ -45,11 +45,28 @@ Randomness comes from a draw source (``Draws`` by default: Philox
 generators on the trainer's device). A caller may pass another with the
 same methods, for example one that replays another implementation's
 draws.
+
+**Resilience** (``core.faults``, ``train.resume``): with ``snapshot_dir``
+the loop writes a bundle of its whole state every
+``snapshot_every_rounds`` (published to the runtime's state worker, or
+written inline), and ``train(resume_from=path)`` continues a run from
+one, bitwise equal to a run that never stopped. Each megastep also
+computes ``carry_finite``, a device flag over the actor and the round
+metrics, copied to pinned host memory behind a CUDA event; the loop
+reads a flag only once its event has completed, and on a False one
+backs the learning rate off and rolls back to the latest snapshot.
+``fault_plan`` injects preemption, a NaN, SSD and eval-worker failures
+and hangs at fixed rounds. ``sanitize`` runs each megastep (each half of
+an eager round) under ``torch.cuda.set_sync_debug_mode("error")``, so
+any operation that waits for the card raises, and checks the carry for
+non-finite values after it.
 """
 from __future__ import annotations
 
 import bisect
+import collections
 import contextlib
+import dataclasses
 import os
 import tempfile
 import threading
@@ -61,8 +78,9 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, sync_debug_mode
 from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.core import faults
 from repro_torch.core import runtime as rt
 from repro_torch.core.transfer import make_transfer
 from repro_torch.envs import base as env_base
@@ -71,6 +89,13 @@ from repro_torch.replay import prioritized as per
 from repro_torch.replay.nstep import nstep_chunk
 from repro_torch.rl.base import AlgoHP, get_algo
 from repro_torch.train import checkpoint
+from repro_torch.train import resume as resume_lib
+
+#: held by a sanitized dispatch for its whole scope and by a worker of a
+#: sanitized trainer for its whole body: the sync debug mode is
+#: process-wide, so a worker's host read must never overlap a dispatch
+#: under "error"
+_SYNC_GATE = threading.Lock()
 
 
 @dataclass
@@ -113,6 +138,22 @@ class SpreezeConfig:
     supervise: bool = True        # retry/degrade workers vs fail fast
     worker_retry_budget: int = 3  # per-consumer crash/hang budget
     worker_heartbeat_s: float = 30.0  # hung-worker watchdog (0 = off)
+    # sanitize: each megastep (each half of an eager round) runs under
+    # torch.cuda.set_sync_debug_mode("error"), so an operation that waits
+    # for the card raises, and the carry is checked for non-finite values
+    # after it (the reference's transfer_guard + debug_nans)
+    sanitize: bool = False
+    # resilience (core.faults, train.resume): full-state snapshots,
+    # fault injection, rollback on a non-finite megastep carry
+    snapshot_dir: Optional[str] = None  # None = periodic snapshots off
+    snapshot_every_rounds: int = 50     # full-state snapshot cadence
+    # wall-clock floor between periodic snapshots (preemption safety
+    # bounds lost time, not rounds); 0 pins snapshots to exact rounds
+    snapshot_min_interval_s: float = 5.0
+    keep_snapshots: int = 3             # last-K retention
+    max_rollbacks: int = 3        # finite-guard rollback budget
+    rollback_lr_backoff: float = 0.5  # lr *= this on every rollback
+    fault_plan: Optional[faults.FaultPlan] = None  # injection schedule
     seed: int = 0
     hp: AlgoHP = field(default_factory=AlgoHP)
     device: str = "cuda"
@@ -236,6 +277,16 @@ class Draws:
         return self.env.reset_draws(
             1, _round_generator(self.viz_seed, round_i, self.device))
 
+    def get_state(self) -> torch.Tensor:
+        """The training generator's state (a CPU uint8 tensor; on the card
+        its seed and offset, which the host keeps, so reading it waits
+        for nothing and matches the launches already enqueued). Eval and
+        viz draw from per-round generators and carry no state."""
+        return self.gen.get_state()
+
+    def set_state(self, state: torch.Tensor) -> None:
+        self.gen.set_state(state)
+
 
 class ActorSnapshot(NamedTuple):
     """Actor parameters a consumer may own, and the CUDA event recorded
@@ -313,6 +364,9 @@ class SpreezeTrainer:
         self._streams = threading.local()    # a worker thread's stream
         self._ssd_dir = None
         self._ssd_cache = None
+        self._fault_clock: Optional[faults.FaultClock] = None
+        self._guard_q: collections.deque = collections.deque()
+        self._rollbacks = 0
         self.total_frames = 0
         self.total_updates = 0
         self.last_metrics = None     # stacked (R,) tensors per megastep
@@ -375,8 +429,10 @@ class SpreezeTrainer:
         """``rounds`` (default ``rounds_per_dispatch``) iterations of
         {sampler chunk -> ring write -> K updates}, in place on the
         trainer's state, ring and env states. Returns the stacked (R,)
-        per-round metrics, left on the device; under ``overlap_eval``
-        also ``actor_snapshot``, a copy of the actor made at its end."""
+        per-round metrics and ``carry_finite`` (a bool scalar: the actor
+        and the metrics are finite), left on the device; under
+        ``overlap_eval`` also ``actor_snapshot``, a copy of the actor made
+        at its end."""
         rews, closs = [], []
         for _ in range(rounds or self.cfg.rounds_per_dispatch):
             self.env_states, flat, mrew = self.sampler_chunk(
@@ -387,6 +443,10 @@ class SpreezeTrainer:
             closs.append(cl)
         self.last_metrics = {"mean_rew": torch.stack(rews),
                              "critic_loss": torch.stack(closs)}
+        # the finite guard: a NaN anywhere in the Q / env path reaches the
+        # round metrics within the megastep
+        self.last_metrics["carry_finite"] = faults.tree_finite(
+            (self.state.actor, self.last_metrics))
         if self.cfg.overlap_eval:
             self.last_metrics["actor_snapshot"] = self._clone_actor()
         return self.last_metrics
@@ -395,16 +455,19 @@ class SpreezeTrainer:
         """One round of the eager loop (Fig. 4a's handoffs): sampler
         chunk, ``transfer.push``, ``transfer.flush``, update round; under
         ``sync_mode`` the device is synchronised after the push and after
-        the update round."""
+        the update round. Under ``sanitize`` each half runs in its own
+        scope, the synchronisations outside them."""
         cfg = self.cfg
-        self.env_states, exp, _ = self.sampler_chunk(self.state.actor,
-                                                     self.env_states)
-        self.replay = self.transfer.push(self.replay, exp)
+        with self._sanitize_scope():
+            self.env_states, exp, _ = self.sampler_chunk(self.state.actor,
+                                                         self.env_states)
+            self.replay = self.transfer.push(self.replay, exp)
         self.total_frames += cfg.num_envs * cfg.chunk_len
         if cfg.sync_mode:
             self._sync()                 # Fig. 4a: the sampler's handoff
-        self.replay = self.transfer.flush(self.replay)
-        self.state, _ = self.update_round(self.state, self.replay)
+        with self._sanitize_scope():
+            self.replay = self.transfer.flush(self.replay)
+            self.state, _ = self.update_round(self.state, self.replay)
         self.total_updates += cfg.updates_per_round
         if cfg.sync_mode:
             self._sync()                 # Fig. 4a: the updater's handoff
@@ -500,17 +563,22 @@ class SpreezeTrainer:
         with torch.cuda.stream(stream):
             stream.wait_event(snap.ready)
             for t in tree_leaves(snap.params):
-                t.record_stream(stream)
+                if torch.is_tensor(t) and t.is_cuda:
+                    t.record_stream(stream)
             yield snap.params
 
-    def _ssd_materialize(self, snap: ActorSnapshot) -> ActorSnapshot:
+    def _ssd_materialize(self, snap: ActorSnapshot,
+                         round_i: Optional[int] = None) -> ActorSnapshot:
         """The paper's SSD weight channel: an atomic write-then-rename
         ``.npz`` (copied to the host after the snapshot's event), then
-        read back onto the card. Consumers never see a torn file."""
+        read back onto the card. Consumers never see a torn file. The
+        fault plan's SSD failure fires here, by round."""
+        if self._fault_clock is not None and round_i is not None:
+            self._fault_clock.ssd_oserror(round_i)
         if self._ssd_dir is None:
             self._ssd_dir = tempfile.TemporaryDirectory(prefix="spreeze_ssd_")
         path = os.path.join(self._ssd_dir.name, "actor.npz")
-        with self._consumer_stream(snap) as params:
+        with self._host_side(), self._consumer_stream(snap) as params:
             checkpoint.save(path, params)
             params, _ = checkpoint.restore(path, params)
             ready = None
@@ -538,19 +606,34 @@ class SpreezeTrainer:
 
     def _eval_worker_fn(self, snap: ActorSnapshot, round_i: int) -> float:
         """Body of the async eval workers: ``snap``'s eval on the
-        worker's own stream (its host read waits for that stream only)."""
-        with self._consumer_stream(snap) as actor:
+        worker's own stream (its host read waits for that stream only).
+        The fault plan's eval failure and hang fire here, by round."""
+        if self._fault_clock is not None:
+            self._fault_clock.eval_fault(round_i)
+        with self._host_side(), self._consumer_stream(snap) as actor:
             return self.evaluate(actor, round_i)
 
     def _viz_worker_fn(self, snap: ActorSnapshot, round_key: int,
                        round_i: int) -> None:
-        with self._consumer_stream(snap) as actor:
+        with self._host_side(), self._consumer_stream(snap) as actor:
             self._viz_dump(actor, round_i)
 
-    def _make_runtime(self, hist, target_return, log_cb):
+    def _write_state(self, item: resume_lib.Published) -> Optional[str]:
+        """Body of the snapshot worker: write a published bundle once its
+        event has completed, on the worker's own stream; a bundle with a
+        non-finite value is skipped."""
+        cfg = self.cfg
+        with self._host_side(), self._consumer_stream(
+                ActorSnapshot(item.bundle, item.ready)) as bundle:
+            return resume_lib.write_bundle(
+                cfg.snapshot_dir, (bundle, item.meta),
+                keep=cfg.keep_snapshots, require_finite=True)
+
+    def _make_runtime(self, hist, target_return, log_cb,
+                      snapshots: bool = False):
         """The host async runtime for one ``train()`` call: eval/viz/SSD
-        workers behind latest-wins mailboxes (core.runtime), supervised
-        per the config."""
+        (and full-state snapshot) workers behind latest-wins mailboxes
+        (core.runtime), supervised per the config."""
         cfg = self.cfg
         return rt.HostRuntime(
             eval_fn=self._eval_worker_fn,
@@ -558,6 +641,7 @@ class SpreezeTrainer:
             hist=hist,
             materialize_fn=(self._ssd_materialize
                             if cfg.weight_sync == "ssd" else None),
+            state_fn=self._write_state if snapshots else None,
             eval_workers=cfg.eval_workers, viz_workers=cfg.viz_workers,
             target_return=target_return, log_cb=log_cb,
             policy=rt.SupervisorPolicy(
@@ -581,33 +665,156 @@ class SpreezeTrainer:
         self.replay = self.transfer.flush(self.replay, force=True)
         self._sync()     # barrier before the timed window opens
 
+    # ------------------------------------------------------------------ #
+    # sanitize, the finite guard and rollback
+    # ------------------------------------------------------------------ #
+    def _host_side(self):
+        """A worker body of a sanitized trainer holds the gate, so its host
+        reads never meet a dispatch's "error" mode."""
+        return _SYNC_GATE if self.cfg.sanitize else contextlib.nullcontext()
+
+    def _sanitize_scope(self):
+        """Guard one hot-loop dispatch when ``cfg.sanitize``: on the card
+        the sync debug mode is "error" inside it, so any operation that
+        waits for the device raises; on leaving (the mode restored) the
+        carry is checked and a non-finite value raises
+        ``FloatingPointError``. The scope is built in an ``ExitStack``, so
+        a failure partway through entering unwinds what was entered.
+        Eval, viz and the snapshot writer (host-side by design) stay
+        outside it."""
+        if not self.cfg.sanitize:
+            return contextlib.nullcontext()
+
+        def check_finite(exc_type, exc, tb):
+            carry = (self.state, self.replay, self.env_states,
+                     self.last_metrics)
+            if exc_type is None and not faults.finite_guard(carry):
+                raise FloatingPointError(
+                    "a sanitized dispatch left a non-finite value in the "
+                    "trainer's carry")
+            return False
+
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_SYNC_GATE)
+            stack.push(check_finite)
+            stack.enter_context(sync_debug_mode(self.device, "error"))
+            return stack.pop_all()
+
+    def _guard_entry(self, round_i: int, flag: torch.Tensor):
+        """(round, host flag, event): on the card the flag is copied to
+        pinned host memory after the megastep's launches and an event is
+        recorded after the copy, so the flag is read only once the event
+        has completed and the poll never waits. On the CPU the flag is
+        ready at once."""
+        if not flag.is_cuda:
+            return round_i, flag, None
+        host = torch.empty((), dtype=torch.bool, pin_memory=True)
+        host.copy_(flag, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return round_i, host, ready
+
+    def _poll_guard(self, blocking: bool = False) -> Optional[int]:
+        """The oldest round whose ``carry_finite`` came back False, or
+        None. A flag is inspected only once its event has completed, so
+        the poll never waits for the device; ``blocking`` drains the
+        queue at the end of a run."""
+        q = self._guard_q
+        while q:
+            round_i, flag, ready = q[0]
+            if ready is not None and not ready.query():
+                if not blocking:
+                    return None
+                ready.synchronize()
+            q.popleft()
+            if not bool(flag):
+                return round_i
+        return None
+
+    def _rollback(self, runtime, hist, bad_round: int) -> int:
+        """A non-finite carry: back the learning rate off, rebuild the
+        update (it closes over the rate), restore the latest snapshot
+        (state, ring, env states, draws, counters, history) and return
+        the round to go on from. Raises ``FiniteGuardError`` when there
+        is nothing to roll back to or the budget is spent."""
+        cfg = self.cfg
+        self._rollbacks += 1
+        if self._rollbacks > cfg.max_rollbacks:
+            raise faults.FiniteGuardError(
+                f"megastep carry went non-finite at round {bad_round} "
+                f"and the rollback budget ({cfg.max_rollbacks}) is spent")
+        if runtime is not None:
+            # land any snapshot write or eval in flight before picking the
+            # target (rollback is off the hot path)
+            runtime.drain()
+        path = (resume_lib.latest(cfg.snapshot_dir) if cfg.snapshot_dir
+                else None)
+        if path is None:
+            raise faults.FiniteGuardError(
+                f"megastep carry went non-finite at round {bad_round} "
+                f"and no snapshot exists to roll back to (set "
+                f"snapshot_dir to enable rollback)")
+        self.hp = dataclasses.replace(
+            self.hp, lr=self.hp.lr * cfg.rollback_lr_backoff)
+        spec = self.env.spec
+        self._update = self.algo.make_update_step(self.hp, spec.obs_dim,
+                                                  spec.act_dim)
+        meta = resume_lib.restore_trainer(self, path)
+        resume_lib.hist_restore(hist, meta.get("hist") or {})
+        self._guard_q.clear()
+        self._ssd_cache = None
+        warnings.warn(
+            f"non-finite megastep carry at round {bad_round}: rolled "
+            f"back to snapshot round {meta['round_i']} with lr backed "
+            f"off to {self.hp.lr:g} (rollback {self._rollbacks}/"
+            f"{cfg.max_rollbacks})")
+        return int(meta["round_i"])
+
     def train(self, *, max_seconds: float = 60.0, max_frames: int = 10**9,
               target_return: Optional[float] = None,
-              log_cb: Optional[Callable] = None) -> TrainHistory:
+              log_cb: Optional[Callable] = None,
+              resume_from: Optional[str] = None) -> TrainHistory:
         """Warm up, then run megasteps (or eager rounds) until
         ``max_seconds`` or ``max_frames`` (checked before each) or until
         an eval reaches ``target_return``. When a round window hits
         ``eval_every_rounds`` (``viz_every_rounds``) the actor is
         published to the async runtime, or evaluated inline on the train
-        thread under ``sync_mode`` / ``async_eval=False``."""
+        thread under ``sync_mode`` / ``async_eval=False``; when it hits
+        ``snapshot_every_rounds`` a bundle of the whole state is
+        published to the snapshot worker (or written inline).
+        ``resume_from`` continues from a snapshot bundle, which covers
+        the warmup."""
         cfg = self.cfg
         hist = TrainHistory()
         frames_per_round = cfg.num_envs * cfg.chunk_len
+        self._fault_clock = (faults.FaultClock(cfg.fault_plan)
+                             if cfg.fault_plan is not None else None)
+        self._rollbacks = 0
+        start_round = 0
+        if resume_from is not None:
+            meta = resume_lib.restore_trainer(self, resume_from)
+            start_round = int(meta["round_i"])
+            resume_lib.hist_restore(hist, meta.get("hist") or {})
         pre_warmup = self.total_frames
         self._warmup()
-        hist.warmup_frames = self.total_frames - pre_warmup
+        if resume_from is None:
+            hist.warmup_frames = self.total_frames - pre_warmup
         frames0, updates0 = self.total_frames, self.total_updates
         # round counters restart every train() call: a same-numbered
         # round from a previous run must not serve its cached SSD actor
         self._ssd_cache = None
         window = cfg.rounds_per_dispatch if self.use_fused else 1
+        self._guard_q.clear()    # carry_finite flags, polled without a wait
+        want_snaps = bool(cfg.snapshot_dir) and cfg.snapshot_every_rounds > 0
+        last_snap_t = float("-inf")     # the first eligible window snapshots
         runtime = None
         if self.use_async_eval and (cfg.eval_every_rounds
-                                    or cfg.viz_every_rounds):
-            runtime = self._make_runtime(hist, target_return, log_cb)
+                                    or cfg.viz_every_rounds or want_snaps):
+            runtime = self._make_runtime(hist, target_return, log_cb,
+                                         snapshots=want_snaps)
 
         t0 = time.perf_counter()
-        round_i = 0
+        round_i = start_round
         solved_at = None
         try:
             while True:
@@ -617,10 +824,35 @@ class SpreezeTrainer:
                 if runtime is not None and runtime.solved.is_set():
                     solved_at = runtime.solved_time
                     break
+                bad_round = self._poll_guard()
+                if bad_round is not None:
+                    round_i = self._rollback(runtime, hist, bad_round)
+                    continue
+                clock = self._fault_clock
+                if clock is not None and clock.preempt(round_i):
+                    # a simulated SIGTERM between megasteps: drain the
+                    # runtime (every published eval lands, so the saved
+                    # history is exact), snapshot, stop
+                    if runtime is not None:
+                        runtime.close()
+                        hist.runtime_stats = runtime.stats()
+                        runtime = None
+                    path = (resume_lib.snapshot_now(self, hist, round_i)
+                            if cfg.snapshot_dir else None)
+                    raise faults.Preempted(
+                        f"injected preemption at round {round_i} "
+                        f"(snapshot: {path})",
+                        snapshot_path=path, round_i=round_i)
+                if clock is not None and clock.nan(round_i):
+                    self.state = self.state._replace(
+                        actor=faults.poison_actor(self.state.actor))
                 if self.use_fused:
-                    self.megastep()
+                    with self._sanitize_scope():
+                        self.megastep()
                     self.total_frames += frames_per_round * window
                     self.total_updates += cfg.updates_per_round * window
+                    self._guard_q.append(self._guard_entry(
+                        round_i, self.last_metrics["carry_finite"]))
                 else:
                     self.eager_round()
                 want_viz = _window_hits(round_i, window,
@@ -661,8 +893,37 @@ class SpreezeTrainer:
                                     time.perf_counter() - tb)
                                 break
                     hist.eval_blocked_s += time.perf_counter() - tb
+                # periodic full-state snapshot; its meta records the NEXT
+                # round, so a resumed run starts where this one stopped
+                if (want_snaps and _window_hits(round_i, window,
+                                                cfg.snapshot_every_rounds)
+                        and (time.perf_counter() - last_snap_t
+                             >= cfg.snapshot_min_interval_s)):
+                    if runtime is not None:
+                        # clone only when the writer will take it: a
+                        # bundle replaced latest-wins still costs the copy
+                        if runtime.state_slot_free():
+                            runtime.publish_state(resume_lib.publishable(
+                                self, hist, round_i + window))
+                            last_snap_t = time.perf_counter()
+                    else:
+                        # inline: the write waits for the device anyway;
+                        # a poisoned bundle is skipped, never a target
+                        resume_lib.write_bundle(
+                            cfg.snapshot_dir,
+                            (resume_lib.bundle_from(self),
+                             resume_lib.build_meta(self, hist,
+                                                   round_i + window)),
+                            keep=cfg.keep_snapshots, require_finite=True)
+                        last_snap_t = time.perf_counter()
                 round_i += window
             self._sync()     # end-of-run barrier closing the timed window
+            # a run whose last megasteps went non-finite fails loudly
+            bad_round = self._poll_guard(blocking=True)
+            if bad_round is not None:
+                raise faults.FiniteGuardError(
+                    f"megastep carry went non-finite at round {bad_round} "
+                    f"(detected at end of run)")
             wall = time.perf_counter() - t0
         finally:
             if runtime is not None:
@@ -680,6 +941,7 @@ class SpreezeTrainer:
                     f"exhausted their restart budget and were dropped "
                     f"(restarts={hist.runtime_stats['worker_restarts']}, "
                     f"dropped={hist.runtime_stats['degraded_dropped']})")
+        hist.runtime_stats["rollbacks"] = self._rollbacks
         hist.wall_s = wall
         hist.sampling_hz = (self.total_frames - frames0) / wall
         hist.update_hz = (self.total_updates - updates0) / wall

@@ -5,6 +5,10 @@ fused megastep over the device-resident replay ring, or with
 ``--transfer queue`` or ``--sync`` the eager per-round loop of the
 paper's Fig. 4a ablations. ``--weight-sync ssd`` sends the weights to
 the async eval workers through ``.npz`` files (the paper's SSD channel).
+``--adapt`` first auto-tunes the batch size, the env count and the
+rounds a megastep (``core.adaptation.auto_tune``, paper §3.4) over the
+reference's grids and prints ``[adapt] batch_size=... num_envs=...
+rounds_per_dispatch=...``.
 Runs on the CUDA card unless ``--device cpu`` is given; the device
 decides between the hand-written kernels and their plain versions.
 Prints the card line and then the reference's JSON report
@@ -18,10 +22,11 @@ Examples:
       --sync --seconds 30
   python -m repro_torch.launch.train rl --algo ddpg --device cpu \\
       --seconds 2 --num-envs 2 --batch-size 64
+  python -m repro_torch.launch.train rl --adapt --seconds 30
 
-Not ported yet: the reference's ``--adapt`` (auto-tune) and the ``lm``
-mode; argparse refuses them, as it refuses ``--prioritized``, which the
-reference's launcher does not have either.
+Not ported yet: the reference's ``lm`` mode; argparse refuses it, as it
+refuses ``--prioritized``, which the reference's launcher does not have
+either.
 """
 from __future__ import annotations
 
@@ -49,6 +54,9 @@ def main(argv=None):
                     help="partial-parallel baseline (paper Fig. 4a)")
     rl.add_argument("--weight-sync", default="live",
                     choices=("live", "ssd"))
+    rl.add_argument("--adapt", action="store_true",
+                    help="auto-tune batch size, num_envs and rounds per "
+                         "megastep first (paper §3.4)")
     rl.add_argument("--seed", type=int, default=0)
     rl.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -56,9 +64,19 @@ def main(argv=None):
     from repro_torch import card_line
     from repro_torch.core import SpreezeConfig, SpreezeTrainer
 
+    num_envs, batch_size = args.num_envs, args.batch_size
+    rounds_per_dispatch = SpreezeConfig.rounds_per_dispatch
+    if args.adapt:
+        from repro_torch.core.adaptation import auto_tune
+        tuned = auto_tune(args.env, args.algo, device=args.device)
+        num_envs, batch_size = tuned["num_envs"], tuned["batch_size"]
+        rounds_per_dispatch = tuned["rounds_per_dispatch"]
+        print(f"[adapt] batch_size={batch_size} num_envs={num_envs} "
+              f"rounds_per_dispatch={rounds_per_dispatch}", flush=True)
     cfg = SpreezeConfig(env_name=args.env, algo=args.algo,
-                        num_envs=args.num_envs, batch_size=args.batch_size,
+                        num_envs=num_envs, batch_size=batch_size,
                         updates_per_round=args.updates_per_round,
+                        rounds_per_dispatch=rounds_per_dispatch,
                         transfer=args.transfer, queue_size=args.queue_size,
                         sync_mode=args.sync, weight_sync=args.weight_sync,
                         seed=args.seed, device=args.device)

@@ -10,7 +10,10 @@ a large queue delays experience (policy lag, "transmission loss").
 
 The queue's cost is the measured result, so it stays as the reference
 has it: pageable host arrays, blocking copies, and a device synchronise
-after each upload.
+after each upload. These are the queue's intended host transfers (the
+reference's explicit ``jax.device_get`` / ``device_put``), so they run
+with the sync debug mode lifted (``sync_debug_mode(device, 0)``): a
+sanitized trainer checks every other operation of the round.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from typing import Deque, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, sync_debug_mode
 
 
 class HostQueue:
@@ -57,7 +60,8 @@ class HostQueue:
             self.frames_dropped += n
             return False
         t0 = time.perf_counter()
-        host = {k: v.cpu().numpy() for k, v in batch.items()}
+        with sync_debug_mode(self.device, 0):
+            host = {k: v.cpu().numpy() for k, v in batch.items()}
         self.put_time += time.perf_counter() - t0
         self._q.append(host)
         self._frames_in_queue += n
@@ -80,11 +84,12 @@ class HostQueue:
         chunks: list = []
         while self._q:
             chunks.append(self._q.popleft())
-        out = {k: torch.from_numpy(
-                   np.concatenate([c[k] for c in chunks], axis=0)
-               ).to(self.device) for k in chunks[0]}
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # the consumer stall plotted
+        with sync_debug_mode(self.device, 0):
+            out = {k: torch.from_numpy(
+                       np.concatenate([c[k] for c in chunks], axis=0)
+                   ).to(self.device) for k in chunks[0]}
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # the consumer stall
         now = time.perf_counter()
         self.drain_time += now - t0
         if self._last_drain_t is not None:

@@ -8,7 +8,12 @@ reference's: one array a leaf under its ``"/"``-joined key path (``l0/w``,
 ``l0/b``, ...) and a JSON ``__meta__`` string, so a file written by
 either package restores on the other.
 
-Trees are nested dicts (and tuples or lists) of tensors, or one tensor.
+Trees are nested dicts, NamedTuples, tuples and lists of tensors, or one
+tensor. A NamedTuple's fields are keyed ``.<field>`` (``state/.actor/w``),
+as JAX prints a ``GetAttrKey``, and ``None`` is an empty subtree that
+writes no key, as in JAX: so the resume bundles (trees of ``AlgoState``,
+``ReplayState``, ``OptState``, TD3's ``opt_alpha=None``) restore in
+either package.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from typing import Any, Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch._tree import leaves_with_path, tree_map
 
 
 class CheckpointError(RuntimeError):
@@ -54,27 +61,11 @@ def _transient_oserror(e: OSError) -> bool:
     return e.errno not in _NONTRANSIENT_ERRNOS
 
 
-def _leaves(tree, prefix: Tuple[str, ...] = ()
-            ) -> Iterator[Tuple[str, Any]]:
-    """(key path, leaf) in the tree's order; dict keys and sequence
-    indices joined by ``"/"``, as the reference names them."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, prefix + (str(k),))
-    elif isinstance(tree, (tuple, list)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, prefix + (str(i),))
-    else:
-        yield "/".join(prefix), tree
-
-
-def _rebuild(tree, leaves: Iterator):
-    """``tree``'s structure with its leaves taken from ``leaves``."""
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, leaves) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_rebuild(v, leaves) for v in tree)
-    return next(leaves)
+def _leaves(tree) -> Iterator[Tuple[str, Any]]:
+    """(key, leaf) in the tree's order: the reference's key layout, the
+    path joined by ``"/"`` (``l0/w``, ``state/.actor/l0/w``)."""
+    for path, leaf in leaves_with_path(tree):
+        yield "/".join(path), leaf
 
 
 def _flatten(tree) -> Dict[str, np.ndarray]:
@@ -166,7 +157,8 @@ def restore(path: str, like) -> Tuple[Any, Dict[str, Any]]:
         raise CheckpointError(
             f"checkpoint {path!r} leaf mismatch: " + "; ".join(mismatched),
             mismatched=mismatched)
-    return _rebuild(like, iter(out)), meta
+    rows = iter(out)
+    return tree_map(lambda _: next(rows), like), meta
 
 
 def latest_step(ckpt_dir: str) -> int:

@@ -3,6 +3,7 @@ cases of ``tests/test_checkpoint.py`` on tensor trees, and files written
 by either package restored by the other."""
 import errno
 import os
+from typing import Any, NamedTuple
 
 import jax
 import numpy as np
@@ -168,3 +169,87 @@ def test_a_port_written_actor_restores_in_jax(tmp_path):
     for a, b in zip(jax.tree.leaves(to_np(out)),
                     jax.tree.leaves(to_np(state.actor))):
         np.testing.assert_array_equal(a, b)
+
+
+class S(NamedTuple):
+    """The smallest bundle-like NamedTuple: a dict field and a leaf."""
+    actor: Any
+    step: Any
+
+
+def _stored_keys(path):
+    with np.load(path, allow_pickle=False) as data:
+        return set(data.files) - {"__meta__"}
+
+
+def _nt_tree(lib):
+    """``{"state": S(actor={"w": ones(2)}, step=zeros(()))}`` as tensors
+    (``torch``) or numpy arrays (``np``)."""
+    return {"state": S(actor={"w": lib.ones(2)}, step=lib.zeros(()))}
+
+
+def _none_tree(lib):
+    """A tree with a ``None`` leaf, as TD3's and DDPG's ``opt_alpha``."""
+    return {"state": {"a": lib.ones(2), "opt_alpha": None}}
+
+
+def test_a_namedtuple_is_keyed_by_field_and_restores(tmp_path):
+    """A NamedTuple's fields are keyed ``.<field>``, the key the
+    reference's ``GetAttrKey`` prints, and it is rebuilt by field."""
+    path = str(tmp_path / "nt.npz")
+    checkpoint.save(path, _nt_tree(torch))
+    assert _stored_keys(path) == {"state/.actor/w", "state/.step"}
+    out, _ = checkpoint.restore(path, {"state": S(actor={"w": torch.zeros(2)},
+                                                  step=torch.ones(()))})
+    assert type(out["state"]) is S
+    assert out["state"].actor["w"].tolist() == [1.0, 1.0]
+    assert float(out["state"].step) == 0.0
+
+
+def test_a_none_leaf_writes_no_key_and_restores_as_none(tmp_path):
+    """``None`` is an empty subtree, as in JAX: no key, and ``None``
+    back where ``like`` has it."""
+    path = str(tmp_path / "none.npz")
+    checkpoint.save(path, _none_tree(torch))
+    assert _stored_keys(path) == {"state/a"}
+    out, _ = checkpoint.restore(path, {"state": {"a": torch.zeros(2),
+                                                 "opt_alpha": None}})
+    assert out["state"]["opt_alpha"] is None
+    assert out["state"]["a"].tolist() == [1.0, 1.0]
+
+
+@pytest.mark.parametrize("make", [_nt_tree, _none_tree],
+                         ids=["namedtuple", "none_leaf"])
+def test_both_packages_write_the_same_keys(tmp_path, make):
+    ours, theirs = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+    checkpoint.save(ours, make(torch))
+    jax_checkpoint.save(theirs, make(np))
+    assert _stored_keys(ours) == _stored_keys(theirs)
+
+
+@pytest.mark.parametrize("make", [_nt_tree, _none_tree],
+                         ids=["namedtuple", "none_leaf"])
+def test_a_jax_written_tree_restores_in_the_port(tmp_path, make):
+    path = str(tmp_path / "jax.npz")
+    jax_checkpoint.save(path, make(np), metadata={"round": 2})
+    like = jax.tree.map(lambda x: torch.full(np.shape(x), 7.0), make(np))
+    out, meta = checkpoint.restore(path, like)
+    assert meta == {"round": 2}
+    assert jax.tree.structure(jax.tree.map(np.asarray, out)) == \
+        jax.tree.structure(make(np))
+    for a, b in zip(jax.tree.leaves(out), jax.tree.leaves(make(np))):
+        np.testing.assert_array_equal(a.numpy(), b)
+
+
+@pytest.mark.parametrize("make", [_nt_tree, _none_tree],
+                         ids=["namedtuple", "none_leaf"])
+def test_a_port_written_tree_restores_in_jax(tmp_path, make):
+    path = str(tmp_path / "port.npz")
+    checkpoint.save(path, make(torch), metadata={"round": 3})
+    like = jax.tree.map(lambda x: np.full(np.shape(x), 7.0, np.float32),
+                        make(np))
+    out, meta = jax_checkpoint.restore(path, like)
+    assert meta == {"round": 3}
+    assert jax.tree.structure(out) == jax.tree.structure(make(np))
+    for a, b in zip(jax.tree.leaves(out), jax.tree.leaves(make(np))):
+        np.testing.assert_array_equal(np.asarray(a), b)

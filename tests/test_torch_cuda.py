@@ -939,3 +939,76 @@ def test_ssm_serving_on_the_card_matches_the_cpu(dev, arch, layers):
     if n_inv:
         expect.update(flash_attention=n_inv, decode_attention=n_inv * 6)
     assert dict(rops.LAUNCH_COUNTS) == expect
+
+
+def test_sanitize_scope_sets_the_sync_debug_mode_and_restores_it(dev):
+    """Inside the scope the sync debug mode is "error" (2), so a host
+    read raises; after it the previous mode is back and the read runs."""
+    tr = _small_trainer(sanitize=True)
+    prev = torch.cuda.get_sync_debug_mode()
+    x = torch.ones((), device=dev)
+    with tr._sanitize_scope():
+        assert torch.cuda.get_sync_debug_mode() == 2
+        with pytest.raises(RuntimeError):
+            x.item()
+    assert torch.cuda.get_sync_debug_mode() == prev
+    assert x.item() == 1.0
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(fused=False),
+                                dict(transfer="queue", queue_size=128)],
+                         ids=["fused", "eager", "queue"])
+def test_sanitize_train_on_the_card(dev, kw):
+    """A sanitized ``train()`` on the card: no operation of a megastep
+    (or of an eager round's two halves, the queue's copies lifted) waits
+    for the device, with eval on the async workers."""
+    tr = _small_trainer(sanitize=True, eval_every_rounds=2, **kw)
+    hist = tr.train(max_seconds=60.0, max_frames=tr.total_frames + 6 * 32)
+    assert hist.update_hz > 0 and hist.eval_returns
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_draws_state_roundtrips_on_a_cuda_generator(dev):
+    """``Draws.get_state()`` on the card is the generator's seed and
+    offset (16 bytes on the host); setting it back replays the draws."""
+    from repro_torch.core.pipeline import Draws
+    from repro_torch.envs import make
+    draws = Draws(make("pendulum"), 1, 2, dev)
+    draws.sampler_step(4, 1)
+    state = draws.get_state()
+    assert state.device.type == "cpu" and state.dtype == torch.uint8
+    assert state.numel() == 16
+    first = draws.sampler_step(4, 1)[0]
+    draws.set_state(state)
+    assert torch.equal(draws.sampler_step(4, 1)[0], first)
+
+
+def test_poll_guard_returns_without_a_sync(dev):
+    """With the train stream spinning for about a second, the poll reads
+    a flag whose event completed before the spin and returns at once,
+    the spin still running, leaving the flag queued behind the spin in
+    flight; once the stream is idle it returns that flag's round. (The
+    flag behind the spin takes three launches: a megastep's thousands
+    would fill the card's launch queue, and the host would wait for
+    room in it.)"""
+    import time
+    from repro_torch import sync_debug_mode
+    from repro_torch.core import faults
+    tr = _small_trainer()
+    tr.megastep()
+    tr._guard_q.append(tr._guard_entry(0, tr.last_metrics["carry_finite"]))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)
+    spun = torch.cuda.Event()
+    spun.record()
+    poisoned = faults.tree_finite(faults.poison_actor(tr.state.actor))
+    tr._guard_q.append(tr._guard_entry(4, poisoned))
+    t = time.perf_counter()
+    with sync_debug_mode(dev, "error"):
+        assert tr._poll_guard() is None
+    waited = time.perf_counter() - t
+    still_busy = not spun.query()
+    assert [r for r, _, _ in tr._guard_q] == [4]
+    assert still_busy and waited < 0.2, waited
+    torch.cuda.synchronize()
+    assert tr._poll_guard() == 4 and not tr._guard_q

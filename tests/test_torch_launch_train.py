@@ -1,5 +1,6 @@
 """The port's training launcher (the ``rl`` mode of
 ``repro/launch/train.py``) on the CPU with tiny flags."""
+import functools
 import json
 
 import pytest
@@ -53,8 +54,37 @@ def test_ported_flags_reach_the_config(monkeypatch, capsys, flags, field,
                                        "transmission_loss", "blocked_time_s"}
 
 
+def test_adapt_tunes_then_trains_with_the_tuned_values(monkeypatch,
+                                                      capsys):
+    """``--adapt`` runs ``auto_tune`` (here over tiny grids), prints the
+    reference's ``[adapt]`` line and trains with the chosen values."""
+    from repro_torch import core
+    from repro_torch.core import adaptation
+    seen = []
+
+    class Recording(core.SpreezeTrainer):
+        def __init__(self, cfg, *a, **kw):
+            seen.append(cfg)
+            super().__init__(cfg, *a, **kw)
+
+    monkeypatch.setattr(core, "SpreezeTrainer", Recording)
+    monkeypatch.setattr(adaptation, "auto_tune", functools.partial(
+        adaptation.auto_tune, bs_grid=(16, 32), env_grid=(1, 2),
+        rpd_grid=(1, 2)))
+    assert train.main(["rl", "--adapt"] + TINY) == 0
+    out = capsys.readouterr().out
+    line = next(ln for ln in out.splitlines() if ln.startswith("[adapt]"))
+    cfg = seen[-1]
+    assert line == (f"[adapt] batch_size={cfg.batch_size} "
+                    f"num_envs={cfg.num_envs} "
+                    f"rounds_per_dispatch={cfg.rounds_per_dispatch}")
+    assert cfg.batch_size in (16, 32) and cfg.num_envs in (1, 2)
+    assert cfg.rounds_per_dispatch in (1, 2)
+    assert json.loads(out[out.index("{"):])["update_hz"] > 0
+
+
 @pytest.mark.parametrize("flags", [
-    ["--adapt"], ["--prioritized"], ["--algo", "ppo"]])
+    ["--prioritized"], ["--algo", "ppo"]])
 def test_unported_flags_are_refused(flags):
     with pytest.raises(SystemExit) as e:
         train.main(["rl"] + flags + TINY)

@@ -110,6 +110,14 @@ class JaxDraws:
         return jax_reset_draws(self.env_name, jax.random.fold_in(
             self.viz_key, round_i)[None])
 
+    def get_state(self):
+        """The JAX key as a uint32 tensor: the resume bundle's ``draws``
+        (the reference's bundle holds the key as ``key``)."""
+        return torch.from_numpy(np.array(self.key))
+
+    def set_state(self, state):
+        self.key = jnp.asarray(state.numpy())
+
 
 def _configs(**kw):
     base = {**SMALL, **kw}
@@ -564,12 +572,21 @@ def test_trainer_refuses_bad_configs(kw, err):
 
 
 @pytest.mark.parametrize("field", [
-    "mesh", "placement", "sanitize", "snapshot_dir", "snapshot_every_rounds",
-    "snapshot_min_interval_s", "keep_snapshots", "max_rollbacks",
-    "rollback_lr_backoff", "fault_plan", "resume_from", "use_pallas"])
+    "mesh", "placement", "resume_from", "use_pallas"])
 def test_config_refuses_fields_not_ported(field):
-    """The reference's fields whose modules (resume, faults, multi-device
-    placement) are still to come, and the Pallas switch the port has no
-    counterpart of."""
+    """The reference's fields whose module (multi-device placement) is
+    still to come, the Pallas switch the port has no counterpart of, and
+    ``resume_from``, which is ``train()``'s argument in both packages."""
     with pytest.raises(TypeError):
         SpreezeConfig(**{field: None})
+
+
+@pytest.mark.parametrize("field", [
+    "sanitize", "snapshot_dir", "snapshot_every_rounds",
+    "snapshot_min_interval_s", "keep_snapshots", "max_rollbacks",
+    "rollback_lr_backoff", "fault_plan"])
+def test_config_has_the_resilience_fields_with_the_references_defaults(
+        field):
+    """The sanitize, snapshot, rollback and fault-plan fields of the
+    reference's ``SpreezeConfig``, with its defaults."""
+    assert getattr(SpreezeConfig(), field) == getattr(JaxConfig(), field)

@@ -10,7 +10,10 @@ DDPG under prioritized replay, it builds a small ``SpreezeTrainer``
 (hidden 32x32, batch 64; the counts do not depend on the widths), warms
 it up, and counts the ATen ops dispatched by an update round (per
 update), a sampler chunk (per env step) and a megastep (4 rounds of 4
-updates). Prints one JSON line per configuration.
+updates), and the ops of the megastep's finite guard (``carry_finite``,
+two reductions an actor leaf and a metric and two to join them; on the
+card ``train()`` adds one copy of the flag to pinned host memory and an
+event). Prints one JSON line per configuration.
 """
 import json
 import os
@@ -39,7 +42,7 @@ def count(fn) -> int:
 def main():
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "src"))
-    from repro_torch.core import SpreezeConfig, SpreezeTrainer
+    from repro_torch.core import SpreezeConfig, SpreezeTrainer, faults
     from repro_torch.rl import AlgoHP
     for algo, prioritized in (("sac", False), ("td3", False),
                               ("ddpg", False), ("sac", True),
@@ -58,7 +61,11 @@ def main():
                 tr.state, tr.replay)) / cfg.updates_per_round,
             "ops_per_sampler_step": count(lambda: tr.sampler_chunk(
                 tr.state.actor, tr.env_states)) / cfg.chunk_len,
-            "ops_per_megastep": count(tr.megastep)}), flush=True)
+            "ops_per_megastep": count(tr.megastep),
+            "ops_finite_guard": count(lambda: faults.tree_finite(
+                (tr.state.actor, {k: tr.last_metrics[k] for k in
+                                  ("mean_rew", "critic_loss")})))}),
+            flush=True)
 
 
 if __name__ == "__main__":
