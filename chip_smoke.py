@@ -61,6 +61,26 @@ and prints no result line):
      without it in turns; ``auto_tune`` at the reference's grids (each
      candidate's throughput on a line of its own) and ``rl --adapt
      --seconds 2``;
+  6d. the multi-device megastep on the one-card stand-in (meshes that
+     name cuda:0 at every position): the sharded wrappers at G 2 and 8
+     bitwise against the single-device kernels on the whole pool at the
+     training path's shapes; ``train()`` at full width on SAC uniform
+     and SAC PER over an ac 2x2 mesh (4 megasteps), TD3 uniform and DDPG
+     PER over a dp 2x2 mesh (3), each with exact launch counts (every
+     ring op once a batch group; the replicas bitwise equal, the
+     ``overlap_eval`` snapshot the actor), then held round by round
+     against a single-device twin of the same seed, each round from the
+     twin's carry (``ptr``/``size`` exactly, the actor, the Q stack and
+     the critic loss within rtol 1e-3, atol 1e-5, under PER one update a
+     round and every draw exactly); the ac 2x2 path under
+     ``sanitize``; a mesh preempted at round 8 and resumed, bitwise equal
+     to the uninterrupted mesh run; ``python -m
+     repro_torch.examples.train_sac_pendulum --seconds 3 --no-adapt``,
+     then with ``--mesh 2x1``, which must exit non-zero with
+     ``make_ac_mesh``'s message; ``update_hz`` of the ac 2x2 mesh and of
+     one device in turns, labelled one-card stand-in (no dual-card
+     rate); the bench (phase 3) runs its sharded arms over eight cuda:0
+     entries;
   7. hold the LM model kernels (rmsnorm, flash_attention,
      decode_attention) against their plain versions on the card at the
      serving path's shapes, in float32 (max abs error <= 1e-5: the
@@ -565,17 +585,23 @@ def run_bench(dev, tiny):
     and read just after: each arm's kernel runs 1 + WARMUP + iters times
     (its check, the warm-up, the timed calls), ``per_scores`` in two arms
     (its own and ``global_topk``), ``per_topk`` 4 more times (the
-    two-phase check). Every oracle check must hold."""
+    two-phase check), and each sharded arm (``per_scores_sharded``,
+    ``per_topk_sharded`` over eight cuda:0 entries: 4 batch groups) once
+    a group a call. Every oracle check must hold."""
     from repro_torch.benchmarks import replay_kernels as bench
     from repro_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
     reset_launch_counts()
-    report, ok = bench.run(tiny=tiny, device=dev)
+    report, ok = bench.run(tiny=tiny, device=dev,
+                           mesh_devices=["cuda:0"] * bench.MESH_DEVICES)
     launches = dict(LAUNCH_COUNTS)
     require(ok and report["oracle_ok"], f"bench oracle failed: {report}")
     calls = 1 + bench.WARMUP + report["config"]["iters"]
+    # the sharded arms: once a batch group of the (2, 4) ac mesh
+    groups = 4
     expect = {"ring_write": calls, "ring_write_rowloop": calls,
               "ring_gather": calls, "ring_gather_rowloop": calls,
-              "per_scores": 2 * calls, "per_topk": calls + bench.WINDOWS}
+              "per_scores": (2 + groups) * calls,
+              "per_topk": (1 + groups) * calls + bench.WINDOWS}
     require(launches == expect,
             f"bench launches {launches} != expected {expect}")
     return report, launches
@@ -979,14 +1005,17 @@ def counted_train(rops, label, tr, expect, **train_kw):
     return hist, launches, wall
 
 
-def run_resume_path(rops, root, megasteps, preempt_round, prioritized=False):
+def run_resume_path(rops, root, megasteps, preempt_round, prioritized=False,
+                    mesh_shape=None):
     """SAC at full width with eval inline every 8 rounds: ``megasteps``
     megasteps without a stop, then the same run preempted at
     ``preempt_round`` (``FaultPlan``) and resumed from its snapshot. The
     resumed trainer equals the uninterrupted one bit for bit: every leaf
     of the state, the ring and the env states, the draw state, the
     counters and the eval history. Under PER a draw from one fixed
-    Gumbel field then picks the same rows on both."""
+    Gumbel field then picks the same rows on both. With ``mesh_shape``
+    all three run on that one-card stand-in mesh (placement "ac"), and
+    every ring op launches once a batch group."""
     import torch
     from repro_torch.core import SpreezeTrainer, faults
     from repro_torch.replay import prioritized as per
@@ -995,6 +1024,13 @@ def run_resume_path(rops, root, megasteps, preempt_round, prioritized=False):
     per_round, rounds = 16 * 32, megasteps * 4
     frames = 2048 + rounds * per_round
     label = "PER" if prioritized else "uniform"
+    groups = 1
+    if mesh_shape is not None:
+        kw.update(mesh=card_mesh(*mesh_shape), placement="ac")
+        groups = mesh_shape[1]
+        label += f", ac {mesh_shape[0]}x{mesh_shape[1]}"
+
+
     out, launches = {"megasteps": megasteps, "preempt_round": preempt_round}, {}
 
     def add(counts):
@@ -1004,9 +1040,9 @@ def run_resume_path(rops, root, megasteps, preempt_round, prioritized=False):
     ref = SpreezeTrainer(full_config(**kw))
     hist_ref, counts, out["wall_s"] = counted_train(
         rops, f"resume {label}, uninterrupted", ref,
-        path_launches(rounds, prioritized=prioritized), max_frames=frames)
+        mesh_launches(groups, rounds, prioritized), max_frames=frames)
     add(counts)
-    snap_dir = os.path.join(root, label)
+    snap_dir = os.path.join(root, label.replace(", ", "_"))
     pre = SpreezeTrainer(full_config(
         snapshot_dir=snap_dir, snapshot_every_rounds=0,
         fault_plan=faults.FaultPlan(preempt_round=preempt_round), **kw))
@@ -1019,7 +1055,7 @@ def run_resume_path(rops, root, megasteps, preempt_round, prioritized=False):
         preempted = e
     out["preempted_wall_s"] = time.perf_counter() - t
     counts = dict(rops.LAUNCH_COUNTS)
-    expect = path_launches(preempt_round, prioritized=prioritized)
+    expect = mesh_launches(groups, preempt_round, prioritized)
     require(preempted is not None and preempted.round_i == preempt_round,
             f"resume {label}: the run was not preempted at round "
             f"{preempt_round}")
@@ -1030,8 +1066,8 @@ def run_resume_path(rops, root, megasteps, preempt_round, prioritized=False):
                                      snapshot_every_rounds=0, **kw))
     hist_res, counts, out["resumed_wall_s"] = counted_train(
         rops, f"resume {label}, resumed", res,
-        path_launches(rounds - preempt_round, warm_chunks=0,
-                      prioritized=prioritized),
+        mesh_launches(groups, rounds - preempt_round, prioritized,
+                      warm_chunks=0),
         max_frames=frames, resume_from=preempted.snapshot_path)
     add(counts)
     diff = differing_leaves((ref.state, ref.replay, ref.env_states),
@@ -1239,6 +1275,273 @@ def run_adapt_launcher():
     require(rc == 0 and len(adapt) == 1 and report["update_hz"] > 0,
             f"adapt launcher: {text[-2000:]}")
     return adapt[0], report, wall
+
+
+# --------------------------------------------------------------------------- #
+# the multi-device megastep, on a mesh that names the card several times
+# --------------------------------------------------------------------------- #
+
+def card_mesh(ac, batch):
+    """The one-card stand-in: an (ac, batch) mesh naming cuda:0 at every
+    position. It runs every group's kernels on real shards with real
+    window offsets; it says nothing about two cards."""
+    from repro_torch.launch.mesh import make_ac_mesh
+    return make_ac_mesh(ac, batch, devices=["cuda:0"] * (ac * batch))
+
+
+def check_sharded_ops(dev):
+    """The sharded wrappers at G 2 and 8 (dp meshes over cuda:0 repeated)
+    against the single-device kernels on the whole pool, at the training
+    path's shapes: a round's write wrapping at the ring's end (the six
+    fields and the priorities' (capacity, 1) view), an update's gather
+    (seven fields) and a scatter with repeated indices, bit for bit;
+    ``per_topk_sharded``'s scores bit for bit and its indices on every
+    finite slot (a full pool, and 5000 live rows with ties)."""
+    import torch
+    from repro_torch.distributed.sharding import trainer_rules
+    from repro_torch.kernels import ops as kops
+    g = torch.Generator(device=dev).manual_seed(21)
+    shapes = [() if w == 1 else (w,) for w in FIELD_WIDTHS.values()] + [(1,)]
+    checked = []
+    for groups in (2, 8):
+        rules = trainer_rules(card_mesh(2, groups // 2), "dp")
+        rows = CAPACITY // groups
+
+        def split(x):
+            return [x[i * rows:(i + 1) * rows].clone()
+                    for i in range(groups)]
+
+        datas = [torch.randn((CAPACITY,) + s, generator=g, device=dev)
+                 for s in shapes]
+        batches = [torch.randn((ROUND_ROWS,) + s, generator=g, device=dev)
+                   for s in shapes]
+        ptr = torch.tensor(CAPACITY - ROUND_ROWS // 2, dtype=torch.int32,
+                           device=dev)
+        want = kops.ring_write_fields([d.clone() for d in datas], batches,
+                                      ptr)
+        shards = [split(d) for d in datas]
+        kops.ring_write_fields_sharded([list(f) for f in zip(*shards)],
+                                       batches, ptr, rules)
+        require(all(torch.equal(torch.cat(s), w)
+                    for s, w in zip(shards, want)),
+                f"ring_write_fields_sharded (G {groups}) differs")
+        idx = torch.randint(0, CAPACITY, (BATCH,), generator=g, device=dev,
+                            dtype=torch.int32)
+        fields = want                # the written pools
+        want = kops.ring_gather_fields(fields, idx)
+        outs = kops.ring_gather_fields_sharded(
+            [list(f) for f in zip(*[split(d) for d in fields])], idx, rules)
+        require(all(torch.equal(torch.cat([o[f] for o in outs]), w)
+                    for f, w in enumerate(want)),
+                f"ring_gather_fields_sharded (G {groups}) differs")
+        pri = torch.rand(CAPACITY, generator=g, device=dev)
+        sidx = torch.cat([idx[:BATCH // 2], idx[:BATCH // 2]])
+        vals = torch.rand(BATCH, generator=g, device=dev)
+        want = kops.priority_scatter(pri.clone(), sidx, vals)
+        shards = split(pri)
+        kops.priority_scatter_sharded(shards, sidx, vals, rules)
+        require(torch.equal(torch.cat(shards), want),
+                f"priority_scatter_sharded (G {groups}) differs")
+        for live, ties in ((CAPACITY, ()), (5000, (7, 4095, 100_000))):
+            pri, gumbel = _per_pool(dev, g, CAPACITY, live, ties)
+            ws, wi = kops.per_topk(pri, gumbel, ALPHA, BATCH)
+            gs, gi = kops.per_topk_sharded(split(pri), gumbel, ALPHA, BATCH,
+                                           rules)
+            fin = torch.isfinite(ws)
+            require(torch.equal(gs, ws) and torch.equal(gi[fin], wi[fin]),
+                    f"per_topk_sharded (G {groups}, {live} live) differs")
+        checked.append(groups)
+    return checked
+
+
+def mesh_launches(groups, rounds, prioritized=False, warm_chunks=4):
+    """``path_launches`` once a batch group: every ring op of the mesh
+    path launches once a group."""
+    return {k: groups * v for k, v in path_launches(
+        rounds, warm_chunks, prioritized=prioritized).items()}
+
+
+# (label, algo, prioritized, placement, mesh shape, megasteps)
+MESH_PATHS = (("SAC uniform, ac 2x2", "sac", False, "ac", (2, 2), 4),
+              ("SAC PER, ac 2x2", "sac", True, "ac", (2, 2), 4),
+              ("TD3 uniform, dp 2x2", "td3", False, "dp", (2, 2), 3),
+              ("DDPG PER, dp 2x2", "ddpg", True, "dp", (2, 2), 3))
+MESH_RTOL, MESH_ATOL = 1e-3, 1e-5
+
+
+def sync_to(tr, twin):
+    """Give the mesh trainer ``tr`` the single-device ``twin``'s whole
+    carry (the state and the ring placed onto its mesh, the env states,
+    the draw state), so their next megasteps start from one state."""
+    import torch
+    from repro_torch._tree import tree_map
+    from repro_torch.core import model_parallel as mp
+    tr.state = mp.place_state(twin.state, tr.layout)
+    tr.replay = mp.place_replay(twin.replay, tr.layout)
+    tr.env_states = tree_map(torch.clone, twin.env_states)
+    tr.draws.set_state(twin.draws.get_state())
+
+
+def run_mesh_path(rops, label, algo, prioritized, placement, shape,
+                  megasteps):
+    """``train()`` at full width on the one-card stand-in mesh, eval
+    inline every 16 rounds, ``overlap_eval`` on, counters reset just
+    before and read just after (every ring op once a group): the
+    replicas end bitwise equal and the ``overlap_eval`` snapshot is the
+    actor. Then the same mesh config in lock step with a single-device
+    twin of the same seed (its launches count in no path): after both
+    warm up, each round of those ``megasteps`` starts from the twin's
+    carry (``sync_to``), so both sample the same rows, and ends with
+    ``ptr`` and ``size`` equal and the actor, the whole Q stack and the
+    round's critic loss within rtol 1e-3, atol 1e-5; under PER every
+    update draws the twin's rows exactly, and the whole priority pool
+    (the groups' scatters of the round's TD errors) and ``max_priority``
+    are within the same tolerance of the twin's. The PER pair runs one update a
+    round, each from the twin's priorities: a later update of a round
+    would rank rows by priorities that differ in the last bits, and a
+    near tie reorders the draw. Left to run on, two trainers whose math
+    differs only in rounding leave that tolerance within one to two
+    megasteps, the env's rollouts amplifying the difference
+    (``tools/mesh_drift.py``: a one-ulp change on one device does the
+    same, and a PER round's later updates reorder their draws)."""
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import SpreezeTrainer
+    from repro_torch.core import model_parallel as mp
+    from repro_torch.launch.mesh import ring_shard_groups
+    from repro_torch.replay import prioritized as per
+    mesh = card_mesh(*shape)
+    groups = ring_shard_groups(mesh, placement)
+    rounds = megasteps * 4
+    kw = dict(algo=algo, prioritized=prioritized, per_alpha=ALPHA,
+              per_beta=0.4, eval_every_rounds=16, async_eval=False,
+              overlap_eval=True)
+    tr = SpreezeTrainer(full_config(mesh=mesh, placement=placement, **kw))
+    hist, launches, wall = counted_train(
+        rops, label, tr, mesh_launches(groups, rounds, prioritized),
+        max_frames=2048 + rounds * ROUND_ROWS)
+    ws = mp.whole_state(tr)
+    snap = tr.last_metrics["actor_snapshot"].params
+    require(not differing_leaves(snap, tr.state.actor),
+            f"{label}: overlap_eval snapshot differs from the actor")
+    for rep in tr.state.replicas[1:]:
+        require(not differing_leaves(
+            mp.gather_state(mp.PlacedState((rep,)), tr.layout), ws),
+            f"{label}: the replicas differ")
+    require(all(math.isfinite(r) for r in hist.eval_returns) and
+            len(hist.eval_returns) == -(-rounds // 16),
+            f"{label}: eval {hist.eval_returns}")
+    del tr
+
+    drawn, sample = {True: [], False: []}, per.sample
+
+    def recording(state, gumbel, batch_size, **skw):
+        out = sample(state, gumbel, batch_size, **skw)
+        drawn[skw.get("rules") is not None].append(out[1].clone())
+        return out
+
+    per.sample = recording
+    worst = 0.0
+    try:
+        k = 1 if prioritized else 4
+        tr = SpreezeTrainer(full_config(mesh=mesh, placement=placement,
+                                        updates_per_round=k, **kw))
+        twin = SpreezeTrainer(full_config(updates_per_round=k, **kw))
+        for t in (tr, twin):
+            t._warmup()
+        for r in range(rounds):
+            sync_to(tr, twin)
+            tr.megastep(rounds=1)
+            twin.megastep(rounds=1)
+            wr = mp.whole_replay(tr)
+            ring, twin_ring = ((wr.base, twin.replay.base) if prioritized
+                               else (wr, twin.replay))
+            require((int(ring.ptr), int(ring.size)) ==
+                    (int(twin_ring.ptr), int(twin_ring.size)),
+                    f"{label}: ring cursor differs from the twin's")
+            ws = mp.whole_state(tr)
+            pairs = [(name, a, b) for name in ("actor", "q")
+                     for a, b in zip(tree_leaves(getattr(twin.state, name)),
+                                     tree_leaves(getattr(ws, name)))]
+            pairs.append(("critic_loss", twin.last_metrics["critic_loss"],
+                          tr.last_metrics["critic_loss"]))
+            if prioritized:
+                # the round's draws were scattered back by each group into
+                # its own shard: the whole pool and its running max
+                pairs += [(name, getattr(twin.replay, name),
+                           getattr(wr, name))
+                          for name in ("priorities", "max_priority")]
+            for name, want, got in pairs:
+                err = float((got - want).abs().max())
+                require(got.shape == want.shape and torch.allclose(
+                    got, want, rtol=MESH_RTOL, atol=MESH_ATOL),
+                    f"{label}, round {r + 1}: {name} differs from the "
+                    f"twin's by {err:.3g}, beyond rtol {MESH_RTOL} atol "
+                    f"{MESH_ATOL}")
+                worst = max(worst, err)
+        rops.reset_launch_counts()
+    finally:
+        per.sample = sample
+    out = {}
+    if prioritized:
+        require(len(drawn[True]) == len(drawn[False]) == rounds and
+                all(torch.equal(a, b) for a, b in zip(drawn[True],
+                                                      drawn[False])),
+                f"{label}: an update drew other rows than the twin's")
+        out["draws_equal"] = rounds
+    out.update({"megasteps": megasteps, "groups": groups,
+                "max_abs_diff_vs_one_device": worst,
+                "update_hz": hist.update_hz, "wall_s": wall,
+                "eval_returns": hist.eval_returns})
+    del tr, twin
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_mesh_sanitized(rops, rounds=8):
+    """Phase 2's config (SAC uniform, ac 2x2) with ``sanitize=True``: its
+    megasteps run under sync debug mode "error" with no raise, so the
+    mesh path reads nothing back to the host."""
+    import torch
+    from repro_torch.core import SpreezeTrainer
+    tr = SpreezeTrainer(full_config(sanitize=True, mesh=card_mesh(2, 2),
+                                    placement="ac"))
+    hist, launches, wall = counted_train(
+        rops, "sanitize (mesh)", tr, mesh_launches(2, rounds),
+        max_frames=2048 + rounds * ROUND_ROWS)
+    require(torch.cuda.get_sync_debug_mode() == 0 and hist.update_hz > 0,
+            "sanitize (mesh)")
+    return {"rounds": rounds, "update_hz": hist.update_hz,
+            "wall_s": wall}, launches
+
+
+def run_example():
+    """``python -m repro_torch.examples.train_sac_pendulum --seconds 3
+    --no-adapt``, as a user runs it; then the same with a mesh of one
+    card more than the machine has (``--mesh 2x1`` on one card), which
+    must exit non-zero with ``make_ac_mesh``'s message, never falling
+    back to fewer devices."""
+    import torch
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.examples.train_sac_pendulum",
+           "--seconds", "3", "--no-adapt"]
+    t = time.perf_counter()
+    ran = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         cwd=root, timeout=600)
+    wall = time.perf_counter() - t
+    require(ran.returncode == 0, f"example: {ran.stderr[-2000:]}")
+    report = json.loads(ran.stdout[ran.stdout.index("{"):])
+    require(report["update_frequency_hz"] > 0, f"example report {report}")
+    have = torch.cuda.device_count()
+    spec = f"{have + 1}x1"
+    refused = subprocess.run(cmd + ["--mesh", spec], capture_output=True,
+                             text=True, env=env, cwd=root, timeout=600)
+    msg = f"need {have + 1} devices for an {spec} ac mesh, found {have}"
+    require(refused.returncode != 0 and msg in refused.stderr,
+            f"example --mesh {spec}: rc {refused.returncode}, "
+            f"{refused.stderr[-2000:]}")
+    return report, wall, spec, msg
 
 
 def time_layers(tr):
@@ -1953,6 +2256,45 @@ def main():
         {**report, "wall_s": wall, "card": card}), flush=True)
     print(f"resilience paths: {time.perf_counter() - t_res:.1f} s",
           flush=True)
+
+    # the multi-device megastep on the one-card stand-in mesh
+    t_mesh = time.perf_counter()
+    groups = check_sharded_ops(dev)
+    print(f"sharded wrappers (G {groups}, cuda:0 repeated) bitwise equal to "
+          f"the single-device kernels on the whole pool", flush=True)
+    for label, *path in MESH_PATHS:
+        stats, counts = run_mesh_path(rops, label, *path)
+        add_launches(counts)
+        print(f"mesh path ({label}, one-card stand-in): within rtol "
+              f"{MESH_RTOL} atol {MESH_ATOL} of the single-device twin; " +
+              json.dumps({**stats, "launches": counts, "card": card}),
+              flush=True)
+    stats, counts = run_mesh_sanitized(rops)
+    add_launches(counts)
+    print("sanitize (mesh, SAC uniform, ac 2x2, sync debug mode \"error\"): "
+          + json.dumps({**stats, "launches": counts, "card": card}),
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as mroot:
+        stats, counts = run_resume_path(rops, mroot, 4, 8,
+                                        mesh_shape=(2, 2))
+    add_launches(counts)
+    print("resume (uniform, ac 2x2, preempted at round 8, resumed): bitwise "
+          "equal to the uninterrupted run on the mesh; " + json.dumps(
+              {**stats, "launches": counts, "card": card}), flush=True)
+    report, wall, spec, msg = run_example()
+    print("example (train_sac_pendulum --seconds 3 --no-adapt): " +
+          json.dumps({**report, "wall_s": wall, "card": card}), flush=True)
+    print(f"example --mesh {spec} on {torch.cuda.device_count()} card(s): "
+          f"refused, exit non-zero ({msg})", flush=True)
+    for arm in ("one device", "ac 2x2", "ac 2x2", "one device"):
+        kw = dict(eval_every_rounds=10**9)
+        if arm != "one device":
+            kw.update(mesh=card_mesh(2, 2), placement="ac")
+        rates = timed_train(1.5, **kw)
+        print(f"update_hz (SAC uniform, {arm}, one-card stand-in, 1.5 s): "
+              f"{rates['update_hz']} ({card}); " + json.dumps(rates),
+              flush=True)
+    print(f"mesh paths: {time.perf_counter() - t_mesh:.1f} s", flush=True)
 
     # the LM model kernels, then the serving path
     model_errs = check_model_kernels(dev)

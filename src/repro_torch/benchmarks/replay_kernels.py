@@ -21,6 +21,13 @@ with its arms:
   windows of the pool, merged with ``merge_topk_candidates``, must equal
   the dense top-k.
 
+With a mesh (``mesh_devices``: eight devices, which may repeat, or eight
+visible CUDA devices) ``per_scores`` and ``per_topk`` each get a
+``sharded`` arm: the pool split into the batch groups' shards of
+``trainer_rules(make_ac_mesh(2, 4, devices=...), "ac")`` (4 groups, the
+reference's bench mesh), ``per_scores_sharded`` / ``per_topk_sharded``
+over them, checked against the plain version as the other arms are.
+
 Every arm goes through ``repro_torch.kernels.ops``, so the operands'
 device picks the kernels (``cuda``) or the plain versions (``cpu``), and
 is held against its plain version before it is timed: bit for bit, and
@@ -40,7 +47,7 @@ Run:
 On the card one run launches each arm's kernel 1 + WARMUP + iters times
 (the check, the warm-up, the timed calls), ``per_scores`` twice that
 (its own table and ``global_topk``), and ``per_topk`` 4 more times (the
-two-phase check).
+two-phase check), and each sharded arm its kernel once a group a call.
 """
 from __future__ import annotations
 
@@ -56,6 +63,8 @@ from repro_torch import card_line, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import replay_ops as rops
 from repro_torch.kernels._build import REPO_ROOT
+
+MESH_DEVICES = 8         # the sharded arms' (2, 4) mesh
 
 # capacity, write rows, gather rows, features, top-k, timed calls
 PRESETS = {"full": dict(cap=16384, n=1024, bsz=1024, feat=16, k=256,
@@ -138,10 +147,36 @@ def bench_ring_gather(dev, cap, bsz, feat, iters):
     return rec, ok
 
 
-def bench_per_scores(dev, cap, iters):
+def mesh_rules(devices):
+    """The sharded arms' rules: placement "ac" over a (2, 4) mesh."""
+    from repro_torch.distributed.sharding import trainer_rules
+    from repro_torch.launch.mesh import make_ac_mesh
+    return trainer_rules(make_ac_mesh(2, 4, devices=devices), "ac")
+
+
+def _shards(x, rules):
+    """``x`` split into the batch groups' contiguous shards, each a copy
+    on its group's device."""
+    from repro_torch.distributed.sharding import group_devices, to_group
+    devs = group_devices(rules)
+    rows = x.shape[0] // len(devs)
+    return [to_group(x.narrow(0, g * rows, rows), d, copy=True)
+            for g, d in enumerate(devs)]
+
+
+def _whole(parts, dev):
+    from repro_torch.distributed.sharding import to_group
+    return torch.cat([to_group(p, dev) for p in parts])
+
+
+def bench_per_scores(dev, cap, iters, rules=None):
     pri, gumbel = _pool(dev, cap, 2)
     want = rops.per_scores_ref(pri, gumbel, ALPHA)
     arms = {"kernel": kops.per_scores, "plain": rops.per_scores_ref}
+    if rules is not None:
+        shards = _shards(pri, rules)
+        arms["sharded"] = lambda p, g, a: _whole(
+            kops.per_scores_sharded(shards, g, a, rules), dev)
     rec, ok = {}, True
     for name, fn in arms.items():
         ok &= _check(f"per_scores/{name}", fn(pri, gumbel, ALPHA), want)
@@ -155,7 +190,7 @@ def _global_topk(pri, gumbel, k):
     return v, i.to(torch.int32)
 
 
-def bench_per_topk(dev, cap, k, iters):
+def bench_per_topk(dev, cap, k, iters, rules=None):
     pri, gumbel = _pool(dev, cap, 3)
     want_v, want_i = rops.per_topk_ref(pri, gumbel, ALPHA, k)
     fin = torch.isfinite(want_v)
@@ -168,6 +203,10 @@ def bench_per_topk(dev, cap, k, iters):
     arms = {"kernel": lambda p, g: kops.per_topk(p, g, ALPHA, k),
             "global_topk": lambda p, g: _global_topk(p, g, k),
             "plain": lambda p, g: rops.per_topk_ref(p, g, ALPHA, k)}
+    if rules is not None:
+        shards = _shards(pri, rules)
+        arms["sharded"] = lambda p, g: kops.per_topk_sharded(
+            shards, g, ALPHA, k, rules)
     rec, ok = {}, True
     for name, fn in arms.items():
         ok &= check_sel(name, fn(pri, gumbel))
@@ -185,22 +224,31 @@ def bench_per_topk(dev, cap, k, iters):
     return rec, ok & two_phase_ok
 
 
-def run(tiny: bool = False, device="cuda"):
-    """Runs every table; returns ``(report, oracle_ok)``."""
+def run(tiny: bool = False, device="cuda", mesh_devices=None):
+    """Runs every table; returns ``(report, oracle_ok)``. The sharded arms
+    run over ``mesh_devices`` (eight), or over the visible CUDA devices
+    when ``device`` is a card and there are eight."""
     dev = resolve_device(device)
     p = PRESETS["tiny" if tiny else "full"]
+    if (mesh_devices is None and dev.type == "cuda"
+            and torch.cuda.device_count() >= MESH_DEVICES):
+        mesh_devices = [torch.device("cuda", i)
+                        for i in range(MESH_DEVICES)]
+    rules = None if mesh_devices is None else mesh_rules(mesh_devices)
     cfg = {"capacity": p["cap"], "write_rows": p["n"],
            "gather_rows": p["bsz"], "features": p["feat"], "topk": p["k"],
            "iters": p["iters"], "warmup": WARMUP, "tiny": tiny,
            "device": card_line(dev),
-           "timer": "cuda events" if dev.type == "cuda" else "host clock"}
+           "timer": "cuda events" if dev.type == "cuda" else "host clock",
+           "mesh": None if rules is None else repr(rules.mesh)}
     tables = {
         "ring_write": bench_ring_write(dev, p["cap"], p["n"], p["feat"],
                                        p["iters"]),
         "ring_gather": bench_ring_gather(dev, p["cap"], p["bsz"], p["feat"],
                                          p["iters"]),
-        "per_scores": bench_per_scores(dev, p["cap"], p["iters"]),
-        "per_topk": bench_per_topk(dev, p["cap"], p["k"], p["iters"]),
+        "per_scores": bench_per_scores(dev, p["cap"], p["iters"], rules),
+        "per_topk": bench_per_topk(dev, p["cap"], p["k"], p["iters"],
+                                   rules),
     }
     oracle_ok = all(ok for _, ok in tables.values())
     report = {"config": cfg, **{name: rec for name, (rec, _) in
@@ -214,9 +262,14 @@ def main(argv=None) -> int:
     ap.add_argument("--tiny", action="store_true",
                     help="the smoke preset (small shapes, fewer calls)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh-devices", default=None, metavar="DEV,...",
+                    help="the eight devices of the sharded arms' mesh, "
+                         "comma-separated (a device may repeat)")
     ap.add_argument("--out", default=DEFAULT_OUT)
     args = ap.parse_args(argv)
-    report, oracle_ok = run(args.tiny, args.device)
+    report, oracle_ok = run(args.tiny, args.device,
+                            args.mesh_devices.split(",")
+                            if args.mesh_devices else None)
     for name in ("ring_write", "ring_gather", "per_scores", "per_topk"):
         print(json.dumps({"table": "replay_kernels", "name": name,
                           **report[name]}), flush=True)

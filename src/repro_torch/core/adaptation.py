@@ -140,7 +140,8 @@ def auto_tune(env_name: str = "pendulum", algo: str = "sac", *,
               bs_grid: Sequence[int] = (128, 512, 2048, 8192, 32768),
               env_grid: Sequence[int] = (1, 2, 4, 8, 16, 32),
               rpd_grid: Sequence[int] = (1, 2, 4, 8),
-              iters: int = 3, device="cuda") -> Dict:
+              iters: int = 3, device="cuda", mesh=None,
+              placement: str = "ac") -> Dict:
     """End-to-end adaptation for a ``SpreezeConfig`` (the paper's auto
     mode). Returns {"batch_size", "num_envs", "rounds_per_dispatch",
     "bs_log", "env_log", "rpd_log"}. The searches are independent
@@ -203,7 +204,8 @@ def auto_tune(env_name: str = "pendulum", algo: str = "sac", *,
                             batch_size=bs, chunk_len=chunk_len,
                             replay_capacity=max(2 * bs, 4096),
                             warmup_frames=0, eval_every_rounds=10**9,
-                            rounds_per_dispatch=r, device=str(dev))
+                            rounds_per_dispatch=r, device=str(dev),
+                            mesh=mesh, placement=placement)
         return SpreezeTrainer(cfg).megastep
 
     rpd, rpd_log = tune_rounds_per_dispatch(make_megastep_call,

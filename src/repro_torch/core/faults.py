@@ -33,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.distributed.sharding import to_group
 
 
 class Preempted(RuntimeError):
@@ -128,15 +129,23 @@ class FaultClock:
 # --------------------------------------------------------------------------- #
 
 def tree_finite(tree) -> torch.Tensor:
-    """Bool scalar on the leaves' device: every floating tensor leaf of
-    ``tree`` is finite. Three launches (the leaves joined into one
-    vector, the test, the reduction), and nothing read back to the
-    host."""
-    flat = [leaf.reshape(-1) for leaf in tree_leaves(tree)
-            if torch.is_tensor(leaf) and leaf.is_floating_point()]
-    if not flat:
+    """Bool scalar on the first leaf's device: every floating tensor leaf
+    of ``tree`` is finite. Three launches for the leaves of one device
+    (the leaves joined into one vector, the test, the reduction), and
+    nothing read back to the host; a tree spread over a mesh's devices
+    is tested device by device and the flags joined on the first."""
+    by_device: Dict[torch.device, list] = {}
+    for leaf in tree_leaves(tree):
+        if torch.is_tensor(leaf) and leaf.is_floating_point():
+            by_device.setdefault(leaf.device, []).append(leaf.reshape(-1))
+    if not by_device:
         return torch.ones((), dtype=torch.bool)
-    return torch.isfinite(torch.cat(flat)).all()
+    flags = [torch.isfinite(torch.cat(flat)).all()
+             for flat in by_device.values()]
+    if len(flags) == 1:
+        return flags[0]
+    home = flags[0].device
+    return torch.stack([to_group(f, home) for f in flags]).all()
 
 
 def finite_guard(tree) -> bool:

@@ -1,0 +1,245 @@
+"""Actor-critic model parallelism over the trainer's mesh (paper §3.2.2,
+Fig. 2b) and its data-parallel baseline (Fig. 2a). Counterpart of the
+trainer half of ``repro/core/model_parallel.py``.
+
+The mesh is an ("ac", "batch") grid of devices (``launch.mesh``). Its G
+batch groups (``launch.mesh.ring_shard_groups``: the batch axis under
+``ac``, every device under ``dp``) each hold one shard of the replay ring
+and one replica of the algorithm state, and each update runs once a
+group on its B/G rows of the batch:
+
+* ``placement="ac"``: group g is batch column g. Its actor, ``log_alpha``,
+  their Adam states and TD3's and DDPG's target actor sit on ``(0, g)``;
+  Q tower i with its target and its Adam moments on ``(i, g)`` (a
+  ``rl.networks.PlacedEnsemble``), so each ac row updates its own towers.
+  Only rows, actions and (B/G,) Q values cross between ac rows.
+* ``placement="dp"``: group g is device g of the grid in row-major order,
+  and every parameter and Adam state is replicated on it.
+
+In both, each replica's gradients are summed over the groups once
+(``rl.base.drive_replicas``: the update's losses are the groups' shares
+of the single-device mean) and every replica applies the same sum, so
+the replicas stay bitwise equal. The ring's G shards live on the groups'
+devices; its cursor, the sampler, the env states and the draws on the
+primary device ``(0, 0)``, with replica 0's actor.
+
+``place_state`` / ``place_replay`` lay a whole ``AlgoState``,
+``ReplayState`` or ``PrioritizedState`` out on the mesh (copies), and
+``gather_state`` / ``gather_replay`` give the whole form back on the
+primary device, the form checkpoints, tests and the eval consumers read.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch._tree import tree_map
+from repro_torch.distributed.sharding import (Mesh, check_on_group,
+                                              group_devices, to_group,
+                                              trainer_rules)
+from repro_torch.replay.buffer import ReplayState
+from repro_torch.replay.prioritized import PrioritizedState
+from repro_torch.rl.base import AlgoState, UpdateStep, drive_replicas
+from repro_torch.rl.networks import PlacedEnsemble
+from repro_torch.train.optimizer import OptState
+
+
+class MeshLayout:
+    """Where a mesh trainer's carry lives: the rules, the G batch groups'
+    devices (each group's ring shard and replica home), and under ``ac``
+    the devices of each group's Q parts."""
+
+    def __init__(self, mesh: Mesh, placement: str = "ac"):
+        self.mesh, self.placement = mesh, placement
+        self.rules = trainer_rules(mesh, placement)
+        self.devices = group_devices(self.rules)
+        self.groups = len(self.devices)
+        self.primary = mesh.primary
+        self.ac_parts = self.rules.axis_size(self.rules.ac)
+
+    def tower_devices(self, g: int) -> List[torch.device]:
+        """The devices of group g's Q parts: ac row i's ``(i, g)``, or the
+        group's own device when the ensemble is not split."""
+        if self.ac_parts == 1:
+            return [self.devices[g]]
+        return [self.mesh.device(i, g) for i in range(self.ac_parts)]
+
+
+class PlacedState(NamedTuple):
+    """A mesh trainer's algorithm state: one ``AlgoState`` replica a batch
+    group, replica 0 on the primary device."""
+    replicas: Tuple[AlgoState, ...]
+
+    @property
+    def actor(self):
+        """Replica 0's actor: the sampler's, eval's and the snapshots'."""
+        return self.replicas[0].actor
+
+
+# --------------------------------------------------------------------------- #
+# the algorithm state
+# --------------------------------------------------------------------------- #
+
+def _has_target_actor(q_target) -> bool:
+    """TD3's and DDPG's target holder ``{"q", "actor"}`` (SAC's target is
+    a Q stack)."""
+    return isinstance(q_target, dict) and set(q_target) == {"q", "actor"}
+
+
+def _place_ensemble(stacked, layout: MeshLayout, g: int):
+    """Group g's copy of a Q stack: on its device, or split into the
+    layout's ac parts, part i on ``(i, g)``."""
+    devs = layout.tower_devices(g)
+    if len(devs) == 1:
+        return to_group(stacked, devs[0], copy=True)
+    m = next(iter(stacked.values()))["w"].shape[0] // len(devs)
+    return PlacedEnsemble(
+        to_group(tree_map(lambda x: x[i * m:(i + 1) * m], stacked), dev,
+                 copy=True) for i, dev in enumerate(devs))
+
+
+def _gather_ensemble(q, primary):
+    """The whole Q stack on ``primary``: a placed ensemble's parts joined
+    in tower order (a copy), else ``q`` itself."""
+    if isinstance(q, PlacedEnsemble):
+        return tree_map(lambda *parts: torch.cat(
+            [to_group(p, primary) for p in parts]), q[0], *q[1:])
+    return to_group(q, primary)
+
+
+def _map_q_side(state: AlgoState, fn_q, fn_actor) -> AlgoState:
+    """``state`` with ``fn_q`` over its Q stacks (the ensemble, its target
+    and its Adam moments) and ``fn_actor`` over everything else."""
+    def opt(o: OptState, fn):
+        return OptState(step=fn_actor(o.step), mu=fn(o.mu), nu=fn(o.nu))
+
+    tgt = state.q_target
+    tgt = ({"q": fn_q(tgt["q"]), "actor": fn_actor(tgt["actor"])}
+           if _has_target_actor(tgt) else fn_q(tgt))
+    return AlgoState(
+        actor=fn_actor(state.actor), q=fn_q(state.q), q_target=tgt,
+        log_alpha=fn_actor(state.log_alpha),
+        opt_actor=opt(state.opt_actor, fn_actor),
+        opt_q=opt(state.opt_q, fn_q),
+        opt_alpha=(None if state.opt_alpha is None
+                   else opt(state.opt_alpha, fn_actor)),
+        step=fn_actor(state.step))
+
+
+def place_state(state: AlgoState, layout: MeshLayout) -> PlacedState:
+    """One replica of the whole ``state`` a batch group (fresh copies)."""
+    return PlacedState(tuple(
+        _map_q_side(state, lambda q, g=g: _place_ensemble(q, layout, g),
+                    lambda x, dev=dev: to_group(x, dev, copy=True))
+        for g, dev in enumerate(layout.devices)))
+
+
+def gather_state(state: PlacedState, layout: MeshLayout) -> AlgoState:
+    """The whole ``AlgoState`` on the primary device, from replica 0: its
+    own tensors, and the placed Q stacks joined (a copy)."""
+    return _map_q_side(state.replicas[0],
+                       lambda q: _gather_ensemble(q, layout.primary),
+                       lambda x: to_group(x, layout.primary))
+
+
+def replace_actor(state, actor, layout: Optional[MeshLayout]):
+    """``state`` with its actor replaced by ``actor``: an ``AlgoState``'s
+    (no layout), or every replica's by a copy."""
+    if layout is None:
+        return state._replace(actor=actor)
+    return PlacedState(tuple(
+        rep._replace(actor=to_group(actor, dev, copy=True))
+        for rep, dev in zip(state.replicas, layout.devices)))
+
+
+# --------------------------------------------------------------------------- #
+# the replay ring
+# --------------------------------------------------------------------------- #
+
+def _split(x: torch.Tensor, layout: MeshLayout) -> List[torch.Tensor]:
+    rows = x.shape[0] // layout.groups
+    return [to_group(x.narrow(0, g * rows, rows), dev, copy=True)
+            for g, dev in enumerate(layout.devices)]
+
+
+def _join(shards: List[torch.Tensor], layout: MeshLayout) -> torch.Tensor:
+    return torch.cat([to_group(s, layout.primary) for s in shards])
+
+
+def place_replay(replay, layout: MeshLayout):
+    """The ring split into the groups' contiguous shards (fresh copies;
+    each field a list of G shards), the cursor on the primary device.
+    Takes a ``ReplayState`` or a ``PrioritizedState``."""
+    if isinstance(replay, PrioritizedState):
+        return PrioritizedState(
+            base=place_replay(replay.base, layout),
+            priorities=_split(replay.priorities, layout),
+            max_priority=to_group(replay.max_priority, layout.primary,
+                                  copy=True))
+    return ReplayState(
+        data={k: _split(v, layout) for k, v in replay.data.items()},
+        ptr=to_group(replay.ptr, layout.primary, copy=True),
+        size=to_group(replay.size, layout.primary, copy=True))
+
+
+def gather_replay(replay, layout: MeshLayout):
+    """The whole ring on the primary device: the shards joined in group
+    order (a copy), the cursor as it is."""
+    if isinstance(replay, PrioritizedState):
+        return PrioritizedState(base=gather_replay(replay.base, layout),
+                                priorities=_join(replay.priorities, layout),
+                                max_priority=replay.max_priority)
+    return ReplayState(data={k: _join(v, layout)
+                             for k, v in replay.data.items()},
+                       ptr=replay.ptr, size=replay.size)
+
+
+def whole_state(trainer) -> AlgoState:
+    """A trainer's ``AlgoState`` in the single-device form."""
+    if trainer.layout is None:
+        return trainer.state
+    return gather_state(trainer.state, trainer.layout)
+
+
+def whole_replay(trainer):
+    """A trainer's ring in the single-device form."""
+    if trainer.layout is None:
+        return trainer.replay
+    return gather_replay(trainer.replay, trainer.layout)
+
+
+# --------------------------------------------------------------------------- #
+# the update
+# --------------------------------------------------------------------------- #
+
+class MeshUpdate:
+    """An algorithm's update over the mesh: called as the single-device
+    update is, with a ``PlacedState``, a batch of per-group rows (each
+    field a list of G tensors, group g's on its device, as
+    ``replay.buffer.sample`` gives them on a mesh) and the whole (B, ...)
+    noises on the primary device, which it splits by rows. Each group
+    runs the algorithm's ``steps`` on its B/G rows at scale 1/G, in lock
+    step with the others (``rl.base.drive_replicas``). Returns the state
+    and group 0's metrics, whose reductions are over the whole batch,
+    with ``td_abs`` joined in group order on the primary device."""
+
+    def __init__(self, update: UpdateStep, layout: MeshLayout):
+        self.update, self.layout = update, layout
+
+    def __call__(self, state: PlacedState, batch: Dict[str, List],
+                 *noises: torch.Tensor):
+        layout = self.layout
+        G = layout.groups
+        gens = []
+        for g, (rep, dev) in enumerate(zip(state.replicas, layout.devices)):
+            local = {k: v[g] for k, v in batch.items()}
+            check_on_group(dev, local, f"group {g}'s batch")
+            eps = [to_group(e.narrow(0, g * (e.shape[0] // G),
+                                     e.shape[0] // G), dev) for e in noises]
+            gens.append(self.update.steps(rep, local, *eps, scale=1.0 / G))
+        results = drive_replicas(gens)
+        metrics = dict(results[0][1])
+        metrics["td_abs"] = torch.cat([to_group(m["td_abs"], layout.primary)
+                                       for _, m in results])
+        return state, metrics

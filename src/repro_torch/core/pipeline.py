@@ -60,6 +60,20 @@ and hangs at fixed rounds. ``sanitize`` runs each megastep (each half of
 an eager round) under ``torch.cuda.set_sync_debug_mode("error")``, so
 any operation that waits for the card raises, and checks the carry for
 non-finite values after it.
+
+**The multi-device megastep** (``mesh``, ``placement``): with an ("ac",
+"batch") mesh from ``launch.mesh.make_ac_mesh`` the fused megastep runs
+over the mesh from this one process (``core.model_parallel``): the ring
+is split into the batch groups' shards (one ring-write, gather, top-k
+and scatter launch a group), and each update runs once a group on its
+rows of the batch, the gradients summed over the groups. Under
+``placement="ac"`` (paper §3.2.2, Fig. 2b) each ac row updates its own Q
+towers and only (B,)-sized rows and Q values cross between rows; under
+``"dp"`` (Fig. 2a) every parameter is replicated. ``state`` and
+``replay`` then hold the placed forms (``model_parallel.whole_state`` /
+``whole_replay`` give the single-device forms); the sampler, the env
+states, the draws, eval, viz and the snapshots read replica 0's actor on
+the mesh's primary device.
 """
 from __future__ import annotations
 
@@ -67,6 +81,7 @@ import bisect
 import collections
 import contextlib
 import dataclasses
+import functools
 import os
 import tempfile
 import threading
@@ -81,6 +96,7 @@ import torch
 from repro_torch import resolve_device, sync_debug_mode
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.core import faults
+from repro_torch.core import model_parallel as mp
 from repro_torch.core import runtime as rt
 from repro_torch.core.transfer import make_transfer
 from repro_torch.envs import base as env_base
@@ -120,6 +136,13 @@ class SpreezeConfig:
     per_beta: float = 0.4
     nstep: int = 1                # n-step returns (APE-X uses 3)
     weight_sync: str = "live"     # live | ssd (paper's channel)
+    # multi-device megastep (paper §3.2.2, Fig. 2b/3): an ("ac","batch")
+    # mesh (``launch.mesh.make_ac_mesh``) — the double-Q ensemble splits
+    # over ``ac`` (each ac row updates its own towers), the replay ring's
+    # rows over ``batch``, the actor stays on ac row 0. None = the
+    # single-device megastep.
+    mesh: Optional[Any] = None
+    placement: str = "ac"         # ac (Fig. 2b) | dp (Fig. 2a baseline)
     # the megastep clones the actor for eval/viz at its end, before the
     # next megastep updates the parameters in place
     overlap_eval: bool = False
@@ -302,6 +325,17 @@ class SpreezeTrainer:
     def __init__(self, cfg: SpreezeConfig, draws=None):
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
+        self.layout = None          # core.model_parallel.MeshLayout
+        self.rules = None           # its distributed.sharding.MeshRules
+        if cfg.mesh is not None:
+            self.layout = mp.MeshLayout(cfg.mesh, cfg.placement)
+            self.rules = self.layout.rules
+            if self.layout.primary.type != self.device.type:
+                raise ValueError(
+                    f"the mesh's primary device {self.layout.primary} is "
+                    f"not a {self.device.type!r} device (device="
+                    f"{cfg.device!r})")
+            self.device = self.layout.primary
         if self.device.type == "cuda":
             # the reference is float32 end to end: no TF32 products
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -350,17 +384,23 @@ class SpreezeTrainer:
         if cfg.prioritized:
             self.replay = per.init_prioritized(cfg.replay_capacity, specs,
                                                self.device)
-            self.transfer = make_transfer("shared", add_fn=per.add_batch)
+            add = per.add_batch
         else:
             self.replay = rb.init_replay(cfg.replay_capacity, specs,
                                          self.device)
-            self.transfer = make_transfer(cfg.transfer, cfg.queue_size,
-                                          device=self.device)
+            add = rb.add_batch
+        if self.layout is not None:
+            self._check_mesh()
+            self.state = mp.place_state(self.state, self.layout)
+            self.replay = mp.place_replay(self.replay, self.layout)
+            add = functools.partial(add, rules=self.rules)
+        # (prioritized replay is refused off the shared transfer above)
+        self.transfer = make_transfer(cfg.transfer, cfg.queue_size,
+                                      add_fn=add, device=self.device)
         self.env_states = self.env.reset_batch(cfg.num_envs, gen)
         self._act = self.algo.make_act(self.hp)
         self._act_det = self.algo.make_act(self.hp, deterministic=True)
-        self._update = self.algo.make_update_step(self.hp, spec.obs_dim,
-                                                  spec.act_dim)
+        self._update = self._make_update()
         self._streams = threading.local()    # a worker thread's stream
         self._ssd_dir = None
         self._ssd_cache = None
@@ -370,6 +410,44 @@ class SpreezeTrainer:
         self.total_frames = 0
         self.total_updates = 0
         self.last_metrics = None     # stacked (R,) tensors per megastep
+
+    def _check_mesh(self):
+        """The reference's refusals of a mesh config, all at construction
+        (the port has no single-device path to fall back to); reads the
+        whole state before it is placed."""
+        cfg, layout = self.cfg, self.layout
+        if not self.use_fused:
+            raise ValueError("the multi-device megastep needs the fused "
+                             "path (shared transfer, async mode)")
+        n_q = tree_leaves(self.state.q)[0].shape[0]
+        if n_q % layout.ac_parts:
+            raise ValueError(f"ac axis size {layout.ac_parts} must divide "
+                             f"the Q ensemble size {n_q} (algo "
+                             f"{cfg.algo!r})")
+        groups = layout.groups
+        if cfg.replay_capacity % groups:
+            raise ValueError(f"replay_capacity {cfg.replay_capacity} must "
+                             f"be divisible by the {groups} ring shards")
+        if cfg.batch_size % groups:
+            raise ValueError(f"batch_size {cfg.batch_size} must be "
+                             f"divisible by the {groups} ring shards")
+        if cfg.prioritized and cfg.batch_size > cfg.replay_capacity // groups:
+            # each group emits batch_size top-k candidates from its shard
+            raise ValueError(
+                f"prioritized batch_size {cfg.batch_size} exceeds the "
+                f"per-group ring shard ({cfg.replay_capacity} // {groups} "
+                f"rows): group-local PER selection needs batch_size <= "
+                f"capacity // groups")
+
+    def _make_update(self):
+        """The algorithm's update for this trainer's hyperparameters; on a
+        mesh run once a batch group (``model_parallel.MeshUpdate``)."""
+        spec = self.env.spec
+        update = self.algo.make_update_step(self.hp, spec.obs_dim,
+                                            spec.act_dim)
+        if self.layout is None:
+            return update
+        return mp.MeshUpdate(update, self.layout)
 
     # ------------------------------------------------------------------ #
     # the "processes" of one round
@@ -412,15 +490,17 @@ class SpreezeTrainer:
                     cfg.replay_capacity, cfg.batch_size, act_dim, noises)
                 batch, idx, w = per.sample(replay, gumbel, cfg.batch_size,
                                            alpha=cfg.per_alpha,
-                                           beta=cfg.per_beta)
+                                           beta=cfg.per_beta,
+                                           rules=self.rules)
                 batch["weight"] = w
                 state, metrics = self._update(state, batch, *eps)
-                per.update_priorities(replay, idx, metrics["td_abs"])
+                per.update_priorities(replay, idx, metrics["td_abs"],
+                                      rules=self.rules)
             else:
                 idx, *eps = self.draws.update(replay, cfg.batch_size,
                                               act_dim, noises)
-                state, metrics = self._update(state, rb.sample(replay, idx),
-                                              *eps)
+                state, metrics = self._update(
+                    state, rb.sample(replay, idx, rules=self.rules), *eps)
             losses.append(metrics["critic_loss"])
         return state, torch.stack(losses).mean()
 
@@ -522,7 +602,10 @@ class SpreezeTrainer:
 
     def _sync(self):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            devices = ([self.device] if self.layout is None
+                       else self.layout.mesh.distinct_devices)
+            for dev in devices:
+                torch.cuda.synchronize(dev)
 
     # ------------------------------------------------------------------ #
     # weight sync to the eval/viz "processes"
@@ -756,9 +839,7 @@ class SpreezeTrainer:
                 f"snapshot_dir to enable rollback)")
         self.hp = dataclasses.replace(
             self.hp, lr=self.hp.lr * cfg.rollback_lr_backoff)
-        spec = self.env.spec
-        self._update = self.algo.make_update_step(self.hp, spec.obs_dim,
-                                                  spec.act_dim)
+        self._update = self._make_update()
         meta = resume_lib.restore_trainer(self, path)
         resume_lib.hist_restore(hist, meta.get("hist") or {})
         self._guard_q.clear()
@@ -844,8 +925,9 @@ class SpreezeTrainer:
                         f"(snapshot: {path})",
                         snapshot_path=path, round_i=round_i)
                 if clock is not None and clock.nan(round_i):
-                    self.state = self.state._replace(
-                        actor=faults.poison_actor(self.state.actor))
+                    self.state = mp.replace_actor(
+                        self.state, faults.poison_actor(self.state.actor),
+                        self.layout)
                 if self.use_fused:
                     with self._sanitize_scope():
                         self.megastep()

@@ -4,7 +4,12 @@ and ``ring_gather_fields`` / ``per_topk`` / ``priority_scatter``), the
 bench baselines
 (``per_scores`` / ``ring_write_rowloop`` / ``ring_gather_rowloop``) and
 model ops (``rmsnorm`` / ``flash_attention`` / ``decode_attention`` /
-``ssd_scan``).
+``ssd_scan``), and the mesh forms of the replay ops
+(``ring_write_fields_sharded`` / ``ring_gather_fields_sharded`` /
+``per_scores_sharded`` / ``per_topk_sharded`` /
+``priority_scatter_sharded``, and the one-field ``ring_write_sharded`` /
+``ring_gather_sharded``), the counterparts of ``repro/kernels/ops.py``'s
+``shard_map`` wrappers.
 
 Which version runs is decided by the operand's device, never by what the
 machine has: a CUDA tensor goes to the hand-written kernel (which raises
@@ -15,10 +20,13 @@ reference chose between its jnp path and its Pallas kernels with
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import (MeshRules, check_on_group,
+                                              group_devices, group_windows,
+                                              sum_on, to_group)
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import replay_ops as _replay
@@ -135,3 +143,146 @@ def ssd_scan(x: torch.Tensor, dtA: torch.Tensor, B_: torch.Tensor,
     if x.device.type == "cpu":
         return _ssd.ssd_scan_ref(x, dtA, B_, C_, chunk=chunk)
     return _ssd.ssd_scan(x, dtA, B_, C_, chunk=chunk)
+
+
+# --------------------------------------------------------------------------- #
+# the mesh: each batch group runs the replay ops above on its ring shard
+# --------------------------------------------------------------------------- #
+#
+# A sharded pool is a list of G shards, shard g holding global ring slots
+# [g * rows, (g + 1) * rows) on batch group g's device (``sharding.
+# group_devices``). Each group's op goes through the device dispatch
+# above (the kernel for a CUDA shard, the plain version for a CPU one)
+# with the group's window start, so every op launches once a group. The
+# one-card stand-in names one device for several groups: a ``to_group``
+# onto the same device returns the very tensor, so every combine writes
+# into fresh outputs.
+
+def _group_devices_of(rules: MeshRules, shards, name: str):
+    """The groups' devices, each group's operands checked against its
+    own."""
+    devs = group_devices(rules)
+    if len(shards) != len(devs):
+        raise ValueError(f"{name}: {len(shards)} shards for {len(devs)} "
+                         f"batch groups")
+    for g, (dev, shard) in enumerate(zip(devs, shards)):
+        check_on_group(dev, shard, f"{name}: shard {g}")
+    return devs
+
+
+def ring_write_fields_sharded(shards: Sequence[Sequence[torch.Tensor]],
+                              batches: Sequence[torch.Tensor],
+                              ptr: torch.Tensor, rules: MeshRules, *,
+                              capacity: Optional[int] = None):
+    """Mesh ring write, in place: every group receives the whole round's
+    rows and writes, with one ``ring_write_fields`` launch for all of its
+    fields, the rows whose slot ``(ptr + i) % capacity`` falls in its
+    window. ``shards[g]`` holds group g's fields; ``capacity`` defaults
+    to the shards' rows times the groups. Returns ``shards``."""
+    devs = _group_devices_of(rules, shards, "ring_write_fields_sharded")
+    rows = shards[0][0].shape[0]
+    cap = rows * len(devs) if capacity is None else capacity
+    for fields, dev, lo in zip(shards, devs, group_windows(rules, rows)):
+        ring_write_fields(fields, to_group(list(batches), dev),
+                          to_group(ptr, dev), capacity=cap, window_start=lo)
+    return shards
+
+
+def ring_write_sharded(data: Sequence[torch.Tensor], batch: torch.Tensor,
+                       ptr: torch.Tensor, rules: MeshRules, *,
+                       capacity: Optional[int] = None):
+    """One-field ``ring_write_fields_sharded``: ``data`` is the list of a
+    pool's G shards."""
+    ring_write_fields_sharded([[d] for d in data], [batch], ptr, rules,
+                              capacity=capacity)
+    return data
+
+
+def ring_gather_fields_sharded(shards: Sequence[Sequence[torch.Tensor]],
+                               idx: torch.Tensor, rules: MeshRules
+                               ) -> List[List[torch.Tensor]]:
+    """Mesh gather of B global indices: each group gathers all of them
+    from its shard with one ``ring_gather_fields`` launch (zeros outside
+    its window), then the reduce-scatter: group g's output is the sum,
+    over the groups h in order, of h's partial at rows ``[g * B/G, (g +
+    1) * B/G)``, on g's device. One term of each sum is nonzero, so the
+    rows equal the single-device gather's (a stored -0.0 may come back
+    as +0.0). Returns ``outs[g][f]``, group g's rows of field f."""
+    devs = _group_devices_of(rules, shards, "ring_gather_fields_sharded")
+    G, B = len(devs), idx.shape[0]
+    if B % G:
+        raise ValueError(f"a gather of {B} rows does not split over {G} "
+                         f"batch groups")
+    rows, b = shards[0][0].shape[0], B // G
+    parts = [ring_gather_fields(fields, to_group(idx, dev), window_start=lo)
+             for fields, dev, lo in zip(shards, devs,
+                                        group_windows(rules, rows))]
+    return [[sum_on([part[f].narrow(0, g * b, b) for part in parts], dev)
+             for f in range(len(parts[0]))] for g, dev in enumerate(devs)]
+
+
+def ring_gather_sharded(data: Sequence[torch.Tensor], idx: torch.Tensor,
+                        rules: MeshRules) -> List[torch.Tensor]:
+    """One-field ``ring_gather_fields_sharded``: group g's rows, one
+    tensor a group."""
+    return [out[0] for out in ring_gather_fields_sharded(
+        [[d] for d in data], idx, rules)]
+
+
+def _gumbel_slice(gumbel: torch.Tensor, g: int, rows: int, dev):
+    """Group g's slice of the one (capacity,) Gumbel field, never a new
+    draw."""
+    return to_group(gumbel.narrow(0, g * rows, rows), dev)
+
+
+def per_scores_sharded(priorities: Sequence[torch.Tensor],
+                       gumbel: torch.Tensor, alpha: float,
+                       rules: MeshRules) -> List[torch.Tensor]:
+    """Mesh PER scores: elementwise, so each group scores its priority
+    shard against its slice of the (capacity,) Gumbel field, one launch
+    a group. Returns each group's scores on its device."""
+    devs = _group_devices_of(rules, [[p] for p in priorities],
+                             "per_scores_sharded")
+    rows = priorities[0].shape[0]
+    return [per_scores(p, _gumbel_slice(gumbel, g, rows, dev), alpha)
+            for g, (p, dev) in enumerate(zip(priorities, devs))]
+
+
+def per_topk_sharded(priorities: Sequence[torch.Tensor],
+                     gumbel: torch.Tensor, alpha: float, k: int,
+                     rules: MeshRules):
+    """Mesh two-phase PER selection: each group runs ``per_topk`` on its
+    priority shard and its slice of the Gumbel field, with its window
+    start (one launch a group), and emits k candidates ``(score,
+    global_idx)``; the ``(G * k,)`` candidates are concatenated in
+    row-major group order on the first group's device
+    (``sharding.ALLGATHER_CANDIDATE_CONTRACT``) and
+    ``merge_topk_candidates`` picks k. The result equals the
+    single-device ``per_topk``: the scores bit for bit, the indices on
+    every finite slot. Requires ``k <= rows`` of a shard."""
+    devs = _group_devices_of(rules, [[p] for p in priorities],
+                             "per_topk_sharded")
+    rows, home = priorities[0].shape[0], devs[0]
+    cand = [per_topk(p, _gumbel_slice(gumbel, g, rows, dev), alpha, k,
+                     window_start=lo)
+            for g, (p, dev, lo) in enumerate(zip(
+                priorities, devs, group_windows(rules, rows)))]
+    return _replay.merge_topk_candidates(
+        torch.cat([to_group(s, home) for s, _ in cand]),
+        torch.cat([to_group(i, home) for _, i in cand]), k)
+
+
+def priority_scatter_sharded(priorities: Sequence[torch.Tensor],
+                             idx: torch.Tensor, values: torch.Tensor,
+                             rules: MeshRules):
+    """Mesh re-prioritisation, in place: every group applies the
+    in-window subset of the (B,) updates to its own shard, one launch a
+    group (the last draw of a repeated row wins, as on one device).
+    Returns ``priorities``."""
+    devs = _group_devices_of(rules, [[p] for p in priorities],
+                             "priority_scatter_sharded")
+    rows = priorities[0].shape[0]
+    for p, dev, lo in zip(priorities, devs, group_windows(rules, rows)):
+        priority_scatter(p, to_group(idx, dev), to_group(values, dev),
+                         window_start=lo)
+    return priorities

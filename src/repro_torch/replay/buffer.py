@@ -8,10 +8,18 @@ kernel or plain version by the pool's device). Both work in place on
 the ``ReplayState``'s tensors, the analogue of the JAX package's donated
 ring. ``ptr`` and ``size`` are device int32 scalars; nothing here reads
 them back to the host.
+
+On a mesh (``rules``, from ``distributed.sharding.trainer_rules``) the
+ring is placed (``core.model_parallel.place_replay``): each field is a
+list of G contiguous shards on the batch groups' devices and the cursor
+sits on the primary device. ``add_batch`` then launches one ring write a
+group (every group receives the whole round and keeps its in-window
+rows) and ``sample`` one gather a group, reduce-scattered so that group
+g holds its B/G rows of the batch.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -20,7 +28,8 @@ from repro_torch.kernels import ops as kops
 
 
 class ReplayState(NamedTuple):
-    data: Dict[str, torch.Tensor]  # each (capacity, ...) leaf
+    data: Dict[str, torch.Tensor]  # each (capacity, ...) leaf (on a mesh,
+                                   # a list of G (capacity / G, ...) shards)
     ptr: torch.Tensor              # int32 next write slot
     size: torch.Tensor             # int32 filled rows
 
@@ -61,22 +70,34 @@ def write_plan(ptr, n: int, cap: int):
     return ((ptr + drop) % cap if drop else ptr), n - drop
 
 
+def _capacity(state: ReplayState) -> int:
+    first = next(iter(state.data.values()))
+    if isinstance(first, list):
+        return first[0].shape[0] * len(first)
+    return first.shape[0]
+
+
 def add_batch(state: ReplayState, batch: Dict[str, torch.Tensor],
-              extra: Sequence[Tuple[torch.Tensor, torch.Tensor]] = ()
-              ) -> ReplayState:
+              extra: Sequence[Tuple[object, torch.Tensor]] = (), *,
+              rules=None) -> ReplayState:
     """Write N new rows at (ptr + i) % capacity, in place: one ring-write
-    launch for every field, then ``ptr``/``size`` advance on the device.
-    ``extra`` holds more (pool (capacity, ...), rows (N, ...)) pairs
-    written at the same slots in the same launch (the prioritized pool's
-    priorities)."""
+    launch for every field (one a group on a mesh), then ``ptr``/``size``
+    advance on the device. ``extra`` holds more (pool, rows (N, ...))
+    pairs written at the same slots in the same launch (the prioritized
+    pool's priorities; on a mesh the pool is a list of shards)."""
     n = next(iter(batch.values())).shape[0]
-    cap = next(iter(state.data.values())).shape[0]
+    cap = _capacity(state)
     ptr0, keep = write_plan(state.ptr, n, cap)
     pairs = [(dest, batch[k]) for k, dest in state.data.items()]
     pairs += extra
+    rows = [r[n - keep:] for _, r in pairs]
     # launched before ptr advances: ptr0 may alias it
-    kops.ring_write_fields([dest for dest, _ in pairs],
-                           [rows[n - keep:] for _, rows in pairs], ptr0)
+    pools = [dest for dest, _ in pairs]
+    if rules is None:
+        kops.ring_write_fields(pools, rows, ptr0)
+    else:
+        kops.ring_write_fields_sharded(group_fields(pools), rows, ptr0,
+                                       rules, capacity=cap)
     state.ptr.add_(n).remainder_(cap)
     state.size.add_(n).clamp_(max=cap)
     return state
@@ -91,15 +112,32 @@ def uniform_indices(state: ReplayState, batch_size: int,
     return raw % torch.clamp(state.size, min=1)
 
 
-def sample(state: ReplayState, idx: torch.Tensor
-           ) -> Dict[str, torch.Tensor]:
+def sample(state: ReplayState, idx: torch.Tensor, *, rules=None
+           ) -> Dict[str, object]:
     """Gather the rows for the uniform draws ``idx`` (int32 in [0,
     max(size, 1)), e.g. from ``uniform_indices``), one gather launch for
     every field. Ring alignment: once the pool is full its oldest live
-    row sits at ``ptr``."""
-    cap = next(iter(state.data.values())).shape[0]
+    row sits at ``ptr``. On a mesh each field comes back as a list of the
+    G groups' (B/G, ...) rows, group g's on its device."""
+    cap = _capacity(state)
     offset = torch.where(state.size >= cap, state.ptr,
                          torch.zeros_like(state.ptr))
     idx = torch.remainder(idx + offset, cap)
-    rows = kops.ring_gather_fields(list(state.data.values()), idx)
-    return dict(zip(state.data, rows))
+    if rules is None:
+        rows = kops.ring_gather_fields(list(state.data.values()), idx)
+        return dict(zip(state.data, rows))
+    return by_field(list(state.data), kops.ring_gather_fields_sharded(
+        group_fields(list(state.data.values())), idx, rules))
+
+
+def group_fields(pools: List[List[torch.Tensor]]
+                 ) -> List[List[torch.Tensor]]:
+    """Field-major shards ``pools[f][g]`` -> group-major ``[g][f]``."""
+    return [list(fields) for fields in zip(*pools)]
+
+
+def by_field(names: Sequence[str], outs: List[List[torch.Tensor]]
+             ) -> Dict[str, List[torch.Tensor]]:
+    """Group-major gather outputs ``outs[g][f]`` -> ``{name: [rows of
+    group g, ...]}``."""
+    return {name: [out[f] for out in outs] for f, name in enumerate(names)}

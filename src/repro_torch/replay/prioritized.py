@@ -16,6 +16,12 @@ draws, and importance weights normalise over the written rows only.
 Everything works in place on the ``PrioritizedState``'s tensors, and
 nothing here reads a tensor back to the host: ``n_live`` and
 ``max_priority`` stay on the device.
+
+On a mesh (``rules``) the priorities are a list of G shards beside the
+ring's (``core.model_parallel.place_replay``): the selection is the
+two-phase ``per_topk_sharded`` over the one Gumbel field, ``n_live`` and
+the importance weights' normaliser sum the shards' counts and masses on
+the primary device, and the re-prioritisation is group-local.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import sum_on, to_group
 from repro_torch.kernels import ops as kops
 from repro_torch.replay import buffer as rb
 
@@ -43,60 +50,82 @@ def init_prioritized(capacity: int, specs, device="cuda"
         max_priority=torch.ones((), dtype=torch.float32, device=dev))
 
 
-def add_batch(state: PrioritizedState, batch: Dict[str, torch.Tensor]
-              ) -> PrioritizedState:
+def add_batch(state: PrioritizedState, batch: Dict[str, torch.Tensor], *,
+              rules=None) -> PrioritizedState:
     """Write the rows into the ring and give their slots the current max
     priority (so every new row gets drawn), in place: the priorities'
-    ``(capacity, 1)`` view is one more field of the data's ring-write
-    launch, on the same slots, oversized-write drop included."""
+    ``(capacity, 1)`` view (a shard's ``(rows, 1)`` view on a mesh) is
+    one more field of the data's ring-write launch, on the same slots,
+    oversized-write drop included."""
     n = next(iter(batch.values())).shape[0]
-    cap = state.priorities.shape[0]
     # the kernel takes only contiguous rows
     rows = state.max_priority.expand(n, 1).contiguous()
-    rb.add_batch(state.base, batch,
-                 extra=[(state.priorities.view(cap, 1), rows)])
+    pri = state.priorities
+    pool = (pri.view(-1, 1) if rules is None
+            else [p.view(-1, 1) for p in pri])
+    rb.add_batch(state.base, batch, extra=[(pool, rows)], rules=rules)
     return state
 
 
 def sample(state: PrioritizedState, gumbel: torch.Tensor, batch_size: int,
-           *, alpha: float = 0.6, beta: float = 0.4
-           ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+           *, alpha: float = 0.6, beta: float = 0.4, rules=None
+           ) -> Tuple[Dict[str, object], torch.Tensor, object]:
     """-> (batch, indices (batch_size,) int32, importance weights
     normalised to max 1), for the Gumbel field ``gumbel`` (capacity,).
+    On a mesh the batch's fields and the weights are lists of the G
+    groups' rows, the indices whole on the primary device.
 
     The pool must hold at least one written row (warmup makes sure)."""
     pri = state.priorities
-    idx = kops.per_topk(pri, gumbel, alpha, batch_size)[1]
+    sharded = rules is not None
+    home = gumbel.device
+    idx = (kops.per_topk_sharded(pri, gumbel, alpha, batch_size, rules)
+           if sharded else kops.per_topk(pri, gumbel, alpha, batch_size))[1]
+    shards = pri if sharded else [pri]
     # every live row outranks every -inf slot, so draws past the live
     # count are not rows: wrap them onto the live draws
-    live = pri > 0.0
-    n_live = torch.clamp(live.sum(dtype=torch.int32), min=1)
+    n_live = torch.clamp(sum_on([(p > 0.0).sum(dtype=torch.int32)
+                                  for p in shards], home), min=1)
     pos = torch.remainder(
-        torch.arange(batch_size, dtype=torch.int32, device=pri.device),
-        n_live)
+        torch.arange(batch_size, dtype=torch.int32, device=home), n_live)
     idx = idx.index_select(0, pos)
 
     # w_i = (N * P(i))^-beta over the written rows, normalised by the max;
     # the drawn rows' priority mass is one more field of the batch's
     # gather launch
-    p = torch.where(live, torch.clamp(pri, min=1e-12) ** alpha, 0.0)
-    z = torch.clamp(p.sum(), min=1e-12)
+    p = [torch.where(s > 0.0, torch.clamp(s, min=1e-12) ** alpha, 0.0)
+         for s in shards]
+    z = torch.clamp(sum_on([s.sum() for s in p], home), min=1e-12)
     data = state.base.data
-    *rows, p_sel = kops.ring_gather_fields(list(data.values()) + [p], idx)
-    batch = dict(zip(data, rows))
-    w = (n_live.to(torch.float32) * (p_sel / z)) ** (-beta)
-    w = w / torch.clamp(w.max(), min=1e-12)
-    return batch, idx, w
+    if sharded:
+        outs = kops.ring_gather_fields_sharded(
+            [fields + [p_g] for fields, p_g in zip(
+                rb.group_fields(list(data.values())), p)], idx, rules)
+    else:
+        outs = [kops.ring_gather_fields(list(data.values()) + p, idx)]
+    w = [(to_group(n_live, out[-1].device).to(torch.float32)
+          * (out[-1] / to_group(z, out[-1].device))) ** (-beta)
+         for out in outs]
+    w_max = torch.clamp(torch.stack([to_group(x.max(), home) for x in w])
+                        .max(), min=1e-12)
+    w = [x / to_group(w_max, x.device) for x in w]
+    if not sharded:
+        return dict(zip(data, outs[0][:-1])), idx, w[0]
+    return rb.by_field(list(data), [out[:-1] for out in outs]), idx, w
 
 
 def update_priorities(state: PrioritizedState, idx: torch.Tensor,
-                      td_errors: torch.Tensor, eps: float = 1e-3
-                      ) -> PrioritizedState:
+                      td_errors: torch.Tensor, eps: float = 1e-3, *,
+                      rules=None) -> PrioritizedState:
     """Set the drawn rows' priorities to ``|TD error| + eps`` (PER eq. 1)
     with the ``priority_scatter`` kernel (the last draw of a repeated row
-    wins) and raise ``max_priority``, in place on the device."""
+    wins; one launch a group on a mesh) and raise ``max_priority``, in
+    place on the device."""
     pri_new = torch.abs(td_errors) + eps
-    kops.priority_scatter(state.priorities, idx, pri_new)
+    if rules is None:
+        kops.priority_scatter(state.priorities, idx, pri_new)
+    else:
+        kops.priority_scatter_sharded(state.priorities, idx, pri_new, rules)
     state.max_priority.copy_(torch.maximum(state.max_priority,
                                            pri_new.max()))
     return state

@@ -11,14 +11,15 @@ the state is updated in place.
 from __future__ import annotations
 
 import sys
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
 from repro_torch.rl import networks as nets
 from repro_torch.rl import td3
-from repro_torch.rl.base import (AlgoHP, AlgoState, leaf_grads, make_opts,
-                                 polyak, register_algo, with_grad)
+from repro_torch.rl.base import (AlgoHP, AlgoState, UpdateStep, batch_mean,
+                                 leaf_grads, make_opts, polyak,
+                                 register_algo, with_grad)
 
 UPDATE_NOISES = 0
 # the same exploration: clip(tanh(mlp) + explore_noise * eps, +-1)
@@ -30,13 +31,14 @@ def init_state(generator: torch.Generator, obs_dim: int, act_dim: int,
     return td3.init_state(generator, obs_dim, act_dim, hp, device, n_q=1)
 
 
-def make_update_step(hp: AlgoHP, obs_dim: int, act_dim: int):
+def make_update_step(hp: AlgoHP, obs_dim: int, act_dim: int) -> UpdateStep:
     oa, oq, _ = make_opts(hp)
 
-    def update(state: AlgoState, batch: Dict[str, torch.Tensor]
-               ) -> Tuple[AlgoState, Dict[str, torch.Tensor]]:
+    def steps(state: AlgoState, batch: Dict[str, torch.Tensor],
+              scale: float = 1.0):
         """One DDPG step on ``batch``; an optional ``batch["weight"]``
-        weighs the squared TD errors, ``td_abs`` stays unweighted."""
+        weighs the squared TD errors, ``td_abs`` stays unweighted. Yields
+        twice for the sums over the replicas, as TD3's update does."""
         tgt = state.q_target
         with torch.no_grad():
             next_a = nets.det_actor_action(tgt["actor"], batch["next_obs"])
@@ -54,26 +56,30 @@ def make_update_step(hp: AlgoHP, obs_dim: int, act_dim: int):
             w = batch.get("weight")
             if w is not None:
                 se = se * w
-            critic_loss = torch.mean(se)
-            oq.update(leaf_grads(critic_loss, qp), state.opt_q, state.q)
-            qs = qs.detach()
+            critic_loss = batch_mean(se, scale)
+            q_grads = leaf_grads(critic_loss, qp)
+        qs = qs.detach()
+        *q_grads, critic_loss, qmean = yield [*q_grads, critic_loss.detach(),
+                                              batch_mean(qs, scale)]
+        oq.update(q_grads, state.opt_q, state.q)
 
+        with torch.enable_grad():
             ap = with_grad(state.actor)
             a = nets.det_actor_action(ap, batch["obs"])
-            actor_loss = -torch.mean(nets.ensemble_q_values(
-                state.q, batch["obs"], a)[0])
+            actor_loss = -batch_mean(nets.ensemble_q_values(
+                state.q, batch["obs"], a)[0], scale)
             actor_grads = leaf_grads(actor_loss, ap)
+        *actor_grads, actor_loss = yield [*actor_grads, actor_loss.detach()]
         oa.update(actor_grads, state.opt_actor, state.actor)
 
         polyak(tgt["q"], state.q, hp.tau)
         polyak(tgt["actor"], state.actor, hp.tau)
         state.step.add_(1)
-        metrics = {"critic_loss": critic_loss.detach(),
-                   "actor_loss": actor_loss.detach(), "q_mean": qs.mean(),
-                   "td_abs": torch.abs(qs[0] - target)}
+        metrics = {"critic_loss": critic_loss, "actor_loss": actor_loss,
+                   "q_mean": qmean, "td_abs": torch.abs(qs[0] - target)}
         return state, metrics
 
-    return update
+    return UpdateStep(steps)
 
 
 register_algo("ddpg")(sys.modules[__name__])

@@ -7,6 +7,14 @@ leading axis (``w`` is (2, in, out), ``b`` is (2, out)) and evaluates
 both with one batched ``torch.matmul``, where the JAX package uses
 ``vmap``. The actor's Gaussian noise is an argument (``eps``), never
 drawn here.
+
+On a mesh under the ``ac`` placement the ensemble is a
+``PlacedEnsemble``: its towers split into parts, each part a stack on its
+own device (ac row i holds towers ``[i * n/A, (i + 1) * n/A)``). The Q
+functions below take either form: a placed ensemble receives the obs and
+action rows on each part's device and sends back only the (B,) Q values
+(paper §3.2.2, Fig. 3), and autograd carries their gradients back the
+same way, so no weight and no weight gradient crosses between ac rows.
 """
 from __future__ import annotations
 
@@ -14,6 +22,9 @@ import math
 from typing import Sequence, Tuple
 
 import torch
+
+from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.distributed.sharding import to_group
 
 LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
 _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
@@ -98,9 +109,42 @@ def init_ensemble_q(generator, obs_dim: int, act_dim: int, n: int = 2,
                           device=device)
 
 
+class PlacedEnsemble(list):
+    """A Q ensemble split over devices: a list of stacked parts (each a
+    tree with leading axis n/A), part i on ac row i's device. A list, so
+    the tree utilities (``tree_map``, ``tree_leaves``, Adam's moments,
+    polyak averaging) walk it part by part."""
+
+
+def part_device(part) -> torch.device:
+    return tree_leaves(part)[0].device
+
+
+def _placed_q_values(towers, x: torch.Tensor, dev, home) -> torch.Tensor:
+    """Q values of ``towers`` (a stack or one tower) on their device
+    ``dev``: the rows go out to ``dev``, only the values come back to
+    ``home``."""
+    return to_group(mlp_tower(towers, to_group(x, dev))[..., 0], home)
+
+
 def ensemble_q_values(stacked, obs, act) -> torch.Tensor:
-    """-> (n, B) Q values of every ensemble member."""
-    return mlp_tower(stacked, torch.cat([obs, act], dim=-1))[..., 0]
+    """-> (n, B) Q values of every ensemble member, on ``obs``'s device."""
+    x = torch.cat([obs, act], dim=-1)
+    if isinstance(stacked, PlacedEnsemble):
+        return torch.cat([_placed_q_values(part, x, part_device(part),
+                                           obs.device) for part in stacked])
+    return mlp_tower(stacked, x)[..., 0]
+
+
+def tower_q_values(stacked, i: int, obs, act) -> torch.Tensor:
+    """(B,) Q values of tower ``i`` alone (TD3's Q1)."""
+    x = torch.cat([obs, act], dim=-1)
+    if isinstance(stacked, PlacedEnsemble):
+        m = tree_leaves(stacked[0])[0].shape[0]
+        part = stacked[i // m]
+        return _placed_q_values(tree_map(lambda w: w[i % m], part), x,
+                                part_device(part), obs.device)
+    return mlp_tower(tree_map(lambda w: w[i], stacked), x)[..., 0]
 
 
 def min_q(stacked, obs, act) -> torch.Tensor:

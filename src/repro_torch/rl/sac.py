@@ -14,15 +14,16 @@ from __future__ import annotations
 
 import math
 import sys
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch._tree import tree_map
 from repro_torch.rl import networks as nets
-from repro_torch.rl.base import (AlgoHP, AlgoState, leaf_grads, make_opts,
-                                 polyak, register_algo, with_grad)
+from repro_torch.rl.base import (AlgoHP, AlgoState, UpdateStep, batch_mean,
+                                 leaf_grads, make_opts, polyak,
+                                 register_algo, with_grad)
 
 
 # the two standard-normal draws of an update: eps_next, eps_actor
@@ -46,19 +47,22 @@ def init_state(generator: torch.Generator, obs_dim: int, act_dim: int,
         step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def make_update_step(hp: AlgoHP, obs_dim: int, act_dim: int):
+def make_update_step(hp: AlgoHP, obs_dim: int, act_dim: int) -> UpdateStep:
     oa, oq, oal = make_opts(hp)
     target_entropy = -hp.target_entropy_scale * act_dim
 
-    def update(state: AlgoState, batch: Dict[str, torch.Tensor],
-               eps_next: torch.Tensor, eps_actor: torch.Tensor
-               ) -> Tuple[AlgoState, Dict[str, torch.Tensor]]:
+    def steps(state: AlgoState, batch: Dict[str, torch.Tensor],
+              eps_next: torch.Tensor, eps_actor: torch.Tensor,
+              scale: float = 1.0):
         """One SAC step on ``batch``. ``eps_next`` / ``eps_actor`` are the
         standard-normal draws (B, act_dim) for the next-state action of
         the critic target and for the actor loss. An optional
         ``batch["weight"]`` (B,) weighs each sample's squared TD error in
         the critic loss (PER importance weights); ``td_abs`` stays
-        unweighted."""
+        unweighted. Yields twice for the sums over the replicas
+        (``rl.base``): the Q gradients with the critic loss and the mean
+        Q, then the actor gradients with the mean log-prob (the
+        temperature's statistic) and the actor loss."""
         with torch.no_grad():
             alpha = torch.exp(state.log_alpha)
             next_a, next_logp = nets.sample_action(
@@ -70,27 +74,33 @@ def make_update_step(hp: AlgoHP, obs_dim: int, act_dim: int):
                 disc = hp.gamma * (1.0 - batch["done"])
             target = batch["rew"] + disc * (q_next - alpha * next_logp)
 
+        # ---- critic ------------------------------------------------------
         with torch.enable_grad():
-            # ---- critic --------------------------------------------------
             qp = with_grad(state.q)
             qs = nets.ensemble_q_values(qp, batch["obs"], batch["act"])
             se = (qs - target) ** 2
             w = batch.get("weight")     # PER importance weights (optional)
             if w is not None:
                 se = se * w
-            critic_loss = torch.mean(se)
-            oq.update(leaf_grads(critic_loss, qp), state.opt_q, state.q)
-            qs = qs.detach()
-            qmean = qs.mean()
-            td_abs = torch.abs(qs - target).mean(0)   # per-sample |TD|
+            critic_loss = batch_mean(se, scale)
+            q_grads = leaf_grads(critic_loss, qp)
+        qs = qs.detach()
+        *q_grads, critic_loss, qmean = yield [*q_grads, critic_loss.detach(),
+                                              batch_mean(qs, scale)]
+        oq.update(q_grads, state.opt_q, state.q)
+        td_abs = torch.abs(qs - target).mean(0)   # per-sample |TD|
 
-            # ---- actor, against the updated Q ensemble -------------------
+        # ---- actor, against the updated Q ensemble -----------------------
+        with torch.enable_grad():
             ap = with_grad(state.actor)
             a, logp = nets.sample_action(ap, batch["obs"], eps_actor)
-            actor_loss = torch.mean(alpha * logp
-                                    - nets.min_q(state.q, batch["obs"], a))
+            actor_loss = batch_mean(alpha * logp
+                                    - nets.min_q(state.q, batch["obs"], a),
+                                    scale)
             actor_grads = leaf_grads(actor_loss, ap)
-        logp_mean = logp.detach().mean()
+        *actor_grads, logp_mean, actor_loss = yield [
+            *actor_grads, batch_mean(logp.detach(), scale),
+            actor_loss.detach()]
         oa.update(actor_grads, state.opt_actor, state.actor)
 
         # ---- temperature: d/d(log_alpha) of -log_alpha * sg(...) ---------
@@ -100,12 +110,12 @@ def make_update_step(hp: AlgoHP, obs_dim: int, act_dim: int):
 
         polyak(state.q_target, state.q, hp.tau)
         state.step.add_(1)
-        metrics = {"critic_loss": critic_loss.detach(),
-                   "actor_loss": actor_loss.detach(), "q_mean": qmean,
-                   "alpha": alpha, "entropy": -logp_mean, "td_abs": td_abs}
+        metrics = {"critic_loss": critic_loss, "actor_loss": actor_loss,
+                   "q_mean": qmean, "alpha": alpha, "entropy": -logp_mean,
+                   "td_abs": td_abs}
         return state, metrics
 
-    return update
+    return UpdateStep(steps)
 
 
 def make_act(hp: AlgoHP, deterministic: bool = False):

@@ -21,15 +21,16 @@ Every tensor of the state is updated in place.
 from __future__ import annotations
 
 import sys
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.rl import networks as nets
-from repro_torch.rl.base import (AlgoHP, AlgoState, leaf_grads, make_opts,
-                                 polyak, register_algo, with_grad)
+from repro_torch.rl.base import (AlgoHP, AlgoState, UpdateStep, batch_mean,
+                                 leaf_grads, make_opts, polyak,
+                                 register_algo, with_grad)
 from repro_torch.train.optimizer import OptState
 
 # the one standard-normal draw of an update: the smoothing noise
@@ -55,15 +56,9 @@ def init_state(generator: torch.Generator, obs_dim: int, act_dim: int,
         step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def _tower(stacked, i: int):
-    """Tower ``i`` of a Q stack, as views."""
-    return tree_map(lambda x: x[i], stacked)
-
-
 def q1_values(stacked, obs, act) -> torch.Tensor:
     """(B,) Q values of the first tower alone."""
-    return nets.mlp_tower(_tower(stacked, 0),
-                          torch.cat([obs, act], dim=-1))[..., 0]
+    return nets.tower_q_values(stacked, 0, obs, act)
 
 
 @torch.no_grad()
@@ -83,16 +78,18 @@ def _adam_step_where(opt, grads, opt_state: OptState, params, do):
         o.copy_(torch.where(do, c, o))
 
 
-def make_update_step(hp: AlgoHP, obs_dim: int, act_dim: int):
+def make_update_step(hp: AlgoHP, obs_dim: int, act_dim: int) -> UpdateStep:
     oa, oq, _ = make_opts(hp)
 
-    def update(state: AlgoState, batch: Dict[str, torch.Tensor],
-               eps_target: torch.Tensor
-               ) -> Tuple[AlgoState, Dict[str, torch.Tensor]]:
+    def steps(state: AlgoState, batch: Dict[str, torch.Tensor],
+              eps_target: torch.Tensor, scale: float = 1.0):
         """One TD3 step on ``batch``. ``eps_target`` is the standard-normal
         (B, act_dim) draw of the target-policy smoothing noise. An
         optional ``batch["weight"]`` (B,) weighs each sample's squared TD
-        error in the critic loss; ``td_abs`` stays unweighted."""
+        error in the critic loss; ``td_abs`` stays unweighted. Yields
+        twice for the sums over the replicas (``rl.base``): the Q
+        gradients with the critic loss and the mean Q, then the actor
+        gradients with the actor loss."""
         tgt = state.q_target
         with torch.no_grad():
             noise = torch.clamp(hp.target_noise * eps_target,
@@ -113,27 +110,32 @@ def make_update_step(hp: AlgoHP, obs_dim: int, act_dim: int):
             w = batch.get("weight")
             if w is not None:
                 se = se * w
-            critic_loss = torch.mean(se)
-            oq.update(leaf_grads(critic_loss, qp), state.opt_q, state.q)
-            qs = qs.detach()
+            critic_loss = batch_mean(se, scale)
+            q_grads = leaf_grads(critic_loss, qp)
+        qs = qs.detach()
+        *q_grads, critic_loss, qmean = yield [*q_grads, critic_loss.detach(),
+                                              batch_mean(qs, scale)]
+        oq.update(q_grads, state.opt_q, state.q)
 
-            # delayed policy update, against Q1 of the updated ensemble
+        # delayed policy update, against Q1 of the updated ensemble
+        with torch.enable_grad():
             ap = with_grad(state.actor)
             a = nets.det_actor_action(ap, batch["obs"])
-            actor_loss = -torch.mean(q1_values(state.q, batch["obs"], a))
+            actor_loss = -batch_mean(q1_values(state.q, batch["obs"], a),
+                                     scale)
             actor_grads = leaf_grads(actor_loss, ap)
+        *actor_grads, actor_loss = yield [*actor_grads, actor_loss.detach()]
         do_pi = torch.remainder(state.step, hp.policy_delay) == 0
         _adam_step_where(oa, actor_grads, state.opt_actor, state.actor, do_pi)
 
         polyak(tgt["q"], state.q, hp.tau)
         polyak(tgt["actor"], state.actor, hp.tau)
         state.step.add_(1)
-        metrics = {"critic_loss": critic_loss.detach(),
-                   "actor_loss": actor_loss.detach(), "q_mean": qs.mean(),
-                   "td_abs": torch.abs(qs - target).mean(0)}
+        metrics = {"critic_loss": critic_loss, "actor_loss": actor_loss,
+                   "q_mean": qmean, "td_abs": torch.abs(qs - target).mean(0)}
         return state, metrics
 
-    return update
+    return UpdateStep(steps)
 
 
 def make_act(hp: AlgoHP, deterministic: bool = False):

@@ -7,7 +7,9 @@ trees shaped like the parameters and an int32 ``step``, so a state
 carries across one to one (``repro_torch.interop``). The bias correction
 is computed in float32 from the device step counter, as in the JAX
 package. ``update`` writes the new parameters and moments into the
-existing tensors: the port's analogue of buffer donation.
+existing tensors: the port's analogue of buffer donation. Parameters
+may sit on several devices (a Q ensemble placed over a mesh's ac rows):
+the bias corrections, two scalars, reach each device once a step.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.distributed.sharding import to_group
 
 
 class OptState(NamedTuple):
@@ -52,8 +55,13 @@ def make_optimizer(name: str, learning_rate: float, *, b1: float = 0.9,
         sf = state.step.to(torch.float32)
         bc1 = 1 - torch.pow(b1, sf)
         bc2 = 1 - torch.pow(b2, sf)
+        bcs = {bc1.device: (bc1, bc2)}
         for p, g, m, v in zip(tree_leaves(params), grads,
                               tree_leaves(state.mu), tree_leaves(state.nu)):
+            if p.device not in bcs:
+                # a placed ensemble's towers on other devices of the mesh
+                bcs[p.device] = to_group((bc1, bc2), p.device)
+            bc1, bc2 = bcs[p.device]
             m.mul_(b1).add_((1 - b1) * g)
             v.mul_(b2).add_((1 - b2) * g * g)
             p.sub_(learning_rate * ((m / bc1) / (torch.sqrt(v / bc2) + eps)))

@@ -14,6 +14,9 @@ keyed by the seed), so stopping at round R and resuming is bitwise
 equal to a run that never stopped. One ``.npz`` a snapshot, written
 atomically through ``checkpoint.save``, the last K kept. The key layout
 is the reference's under ``state/``, ``replay/`` and ``env_states/``.
+A mesh trainer's bundle holds the whole state and ring under the same
+keys (``core.model_parallel.whole_state`` / ``whole_replay``), and
+``restore_trainer`` places them back onto the trainer's mesh.
 
 Write path: the train thread publishes ``publishable(...)`` (a clone of
 every leaf enqueued on its stream and the CUDA event recorded after
@@ -31,6 +34,7 @@ import torch
 
 from repro_torch._tree import tree_map
 from repro_torch.core import faults
+from repro_torch.core import model_parallel as mp
 from repro_torch.train import checkpoint
 
 SNAP_PREFIX = "snap_"
@@ -39,12 +43,12 @@ SNAP_SUFFIX = ".npz"
 #: config fields a snapshot must agree on to be resumable: everything
 #: that changes the math or the carried shapes, but no tunable the
 #: trainer changes itself (a rollback backs ``hp.lr`` off before it
-#: restores). The reference also lists ``placement``; the port has no
-#: multi-device placement yet, so the field joins when that does.
+#: restores). As in the reference, the mesh's shape is not among them: a
+#: bundle holds the whole state, which any mesh (or none) can place.
 _SIG_FIELDS = ("env_name", "algo", "num_envs", "batch_size",
                "replay_capacity", "chunk_len", "updates_per_round",
                "rounds_per_dispatch", "nstep", "prioritized", "per_alpha",
-               "per_beta", "seed")
+               "per_beta", "placement", "seed")
 
 #: TrainHistory list fields restored as they are (the round-ordered eval
 #: log)
@@ -96,8 +100,11 @@ def config_sig(cfg) -> str:
 # --------------------------------------------------------------------------- #
 
 def bundle_from(trainer) -> Dict[str, Any]:
-    """Everything the next megastep reads (the live tensors)."""
-    return {"state": trainer.state, "replay": trainer.replay,
+    """Everything the next megastep reads, in the single-device form (the
+    live tensors; on a mesh the placed Q stacks and ring shards joined
+    into copies on the primary device)."""
+    return {"state": mp.whole_state(trainer),
+            "replay": mp.whole_replay(trainer),
             "env_states": trainer.env_states,
             "draws": trainer.draws.get_state()}
 
@@ -200,8 +207,12 @@ def restore_trainer(trainer, path: str) -> Dict[str, Any]:
         raise faults.FiniteGuardError(
             f"snapshot {path!r} contains non-finite values: refusing to "
             f"resume from a diverged state")
-    trainer.state = bundle["state"]
-    trainer.replay = bundle["replay"]
+    state, replay = bundle["state"], bundle["replay"]
+    if trainer.layout is not None:
+        state = mp.place_state(state, trainer.layout)
+        replay = mp.place_replay(replay, trainer.layout)
+    trainer.state = state
+    trainer.replay = replay
     trainer.env_states = bundle["env_states"]
     trainer.draws.set_state(bundle["draws"])
     trainer.total_frames = int(meta.get("total_frames", 0))

@@ -571,14 +571,19 @@ def test_trainer_refuses_bad_configs(kw, err):
         SpreezeTrainer(cfg)
 
 
-@pytest.mark.parametrize("field", [
-    "mesh", "placement", "resume_from", "use_pallas"])
+@pytest.mark.parametrize("field", ["resume_from", "use_pallas"])
 def test_config_refuses_fields_not_ported(field):
-    """The reference's fields whose module (multi-device placement) is
-    still to come, the Pallas switch the port has no counterpart of, and
+    """The Pallas switch the port has no counterpart of, and
     ``resume_from``, which is ``train()``'s argument in both packages."""
     with pytest.raises(TypeError):
         SpreezeConfig(**{field: None})
+
+
+@pytest.mark.parametrize("field", ["mesh", "placement"])
+def test_config_has_the_mesh_fields_with_the_references_defaults(field):
+    """The multi-device megastep's fields (``core/model_parallel.py``),
+    with the reference's defaults: no mesh, the ``ac`` placement."""
+    assert getattr(SpreezeConfig(), field) == getattr(JaxConfig(), field)
 
 
 @pytest.mark.parametrize("field", [
