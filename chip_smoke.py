@@ -108,7 +108,25 @@ and prints no result line):
      ``repro_torch.serve.engine.greedy_generate``: 8 prompts of 1024
      tokens, 64 new tokens each, each with the launch counters reset just
      before and read just after (``SERVE_LAUNCHES``); then time the
-     prefill and the decode step.
+     prefill and the decode step;
+  10. the MoE, enc-dec and VLM families and qwen2.5-32b: flash attention
+     at whisper-medium's encoder (non-causal, 1500 frames: a tail) and
+     cross shapes, mixtral-8x7b's 4096-token window over 8192, kimi's
+     head_dim 112 and paligemma-3b's 256 patch prefix at head_dim 256,
+     and decode attention over paligemma's 1344-slot cache (head_dim
+     256) and whisper's 1500-slot cross cache, each against its plain
+     version in bf16 and float32 (as phase 7) and timed beside SDPA (an
+     explicit boolean mask for the window and the prefix); serving on the
+     card against the CPU (as phase 8) for reduced mixtral-8x7b,
+     kimi-k2-1t-a32b, whisper-medium and paligemma-3b at float32 (tokens
+     equal) and bf16, with the MoE routes of the two devices compared
+     (the flipped (layer, token) routes printed); full-width
+     ``greedy_generate`` (as phase 9) of whisper-medium and
+     paligemma-3b, and of mixtral-8x7b (4 of 32 layers), kimi-k2-1t-a32b
+     (1 of 61 layers, all 384 experts, parameters drawn in bf16) and
+     qwen2.5-32b (8 of 64 layers), with exact launch counts, timed; then
+     ``python -m repro_torch.examples.serve_decode --arch mixtral-8x7b``
+     (the card's tokens against the CPU's, reduced).
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -148,7 +166,44 @@ SERVE_LAUNCHES = {
     "mamba2-130m": {"rmsnorm": 3185, "ssd_scan": 24},
     "zamba2-1.2b": {"rmsnorm": 5915, "flash_attention": 7,
                     "decode_attention": 448, "ssd_scan": 38},
+    # moe / vlm / dense as qwen2 at their depths; whisper: LayerNorms (no
+    # rmsnorm), 24 encoder + 24 self + 24 cross flash attentions in the
+    # prefill, 24 self + 24 cross decode attentions a step
+    "mixtral-8x7b": {"rmsnorm": 585, "flash_attention": 4,
+                     "decode_attention": 256},
+    "kimi-k2-1t-a32b": {"rmsnorm": 195, "flash_attention": 1,
+                        "decode_attention": 64},
+    "whisper-medium": {"flash_attention": 72, "decode_attention": 3072},
+    "paligemma-3b": {"rmsnorm": 2405, "flash_attention": 18,
+                     "decode_attention": 1152},
+    "qwen2.5-32b": {"rmsnorm": 1105, "flash_attention": 8,
+                    "decode_attention": 512},
 }
+# The new families' full-width serving runs: (layers kept, or None for
+# all; the parameters' dtype). mixtral's 32 layers (1.45 B parameters a
+# layer), kimi's 61 (17.0 B a layer: 68 GB at float32 alone) and
+# qwen2.5-32b's 64 (0.49 B a layer) do not fit one 80 GB card at 6 bytes
+# a parameter (float32 and the bf16 compute copy).
+NEW_SERVE_RUNS = {"whisper-medium": (None, "float32"),
+                  "paligemma-3b": (None, "float32"),
+                  "mixtral-8x7b": (4, "float32"),
+                  "kimi-k2-1t-a32b": (1, "bfloat16"),
+                  "qwen2.5-32b": (8, "float32")}
+# Flash attention at the new families' serving shapes (8 prompts of 1024
+# text tokens): (label, B, Sq, Sk, H, KV, d, causal, window, prefix_len)
+NEW_FLASH_SHAPES = (
+    ("whisper-medium encoder", 8, 1500, 1500, 16, 16, 64, False, None, None),
+    ("whisper-medium cross", 8, 1024, 1500, 16, 16, 64, False, None, None),
+    ("mixtral-8x7b window", 1, 8192, 8192, 32, 8, 128, True, 4096, None),
+    ("kimi-k2 d 112", 8, 1024, 1024, 64, 8, 112, True, None, None),
+    ("paligemma-3b prefix", 8, 1280, 1280, 8, 1, 256, True, None, 256),
+)
+# Decode attention: (label, B, S, H, KV, d, valid slots checked); timed
+# with every slot valid
+NEW_DECODE_SHAPES = (
+    ("paligemma-3b cache", 8, 1344, 8, 1, 256, 1281),
+    ("whisper-medium cross cache", 8, 1500, 16, 16, 64, 1500),
+)
 
 
 def require(cond, msg):
@@ -1791,6 +1846,134 @@ def time_decode_attention(dev, B, S, H, KV, iters=200):
         "shape": [B, S, H, KV, HEAD_DIM]}
 
 
+def visible_pairs(Sq, Sk, causal, window, prefix):
+    """The (query, key) pairs the mask lets through: query i sits at
+    position Sk - Sq + i and sees the keys [lo, hi) (make_mask's rule)."""
+    import torch
+    pos = torch.arange(Sk - Sq, Sk)
+    hi = torch.full_like(pos, Sk)
+    if causal:
+        hi = torch.clamp(torch.maximum(pos + 1, torch.tensor(prefix or 0)),
+                         max=Sk)
+    lo = torch.clamp(pos - window + 1, min=0) if window is not None \
+        else torch.zeros_like(pos)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def sdpa_mask(dev, Sq, Sk, causal, window, prefix):
+    """The boolean (Sq, Sk) mask of the same rule, for SDPA (None where no
+    key is hidden)."""
+    import torch
+    if not causal and window is None:
+        return None
+    qp = torch.arange(Sk - Sq, Sk, device=dev)[:, None]
+    kp = torch.arange(Sk, device=dev)[None, :]
+    m = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        m &= (qp >= kp) | (kp < (prefix or 0))
+    if window is not None:
+        m &= (qp - kp) < window
+    return m
+
+
+def check_new_attention(dev):
+    """Flash and decode attention at the new families' shapes
+    (``NEW_FLASH_SHAPES``, ``NEW_DECODE_SHAPES``), bf16 and float32,
+    against their plain versions (``kernel_close``), then timed in bf16
+    beside SDPA (an explicit boolean mask for a window or a prefix).
+    Bounds as phase 7's: the bytes (each operand read once, the output
+    written once) over 3.35 TB/s, the operations of this run's visible
+    (query, key) pairs over the bf16 tensor peak (decode: float32 over
+    the CUDA cores' rate), the larger. Returns (worst flash error, worst
+    decode error, rows of results)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    rows, worst_fa, worst_dec = [], 0.0, 0.0
+    for label, B, Sq, Sk, H, KV, d, causal, window, prefix in \
+            NEW_FLASH_SHAPES:
+        kw = dict(causal=causal, window=window, prefix_len=prefix)
+        err = 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = model_inputs(dev, Sq + Sk + d, dtype, (B, Sq, H, d),
+                                   (B, Sk, KV, d), (B, Sk, KV, d))
+            err = max(err, kernel_close(fa.flash_attention(q, k, v, **kw),
+                                        fa.attention_ref(q, k, v, **kw)))
+            del q, k, v
+            torch.cuda.empty_cache()
+        worst_fa = max(worst_fa, err)
+        q, k, v = model_inputs(dev, 21, torch.bfloat16, (B, Sq, H, d),
+                               (B, Sk, KV, d), (B, Sk, KV, d))
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        mask = sdpa_mask(dev, Sq, Sk, causal, window, prefix)
+        pairs = visible_pairs(Sq, Sk, causal, window, prefix)
+        t_bytes = (2 * q.numel() * 2 + 2 * k.numel() * 2) / \
+            HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * B * H * d * pairs / BF16_FLOP_PER_S * 1e3
+        rows.append({
+            "kernel": "flash_attention", "shape": label,
+            "dims": [B, Sq, Sk, H, KV, d], "causal": causal,
+            "window": window, "prefix_len": prefix, "max_abs_err": err,
+            "ms": event_ms(lambda: fa.flash_attention(q, k, v, **kw),
+                           iters=10, warmup=2),
+            "plain_ms": event_ms(lambda: fa.attention_ref(q, k, v, **kw),
+                                 iters=3, warmup=1),
+            "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=10,
+                warmup=2),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    for label, B, S, H, KV, d, valid in NEW_DECODE_SHAPES:
+        err = 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = model_inputs(dev, S + d, dtype, (B, H, d),
+                                   (B, S, KV, d), (B, S, KV, d))
+            vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+            err = max(err, kernel_close(
+                dec.decode_attention(q, k, v, vl),
+                dec.decode_attention_ref(q, k, v, vl)))
+        worst_dec = max(worst_dec, err)
+        q, k, v = model_inputs(dev, 22, torch.bfloat16, (B, H, d),
+                               (B, S, KV, d), (B, S, KV, d))
+        vl = torch.tensor(S, dtype=torch.int32, device=dev)
+        q4 = q[:, :, None]
+        kt, vt = (a.transpose(1, 2).contiguous() for a in (k, v))
+        t_bytes = (2 * k.numel() * 2 + 2 * q.numel() * 2 + 4) / \
+            HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * B * H * d * S / F32_FLOP_PER_S * 1e3
+        rows.append({
+            "kernel": "decode_attention", "shape": label,
+            "dims": [B, S, H, KV, d], "max_abs_err": err,
+            "ms": event_ms(lambda: dec.decode_attention(q, k, v, vl)),
+            "plain_ms": event_ms(
+                lambda: dec.decode_attention_ref(q, k, v, vl), iters=50),
+            "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
+                q4, kt, vt, enable_gqa=True)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    return worst_fa, worst_dec, rows
+
+
+def run_serve_example():
+    """``python -m repro_torch.examples.serve_decode --arch mixtral-8x7b``
+    as a user runs it: reduced, the card's tokens against the CPU's; it
+    exits non-zero when they differ."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    t = time.perf_counter()
+    ran = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.serve_decode",
+         "--arch", "mixtral-8x7b"], capture_output=True, text=True,
+        env=env, cwd=root, timeout=300)
+    require(ran.returncode == 0 and "identical across devices: True" in
+            ran.stdout, f"serve_decode example: {ran.stdout[-2000:]} "
+            f"{ran.stderr[-2000:]}")
+    return ran.stdout.strip().splitlines(), time.perf_counter() - t
+
+
 def scan_inputs(dev, seed, dtype, B, S, H, P, N):
     """x, B_, C_ ~ 0.5 N(0, 1) in ``dtype``; dtA = -0.3 softplus(N(0, 1))
     in float32 (a decay exp(dtA) of ~0.5 to ~0.97 a row, 1st to 99th
@@ -1891,14 +2074,70 @@ SERVE_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SERVE_LOGIT_TOL_BF16 = {"zamba2-1.2b": 3e-2}
 
 
+class RouteLog:
+    """Records each MoE call's routing (the experts ``moe._top_k`` picks,
+    and ``moe._routing``'s bf16 dispatch and combine), by call, so that
+    two runs fed the same tokens can be compared route by route. Given
+    another run's log (``replay``), each call hands out that run's
+    dispatch and combine in place of its own (its own still recorded)."""
+
+    def __init__(self, replay=None):
+        from repro_torch.models import moe
+        self.moe, self.replay = moe, replay
+        self.top_k, self.routing = moe._top_k, moe._routing
+        self.experts, self.slots = [], []
+
+    def __enter__(self):
+        def top_k(probs, k):
+            vals, idx = self.top_k(probs, k)
+            self.experts.append(idx.reshape(-1, k).cpu())
+            return vals, idx
+
+        def routing(logits, k, capacity):
+            out = self.routing(logits, k, capacity)
+            if self.replay is not None:
+                d, c = self.replay.slots[len(self.slots)]
+                out = (d.to(logits.device), c.to(logits.device)) + out[2:]
+            self.slots.append((out[0].cpu(), out[1].cpu()))
+            return out
+
+        self.moe._top_k, self.moe._routing = top_k, routing
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._top_k, self.moe._routing = self.top_k, self.routing
+
+
+def route_flips(a, b):
+    """Between two RouteLogs of the same calls: the (layer call, token)
+    routes whose expert set differs, and the gate values (combine
+    entries of tokens routed alike) that differ, each by one bf16
+    rounding step of a gate that sits near a rounding boundary."""
+    require(len(a.experts) == len(b.experts), "MoE calls differ in number")
+    routes = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+                 for x, y in zip(a.experts, b.experts))
+    gates = sum(int(((ca != cb) & (da == db)).sum())
+                for (da, ca), (db, cb) in zip(a.slots, b.slots))
+    return routes, gates
+
+
 def check_serving_device_vs_cpu(dev, arch, layers=2, P=40,
                                 compute_dtype="float32"):
     """Reduced ``arch`` (``layers`` layers) at ``compute_dtype``, the same
-    parameters and ``P``-token prompts on the card (kernels) and on the
-    CPU (plain versions): the logits of the prefill and of 8 decode steps
-    (both fed the CPU's tokens) agree within ``SERVE_LOGIT_TOL`` of the
-    largest; at float32 greedy_generate also gives the same tokens (bf16
-    logits tie too easily for that). Returns the gap and its limit."""
+    parameters and ``P``-token prompts (and frames or patches) on the card
+    (kernels) and on the CPU (plain versions): the logits of the prefill
+    and of 8 decode steps (both fed the CPU's tokens) agree within
+    ``SERVE_LOGIT_TOL`` of the largest; at float32 greedy_generate also
+    gives the same tokens (bf16 logits tie too easily for that). Returns
+    the gap, its limit, and (MoE) the flips between the devices.
+
+    The MoE rounds its gate values to bf16 (the reference's ``combine``,
+    at float32 compute too), so a router logit one float32 ulp off can
+    move a gate by a bf16 step (2**-8 relative): the routing is a
+    discrete decision, like a top-k choice. For the MoE the logits' limit
+    is held with the CPU's routing replayed on the card; the free run's
+    gap, its flipped routes and its flipped gate roundings are returned
+    beside it (the bf16 free run is still held to its limit)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape, RunConfig
@@ -1907,7 +2146,9 @@ def check_serving_device_vs_cpu(dev, arch, layers=2, P=40,
     from repro_torch.serve import engine
     cfg = get_config(arch).reduced(num_layers=layers)
     G = 8
-    shape = InputShape("smoke", seq_len=P, global_batch=4, kind="prefill")
+    prefix = engine.prefix_len(cfg)
+    shape = InputShape("smoke", seq_len=prefix + P, global_batch=4,
+                       kind="prefill")
     rc = RunConfig(model=cfg, shape=shape, compute_dtype=compute_dtype)
     tol = SERVE_LOGIT_TOL[compute_dtype]
     if compute_dtype == "bfloat16":
@@ -1922,33 +2163,52 @@ def check_serving_device_vs_cpu(dev, arch, layers=2, P=40,
     require(compute_dtype != "float32" or
             torch.equal(toks[str(dev)].cpu(), want_toks),
             "served tokens differ between the card and the CPU")
-    logits = {}
-    for where in ("cpu", dev):
-        p = to_device(params, where)
-        cache, lg = engine.make_prefill_step(rc, P + G)(
-            p, to_device(batch, where))
-        cache = engine._grow_cache(cfg, cache, P + G)
-        step = engine.make_decode_step(rc)
-        out = [lg]
-        for i in range(G):
-            lg, cache = step(p, want_toks[:, i:i + 1].to(where), cache,
-                             torch.tensor(P + i, dtype=torch.int32,
-                                          device=where))
-            out.append(lg)
-        logits[str(where)] = torch.stack(out).cpu()
-    want = logits["cpu"].float()
-    rel = float((logits[str(dev)].float() - want).abs().max()
-                / want.abs().max())
-    require(rel <= tol, f"serving logits card vs cpu ({compute_dtype}): "
-            f"{rel} > {tol}")
-    return rel, tol
+    total = prefix + P + G
+
+    def run(where, log):
+        p = factory.cast_params(to_device(params, where),
+                                engine.dtype_of(compute_dtype))
+        with log:
+            cache, lg = engine.make_prefill_step(rc, total)(
+                p, to_device(batch, where))
+            cache = engine._grow_cache(cfg, cache, total)
+            step = engine.make_decode_step(rc)
+            out = [lg]
+            for i in range(G):
+                lg, cache = step(p, want_toks[:, i:i + 1].to(where), cache,
+                                 torch.tensor(prefix + P + i,
+                                              dtype=torch.int32,
+                                              device=where))
+                out.append(lg)
+        return torch.stack(out).cpu().float()
+
+    def gap(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    cpu_log, dev_log = RouteLog(), RouteLog()
+    want = run("cpu", cpu_log)
+    rel = gap(run(dev, dev_log), want)
+    if cfg.family != "moe":
+        require(rel <= tol, f"serving logits card vs cpu ({compute_dtype}):"
+                f" {rel} > {tol}")
+        return rel, tol, None
+    flips = dict(zip(("routes", "gates"), route_flips(cpu_log, dev_log)),
+                 free_gap=rel)
+    replayed = gap(run(dev, RouteLog(replay=cpu_log)), want)
+    require(replayed <= tol and (compute_dtype == "float32" or rel <= tol),
+            f"serving logits card vs cpu ({compute_dtype}): {replayed} with"
+            f" the CPU's routing, {rel} free, limit {tol} (flips {flips})")
+    return replayed, tol, flips
 
 
-def run_serving_main_path(dev, arch):
-    """Full-width ``arch`` through greedy_generate: counters reset just
-    before, exact counts (``SERVE_LAUNCHES``) asserted just after. Then
-    the prefill and the decode step are timed through the engine's own
-    step functions."""
+def run_serving_main_path(dev, arch, layers=None, param_dtype="float32"):
+    """Full-width ``arch`` (``layers`` of its layers when given, the
+    parameters drawn in ``param_dtype``) through greedy_generate: counters
+    reset just before, exact counts (``SERVE_LAUNCHES``) asserted just
+    after. Then the prefill and the decode step are timed through the
+    engine's own step functions."""
+    import dataclasses
+
     import torch
     from repro_torch._tree import tree_leaves
     from repro_torch.configs import get_config
@@ -1958,11 +2218,15 @@ def run_serving_main_path(dev, arch):
     from repro_torch.models import factory
     from repro_torch.serve import engine
     cfg = get_config(arch)
-    shape = InputShape("serve", seq_len=SERVE_PROMPT,
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    prefix = engine.prefix_len(cfg)
+    shape = InputShape("serve", seq_len=prefix + SERVE_PROMPT,
                        global_batch=SERVE_B, kind="prefill")
     rc = RunConfig(model=cfg, shape=shape)       # bf16 compute
     params = factory.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(0))
+        cfg, torch.Generator(device=dev).manual_seed(0),
+        dtype=engine.dtype_of(param_dtype))
     batch = make_batch(cfg, shape,
                        torch.Generator(device=dev).manual_seed(1))
     n_params = sum(a.numel() for a in tree_leaves(params))
@@ -1987,7 +2251,8 @@ def run_serving_main_path(dev, arch):
 
     # layer times: prefill, and decode steps on the prefill's cache
     p = factory.cast_params(params, torch.bfloat16)
-    total = SERVE_PROMPT + SERVE_GEN
+    del params
+    total = prefix + SERVE_PROMPT + SERVE_GEN
     prefill = engine.make_prefill_step(rc, total)
     step = engine.make_decode_step(rc)
 
@@ -2005,12 +2270,15 @@ def run_serving_main_path(dev, arch):
             bool(torch.isfinite(logits).all()), "prefill logits")
     cache = engine._grow_cache(cfg, cache, total)
     tok = toks[:, :1].to(dev)
-    pos = torch.tensor(SERVE_PROMPT, dtype=torch.int32, device=dev)
+    pos = torch.tensor(prefix + SERVE_PROMPT, dtype=torch.int32,
+                       device=dev)
     (logits, _), step_ms = timed(lambda: step(p, tok, cache, pos), 16)
     require(bool(torch.isfinite(logits).all()), "decode logits")
     cache_bytes = sum(a.numel() * a.element_size()
                       for a in tree_leaves(cache))
-    stats = {"arch": arch, "batch": SERVE_B, "prompt": SERVE_PROMPT,
+    stats = {"arch": arch, "layers": cfg.num_layers,
+             "param_dtype": param_dtype, "batch": SERVE_B,
+             "prompt": SERVE_PROMPT, "prefix": prefix,
              "gen": SERVE_GEN, "params": n_params,
              "wall_s": wall, "tokens_per_s": SERVE_B * SERVE_GEN / wall,
              "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
@@ -2318,7 +2586,8 @@ def main():
             ("zamba2-1.2b", 5, 64, "float32"),
             (SERVE_ARCH, 2, 40, "bfloat16"),
             ("zamba2-1.2b", 5, 64, "bfloat16")):
-        rel, tol = check_serving_device_vs_cpu(dev, arch, layers, P, dtype)
+        rel, tol, _ = check_serving_device_vs_cpu(dev, arch, layers, P,
+                                                  dtype)
         print(f"serving on cuda vs cpu (reduced {arch}, {layers} layers, "
               f"{dtype}, {P}-token prompts, prefill + 8 decode steps): "
               f"{'tokens equal, ' if dtype == 'float32' else ''}logits max "
@@ -2333,6 +2602,45 @@ def main():
         for k in ("tokens_per_s", "prefill_ms", "decode_step_ms",
                   "peak_mem_gb"):
             print(f"serving {arch} {k} {stats[k]} ({card})", flush=True)
+
+    # the MoE, enc-dec and VLM families and qwen2.5-32b
+    t_fam = time.perf_counter()
+    torch.cuda.empty_cache()
+    worst_fa, worst_dec, rows = check_new_attention(dev)
+    errs["flash_attention"] = max(errs["flash_attention"], worst_fa)
+    errs["decode_attention"] = max(errs["decode_attention"], worst_dec)
+    for row in rows:
+        print(f"{row['kernel']} ({row['shape']}): " + json.dumps(
+            {**row, "card": card}), flush=True)
+    for arch, P in (("mixtral-8x7b", 80), ("kimi-k2-1t-a32b", 40),
+                    ("whisper-medium", 40), ("paligemma-3b", 40)):
+        for dtype in ("float32", "bfloat16"):
+            rel, tol, flips = check_serving_device_vs_cpu(dev, arch, 2, P,
+                                                          dtype)
+            print(f"serving on cuda vs cpu (reduced {arch}, 2 layers, "
+                  f"{dtype}, {P}-token prompts, prefill + 8 decode steps): "
+                  f"{'tokens equal, ' if dtype == 'float32' else ''}logits "
+                  f"max diff {rel:.3g} of the largest (limit {tol})" +
+                  ("" if flips is None else
+                   f" with the CPU's routing replayed; free run "
+                   f"{flips['free_gap']:.3g}, (layer, token) routes flipped "
+                   f"{flips['routes']}, gate values a bf16 step apart "
+                   f"{flips['gates']}"), flush=True)
+    for arch, (layers, param_dtype) in NEW_SERVE_RUNS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stats, counts = run_serving_main_path(dev, arch, layers, param_dtype)
+        add_launches(counts)
+        print(f"serving main path ({arch}): " +
+              json.dumps({**stats, "card": card}), flush=True)
+        for k in ("tokens_per_s", "prefill_ms", "decode_step_ms",
+                  "peak_mem_gb"):
+            print(f"serving {arch} {k} {stats[k]} ({card})", flush=True)
+    torch.cuda.empty_cache()
+    lines, wall = run_serve_example()
+    print(f"example (serve_decode --arch mixtral-8x7b, {wall:.1f} s): " +
+          " | ".join(lines[:4]), flush=True)
+    print(f"new families: {time.perf_counter() - t_fam:.1f} s", flush=True)
 
     sources = {"ring_write": ("ring_ops.cu", "replay_ops.py:188"),
                "ring_gather": ("ring_ops.cu", "replay_ops.py:302"),

@@ -1,29 +1,44 @@
-"""Architecture registry: ``get_config(arch_id)`` and ``ARCHS``.
+"""Architecture registry: ``get_config(arch_id)`` and ``ARCHS``, and the
+input shapes: ``get_shape(shape_id)`` and ``SHAPES``.
 
-The port registers the architectures whose family it serves: the dense
-family (``qwen2-0.5b``, ``smollm-360m``, ``h2o-danube-1.8b``), the SSM
-family (``mamba2-130m``) and the hybrid family (``zamba2-1.2b``). The
-reference's other configs come with their families (ROADMAP.md, queue 1).
+All ten of the reference's architectures, in its order: the dense family
+(``smollm-360m``, ``qwen2.5-32b``, ``h2o-danube-1.8b``, ``qwen2-0.5b``),
+the MoE family (``mixtral-8x7b``, ``kimi-k2-1t-a32b``), the enc-dec
+family (``whisper-medium``), the SSM family (``mamba2-130m``), the VLM
+family (``paligemma-3b``) and the hybrid family (``zamba2-1.2b``).
 """
 from repro_torch.configs.base import (InputShape, ModelConfig, MoEConfig,
                                       RunConfig, SSMConfig)
+from repro_torch.configs.shapes import (DECODE_32K, LONG_500K, PREFILL_32K,
+                                        SHAPES, TRAIN_4K)
 
-from repro_torch.configs import (h2o_danube_1_8b, mamba2_130m, qwen2_0_5b,
-                                 smollm_360m, zamba2_1_2b)
+from repro_torch.configs import (
+    smollm_360m, qwen2_5_32b, mixtral_8x7b, whisper_medium, mamba2_130m,
+    paligemma_3b, h2o_danube_1_8b, qwen2_0_5b, kimi_k2_1t_a32b, zamba2_1_2b,
+)
 
 ARCHS = {
     m.CONFIG.name: m.CONFIG
-    for m in (smollm_360m, mamba2_130m, h2o_danube_1_8b, qwen2_0_5b,
-              zamba2_1_2b)
+    for m in (
+        smollm_360m, qwen2_5_32b, mixtral_8x7b, whisper_medium, mamba2_130m,
+        paligemma_3b, h2o_danube_1_8b, qwen2_0_5b, kimi_k2_1t_a32b,
+        zamba2_1_2b,
+    )
 }
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCHS:
-        raise KeyError(f"unknown or not yet ported arch {arch_id!r}; "
-                       f"known: {sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch_id]
 
 
-__all__ = ["ARCHS", "InputShape", "ModelConfig", "MoEConfig", "RunConfig",
-           "SSMConfig", "get_config"]
+def get_shape(shape_id: str) -> InputShape:
+    if shape_id not in SHAPES:
+        raise KeyError(f"unknown shape {shape_id!r}; known: {sorted(SHAPES)}")
+    return SHAPES[shape_id]
+
+
+__all__ = ["ARCHS", "SHAPES", "InputShape", "ModelConfig", "MoEConfig",
+           "RunConfig", "SSMConfig", "get_config", "get_shape", "TRAIN_4K",
+           "PREFILL_32K", "DECODE_32K", "LONG_500K"]

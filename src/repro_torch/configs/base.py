@@ -72,10 +72,28 @@ class ModelConfig:
         if self.head_dim == 0 and self.num_heads > 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 
+    # ---- derived quantities -------------------------------------------------
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def is_moe(self) -> bool:
+        return self.moe is not None
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if decode over very long context is O(1)/O(window) per token."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window is not None
+
     def param_count(self) -> int:
         """Analytic parameter count (embeddings + blocks), matches init_params."""
         from repro_torch.models.factory import count_params_analytic
         return count_params_analytic(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.factory import count_params_analytic
+        return count_params_analytic(self, active_only=True)
 
     def reduced(self, num_layers: int = 2, d_model: int = 256,
                 max_experts: int = 4, vocab: int = 512) -> "ModelConfig":
@@ -122,6 +140,10 @@ class InputShape:
     seq_len: int
     global_batch: int
     kind: str                     # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
 
 
 @dataclass(frozen=True)

@@ -1,9 +1,10 @@
-"""Synthetic token batches.
+"""Synthetic token / frame / patch batches.
 
-Counterpart of ``repro/data/tokens.py`` for the families the port serves
-(dense, ssm and hybrid: tokens only). Tokens are drawn from an explicit
-``torch.Generator`` on its device; JAX's threefry gives other tokens from
-the same seed, so parity tests carry the reference's batch across instead.
+Counterpart of ``repro/data/tokens.py``. Tokens, frame embeddings
+(enc-dec) and patch embeddings (VLM) are drawn from an explicit
+``torch.Generator`` on its device, in that order; JAX's threefry gives
+other numbers from the same seed, so parity tests carry the reference's
+batch across instead.
 """
 from __future__ import annotations
 
@@ -14,13 +15,27 @@ import torch
 from repro_torch.configs.base import InputShape, ModelConfig
 
 
+def text_len(cfg: ModelConfig, shape_seq: int) -> int:
+    """Token count for the given total sequence length (VLMs reserve the
+    patch prefix inside the assigned seq_len)."""
+    if cfg.family == "vlm":
+        return shape_seq - cfg.num_patch_tokens
+    return shape_seq
+
+
 def make_batch(cfg: ModelConfig, shape: InputShape, gen: torch.Generator
                ) -> Dict[str, torch.Tensor]:
-    """``shape.global_batch`` prompts of ``shape.seq_len`` int32 tokens."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"batches for family {cfg.family!r} (frames, patches) are not "
-            "ported yet (ROADMAP.md, queue 1)")
-    return {"tokens": torch.randint(
-        0, cfg.vocab_size, (shape.global_batch, shape.seq_len),
-        generator=gen, device=gen.device, dtype=torch.int32)}
+    """``shape.global_batch`` prompts of ``text_len`` int32 tokens, and
+    float32 ``frames`` (B, encoder_seq, D) for enc-dec or ``patches``
+    (B, num_patch_tokens, D) for the VLM."""
+    B, dev = shape.global_batch, gen.device
+    out = {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, text_len(cfg, shape.seq_len)),
+        generator=gen, device=dev, dtype=torch.int32)}
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                    generator=gen, device=dev)
+    if cfg.family == "vlm":
+        out["patches"] = torch.randn((B, cfg.num_patch_tokens, cfg.d_model),
+                                     generator=gen, device=dev)
+    return out

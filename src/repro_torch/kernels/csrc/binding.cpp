@@ -337,7 +337,8 @@ void check_attention_dims(int64_t H, int64_t KV, int64_t d) {
 
 void flash_attention(const at::Tensor& q, const at::Tensor& k,
                      const at::Tensor& v, at::Tensor out, bool causal,
-                     std::optional<int64_t> window, double scale) {
+                     std::optional<int64_t> window,
+                     std::optional<int64_t> prefix_len, double scale) {
   const bool bf16 = check_activation(q, "q");
   check_operand(k, "k", q.scalar_type());
   check_operand(v, "v", q.scalar_type());
@@ -350,11 +351,15 @@ void flash_attention(const at::Tensor& q, const at::Tensor& k,
   TORCH_CHECK(k.size(0) == B && k.size(3) == d, "k must be (B, Sk, KV, d)");
   check_attention_dims(H, KV, d);
   TORCH_CHECK(Sq < (1 << 30) && Sk < (1 << 30), "sequence too long");
+  const int64_t prefix = prefix_len.value_or(0);
+  TORCH_CHECK(prefix >= 0 && prefix <= Sk, "prefix_len ", num(prefix),
+              " not in [0, ", num(Sk), "]");
   const c10::cuda::CUDAGuard guard(q.device());
   C10_CUDA_CHECK(launch_flash_attention(
       out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk,
-      H, KV, d, static_cast<float>(scale), causal, window.has_value(),
-      window.value_or(0), bf16, c10::cuda::getCurrentCUDAStream()));
+      H, KV, d, static_cast<float>(scale), causal, prefix,
+      window.has_value(), window.value_or(0), bf16,
+      c10::cuda::getCurrentCUDAStream()));
 }
 
 void decode_attention(const at::Tensor& q, const at::Tensor& k_cache,
@@ -454,7 +459,7 @@ TORCH_LIBRARY(repro_torch, m) {
   m.def("ring_gather_rowloop(Tensor data, Tensor idx) -> Tensor");
   m.def("rmsnorm(Tensor x, Tensor weight, Tensor(a!) out, float eps) -> ()");
   m.def("flash_attention(Tensor q, Tensor k, Tensor v, Tensor(a!) out, "
-        "bool causal, int? window, float scale) -> ()");
+        "bool causal, int? window, int? prefix_len, float scale) -> ()");
   m.def("decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, "
         "Tensor valid_len, Tensor(a!) out, float scale) -> ()");
   m.def("ssd_scan(Tensor x, Tensor dtA, Tensor B_, Tensor C_, int chunk) "

@@ -25,9 +25,10 @@
 // arithmetic stays as it is (decode_attention.py:39-53: q, k and v upcast
 // to float32, p and both products in float32), and the design moves bytes:
 //   * A lane holds kLaneElems (8) consecutive elements of a key row, 16
-//     bytes of bf16: kL lanes hold a row (8 up to d 64, 16 up to d 128),
-//     so a warp step covers 32 / kL slots. The lane converts its elements
-//     to float32 once and uses them for every head of the block; it keeps
+//     bytes of bf16: kL lanes hold a row (8 up to d 64, 16 up to d 128,
+//     the whole warp up to d 256), so a warp step covers 32 / kL slots.
+//     The lane converts its elements to float32 once and uses them for
+//     every head of the block; it keeps
 //     q's matching elements in float32 registers. Its partial dot
 //     products of the kH heads are summed over the row's lanes by a
 //     transposed butterfly (fold_heads: at each __shfl_xor_sync a lane
@@ -97,7 +98,8 @@ __host__ __device__ constexpr int ring_words() {
   return kStages * stage_steps<T>() * 2 * 32 * lane_words<T>();
 }
 
-// The merge's states (kWarps x heads x (d + 2) floats) fit in the rings.
+// The merge's states (kWarps x heads x (d + 2) floats) fit in the rings,
+// up to the largest head dimension: 8,256 of the 12,288 words at d 256.
 static_assert(kWarps * kDecodeHeadChunk * (kMaxHeadDim + 2) <=
                   kWarps * ring_words<float>(),
               "decode merge area");
@@ -437,7 +439,9 @@ __device__ __forceinline__ float block_reduce(float x, float* red, Op op) {
 // side by side (a split a thread at a time, so the loads overlap) and
 // keep each split's weight 2^(m_s - M) in shared memory. Thread t then
 // sums column t % d over the splits s with s % groups == t / d (groups =
-// kCombineThreads / d), and the groups' sums are added.
+// kCombineThreads / d), and the groups' sums are added. A head wider
+// than the block (d 256) is one group: thread t sums columns t, t +
+// kCombineThreads, ... over every split.
 template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
     decode_combine_kernel(T* __restrict__ out,
@@ -465,7 +469,18 @@ __global__ void __launch_bounds__(kCombineThreads)
   }
   den = block_reduce(den, red, [](float x, float y) { return x + y; });
   // block_reduce's barriers made wts visible
-  const int groups = d <= kCombineThreads ? kCombineThreads / d : 1;
+  T* orow = out + (static_cast<int64_t>(b) * H + h) * d;
+  if (d > kCombineThreads) {
+    for (int col = threadIdx.x; col < d; col += kCombineThreads) {
+      float num = 0.0f;
+#pragma unroll 4
+      for (int s = 0; s < nsplit; ++s)
+        num += wts[s] * part_acc[((base + s) * G + g) * d + col];
+      orow[col] = from_f32<T>(num / fmaxf(den, 1e-30f));
+    }
+    return;
+  }
+  const int groups = kCombineThreads / d;
   const int col = threadIdx.x % d;
   const int group = threadIdx.x / d;
   float num = 0.0f;
@@ -479,8 +494,7 @@ __global__ void __launch_bounds__(kCombineThreads)
   __syncthreads();
   if (threadIdx.x < d) {
     for (int j = 1; j < groups; ++j) num += red[j * d + threadIdx.x];
-    out[(static_cast<int64_t>(b) * H + h) * d + threadIdx.x] =
-        from_f32<T>(num / fmaxf(den, 1e-30f));
+    orow[threadIdx.x] = from_f32<T>(num / fmaxf(den, 1e-30f));
   }
 }
 
@@ -499,7 +513,9 @@ void launch_split(const SplitArgs<T>& args, bool vec, dim3 grid,
 template <typename T, int kH>
 void launch_heads(const SplitArgs<T>& args, bool vec, dim3 grid,
                   cudaStream_t stream) {
-  if (args.d > 8 * kLaneElems) {
+  if (args.d > 16 * kLaneElems) {
+    launch_split<T, kH, 32>(args, vec, grid, stream);
+  } else if (args.d > 8 * kLaneElems) {
     launch_split<T, kH, 16>(args, vec, grid, stream);
   } else {
     launch_split<T, kH, 8>(args, vec, grid, stream);

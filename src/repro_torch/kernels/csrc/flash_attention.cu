@@ -6,8 +6,13 @@
 // block owns one (b, h, 64-query tile) and loops over the 64-key tiles
 // itself; blocks run independently. The query heads of a group
 // (h / (H / KV)) read the same KV head; repeated KV is never materialised.
-// The mask is the reference's: finite -1e30 scores and p = 0 where a key
-// is masked, so a row whose keys are all masked (in a tile, or at all)
+// The mask is the reference's (make_mask, attention.py:83-100): under the
+// causal mask a key is visible to a query at or after it, or when it lies
+// in the prefix (position < prefix_len: the VLM's patches, seen by every
+// query); a window hides keys window or more before the query. So the keys
+// a row sees are one range, [max(0, pos - window + 1), min(Sk, max(pos +
+// 1, prefix_len))). Masked scores are the finite -1e30 and p = 0 where a
+// key is masked, so a row whose keys are all masked (in a tile, or at all)
 // gives no NaN; the normaliser has a 1e-30 floor. Key tiles that no row
 // of the block can see (after the causal diagonal, before the window) are
 // skipped; a fully masked tile leaves the running state as it is.
@@ -24,7 +29,10 @@
 // bf16 operands (the serving path): flash_tc_kernel, on the tensor cores.
 //   * Four warps a block, 16 query rows each; each warp keeps its rows'
 //     running max and sum in registers (a row lives on the four lanes of
-//     a quad, which reduce with two shuffles). Four blocks an SM at d 64.
+//     a quad, which reduce with two shuffles). Four blocks an SM at d 64;
+//     one at d 256 (paligemma-3b), whose 169 KB of shared memory and 16 x
+//     256 float32 accumulator a warp (128 registers a thread) leave room
+//     for no second block.
 //   * Loads: the Q tile once, then K and V tiles through a ring of two
 //     stages in shared memory by 16-byte cp.async with zero fill, so tile
 //     t + 1 loads while tile t computes; one barrier a tile. The head dim
@@ -96,7 +104,7 @@ __global__ void __launch_bounds__(kThreads)
     flash_kernel(float* __restrict__ out, const float* __restrict__ q,
                  const float* __restrict__ k, const float* __restrict__ v,
                  int Sq, int Sk, int H, int KV, int d, float scale,
-                 bool causal, bool has_window, int window) {
+                 bool causal, int prefix, bool has_window, int window) {
   extern __shared__ float smem[];
   const int dp = d + 1;                 // padded rows: no bank conflicts
   float* Qs = smem;                     // kBQ x dp
@@ -134,7 +142,7 @@ __global__ void __launch_bounds__(kThreads)
   // the keys some row of this block may see: [k_lo, k_hi)
   const int q_last = min(q0 + kBQ, Sq) - 1;
   int k_hi = Sk;
-  if (causal) k_hi = min(k_hi, q_offset + q_last + 1);
+  if (causal) k_hi = min(k_hi, max(q_offset + q_last + 1, prefix));
   int k_lo = 0;
   if (has_window) k_lo = max(0, q_offset + q0 - window + 1);
   const int kt_end = k_hi > 0 ? (k_hi + kBK - 1) / kBK : 0;
@@ -179,7 +187,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
         ok[j] = kpos < Sk;
-        if (causal) ok[j] = ok[j] && qpos >= kpos;
+        if (causal) ok[j] = ok[j] && (qpos >= kpos || kpos < prefix);
         if (has_window) ok[j] = ok[j] && (qpos - kpos) < window;
         sc[i][j] = ok[j] ? sc[i][j] * scale : kNegInf;
         mx = fmaxf(mx, sc[i][j]);
@@ -256,9 +264,10 @@ __host__ __device__ constexpr int tc_row() {
 // Blocks an SM the registers are capped for: four at d <= 64 (the served
 // models' 64; 46 KB of shared memory a block, at most 128 registers a
 // thread, a few spilled), fewer for wider heads, whose shared-memory ring
-// and accumulators are larger.
+// and accumulators are larger: one at d 256, whose shared memory alone
+// (169 KB) rules out a second.
 template <int kD>
-constexpr int kTcMinBlocks = kD <= 4 ? 4 : kD <= 6 ? 3 : 2;
+constexpr int kTcMinBlocks = kD <= 4 ? 4 : kD <= 6 ? 3 : kD <= 8 ? 2 : 1;
 
 template <int kD>
 __host__ __device__ constexpr size_t tc_smem_bytes() {
@@ -319,7 +328,7 @@ __global__ void __launch_bounds__(kTcThreads, kTcMinBlocks<kD>)
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, int Sq, int Sk,
                     int H, int KV, int d, float scale, bool causal,
-                    bool has_window, int window) {
+                    int prefix, bool has_window, int window) {
   constexpr int kRow = tc_row<kD>();
   constexpr int kTile = kBK * kRow;
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -349,7 +358,7 @@ __global__ void __launch_bounds__(kTcThreads, kTcMinBlocks<kD>)
   // the keys some row of this block may see: [k_lo, k_hi)
   const int q_last = min(q0 + kBQ, Sq) - 1;
   int k_hi = Sk;
-  if (causal) k_hi = min(k_hi, q_offset + q_last + 1);
+  if (causal) k_hi = min(k_hi, max(q_offset + q_last + 1, prefix));
   int k_lo = 0;
   if (has_window) k_lo = max(0, q_offset + q0 - window + 1);
   const int kt0 = k_lo / kBK;
@@ -385,14 +394,15 @@ __global__ void __launch_bounds__(kTcThreads, kTcMinBlocks<kD>)
 
   // this warp's first query position
   const int qw = q_offset + q0 + 16 * warp;
-  // the keys that rows g and g + 8 see (the causal, window and tail masks
-  // as one range): [vis_lo, vis_hi)
+  // the keys that rows g and g + 8 see (the causal, prefix, window and
+  // tail masks as one range): [vis_lo, vis_hi)
   int vis_lo[2], vis_hi[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int64_t qpos = qw + g + 8 * r;
     const int64_t first = qpos - window + 1;    // window <= Sq + Sk + 1
-    vis_hi[r] = causal && qpos + 1 < Sk ? static_cast<int>(qpos + 1) : Sk;
+    const int64_t last = qpos + 1 > prefix ? qpos + 1 : prefix;
+    vis_hi[r] = causal && last < Sk ? static_cast<int>(last) : Sk;
     vis_lo[r] = !has_window || first < 0 ? 0
                 : first < Sk             ? static_cast<int>(first)
                                          : Sk;
@@ -437,7 +447,8 @@ __global__ void __launch_bounds__(kTcThreads, kTcMinBlocks<kD>)
     // whose every key the warp's 16 rows all see (most tiles) takes no
     // mask; elsewhere each element is two compares with its row's range.
     const int k0 = kt * kBK;
-    const bool full = k0 + kBK <= Sk && (!causal || qw >= k0 + kBK - 1) &&
+    const bool full = k0 + kBK <= Sk &&
+                      (!causal || qw >= k0 + kBK - 1 || k0 + kBK <= prefix) &&
                       (!has_window || qw + 15 - k0 < window);
     int lo_rel[2], hi_rel[2];
 #pragma unroll
@@ -567,8 +578,8 @@ template <int kD, bool kVec>
 cudaError_t launch_tc(void* out, const void* q, const void* k,
                       const void* v, int64_t B, int64_t Sq, int64_t Sk,
                       int64_t H, int64_t KV, int64_t d, float scale,
-                      bool causal, bool has_window, int64_t window,
-                      cudaStream_t stream) {
+                      bool causal, int prefix, bool has_window,
+                      int64_t window, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<kD>();
   auto kernel = flash_tc_kernel<kD, kVec>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -583,7 +594,7 @@ cudaError_t launch_tc(void* out, const void* q, const void* k,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<int>(Sq),
       static_cast<int>(Sk), static_cast<int>(H), static_cast<int>(KV),
-      static_cast<int>(d), scale, causal, has_window,
+      static_cast<int>(d), scale, causal, prefix, has_window,
       clamp_window(window, Sq, Sk));
   return cudaGetLastError();
 }
@@ -592,16 +603,17 @@ template <bool kVec>
 cudaError_t dispatch_tc(void* out, const void* q, const void* k,
                         const void* v, int64_t B, int64_t Sq, int64_t Sk,
                         int64_t H, int64_t KV, int64_t d, float scale,
-                        bool causal, bool has_window, int64_t window,
-                        cudaStream_t stream) {
+                        bool causal, int prefix, bool has_window,
+                        int64_t window, cudaStream_t stream) {
 #define REPRO_FLASH_TC(KD)                                                 \
   return launch_tc<KD, kVec>(out, q, k, v, B, Sq, Sk, H, KV, d, scale,     \
-                             causal, has_window, window, stream)
+                             causal, prefix, has_window, window, stream)
   if (d <= 32) REPRO_FLASH_TC(2);
   if (d <= 64) REPRO_FLASH_TC(4);
   if (d <= 80) REPRO_FLASH_TC(5);
   if (d <= 96) REPRO_FLASH_TC(6);
-  REPRO_FLASH_TC(8);
+  if (d <= 128) REPRO_FLASH_TC(8);
+  REPRO_FLASH_TC(16);
 #undef REPRO_FLASH_TC
 }
 
@@ -617,8 +629,8 @@ template <int kND>
 cudaError_t launch_simt(void* out, const void* q, const void* k,
                         const void* v, int64_t B, int64_t Sq, int64_t Sk,
                         int64_t H, int64_t KV, int64_t d, float scale,
-                        bool causal, bool has_window, int64_t window,
-                        cudaStream_t stream) {
+                        bool causal, int prefix, bool has_window,
+                        int64_t window, cudaStream_t stream) {
   const size_t smem = smem_bytes(static_cast<int>(d));
   auto kernel = flash_kernel<kND>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -631,27 +643,25 @@ cudaError_t launch_simt(void* out, const void* q, const void* k,
       static_cast<float*>(out), static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<int>(Sq), static_cast<int>(Sk), static_cast<int>(H),
-      static_cast<int>(KV), static_cast<int>(d), scale, causal, has_window,
-      clamp_window(window, Sq, Sk));
+      static_cast<int>(KV), static_cast<int>(d), scale, causal, prefix,
+      has_window, clamp_window(window, Sq, Sk));
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_simt(void* out, const void* q, const void* k,
                           const void* v, int64_t B, int64_t Sq, int64_t Sk,
                           int64_t H, int64_t KV, int64_t d, float scale,
-                          bool causal, bool has_window, int64_t window,
-                          cudaStream_t stream) {
-  if (d <= 16)
-    return launch_simt<1>(out, q, k, v, B, Sq, Sk, H, KV, d, scale, causal,
-                          has_window, window, stream);
-  if (d <= 32)
-    return launch_simt<2>(out, q, k, v, B, Sq, Sk, H, KV, d, scale, causal,
-                          has_window, window, stream);
-  if (d <= 64)
-    return launch_simt<4>(out, q, k, v, B, Sq, Sk, H, KV, d, scale, causal,
-                          has_window, window, stream);
-  return launch_simt<8>(out, q, k, v, B, Sq, Sk, H, KV, d, scale, causal,
-                        has_window, window, stream);
+                          bool causal, int prefix, bool has_window,
+                          int64_t window, cudaStream_t stream) {
+#define REPRO_FLASH_SIMT(ND)                                               \
+  return launch_simt<ND>(out, q, k, v, B, Sq, Sk, H, KV, d, scale, causal, \
+                         prefix, has_window, window, stream)
+  if (d <= 16) REPRO_FLASH_SIMT(1);
+  if (d <= 32) REPRO_FLASH_SIMT(2);
+  if (d <= 64) REPRO_FLASH_SIMT(4);
+  if (d <= 128) REPRO_FLASH_SIMT(8);
+  REPRO_FLASH_SIMT(16);   // d 256: 209 KB of shared memory a block
+#undef REPRO_FLASH_SIMT
 }
 
 }  // namespace
@@ -660,16 +670,19 @@ cudaError_t launch_flash_attention(void* out, const void* q, const void* k,
                                    const void* v, int64_t B, int64_t Sq,
                                    int64_t Sk, int64_t H, int64_t KV,
                                    int64_t d, float scale, bool causal,
-                                   bool has_window, int64_t window, bool bf16,
+                                   int64_t prefix_len, bool has_window,
+                                   int64_t window, bool bf16,
                                    cudaStream_t stream) {
   if (B == 0 || Sq == 0 || H == 0) return cudaSuccess;
+  const int prefix = static_cast<int>(prefix_len);   // in [0, Sk]
   if (!bf16)
     return dispatch_simt(out, q, k, v, B, Sq, Sk, H, KV, d, scale, causal,
-                         has_window, window, stream);
+                         prefix, has_window, window, stream);
   const bool vec = d % 8 == 0 && aligned16(out) && aligned16(q) &&
                    aligned16(k) && aligned16(v);
   return vec ? dispatch_tc<true>(out, q, k, v, B, Sq, Sk, H, KV, d, scale,
-                                 causal, has_window, window, stream)
+                                 causal, prefix, has_window, window, stream)
              : dispatch_tc<false>(out, q, k, v, B, Sq, Sk, H, KV, d, scale,
-                                  causal, has_window, window, stream);
+                                  causal, prefix, has_window, window,
+                                  stream);
 }

@@ -10,8 +10,8 @@
 
 #include <cuda_runtime.h>
 
-// Largest head dimension the attention kernels take.
-constexpr int kMaxHeadDim = 128;
+// Largest head dimension the attention kernels take (paligemma-3b's 256).
+constexpr int kMaxHeadDim = 256;
 // Largest number of query heads that share one KV head in decode_attention.
 constexpr int kMaxDecodeGroup = 16;
 
@@ -23,14 +23,16 @@ cudaError_t launch_rmsnorm(void* out, const void* x, const float* w,
 
 // Online-softmax GQA attention: q (B, Sq, H, d), k and v (B, Sk, KV, d),
 // out like q. Query row i sits at position Sk - Sq + i; key j attends if
-// j < Sk, and (causal) j <= its position, and (has_window) position - j <
-// window. Query head h reads KV head h / (H / KV). Requires d <= 128.
-// bf16 runs on the tensor cores, float32 on a SIMT kernel.
+// j < Sk, and (causal) j <= its position or j < prefix_len, and
+// (has_window) position - j < window. Query head h reads KV head h / (H /
+// KV). Requires d <= kMaxHeadDim and 0 <= prefix_len <= Sk. bf16 runs on
+// the tensor cores, float32 on a SIMT kernel.
 cudaError_t launch_flash_attention(void* out, const void* q, const void* k,
                                    const void* v, int64_t B, int64_t Sq,
                                    int64_t Sk, int64_t H, int64_t KV,
                                    int64_t d, float scale, bool causal,
-                                   bool has_window, int64_t window, bool bf16,
+                                   int64_t prefix_len, bool has_window,
+                                   int64_t window, bool bf16,
                                    cudaStream_t stream);
 
 // Query heads one block of decode_attention's first pass scores; a
@@ -71,7 +73,7 @@ inline int64_t decode_split_len(int64_t B, int64_t S, int64_t KV, int64_t G,
 // group head's running max (in log2 units: scores times scale log2 e) and
 // sum (part_ml, (B, KV, splits, G, 2)) and unnormalised output (part_acc,
 // (B, KV, splits, G, d)), all float32; the second combines the splits.
-// Requires d <= 128 and H / KV <= 16.
+// Requires d <= kMaxHeadDim and H / KV <= 16.
 cudaError_t launch_decode_attention(void* out, const void* q,
                                     const void* k_cache, const void* v_cache,
                                     const int32_t* valid_len, float* part_acc,

@@ -1,5 +1,6 @@
 """Flash attention: online-softmax GQA attention over a whole sequence,
-with causal, sliding-window and tail masks, q aligned to the end of k.
+with causal, prefix, sliding-window and tail masks, q aligned to the end
+of k.
 
 Counterpart of ``repro/kernels/flash_attention.py:flash_attention`` and of
 its oracle ``repro/kernels/ref.py:attention_ref``. ``flash_attention``
@@ -36,11 +37,14 @@ def _dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    prefix_len: Optional[int] = None) -> torch.Tensor:
     """q: (B, Sq, H, d); k/v: (B, Sk, KV, d); H % KV == 0 (the binding
-    enforces the kernel's limits). Query i sits at position Sk - Sq + i;
-    scores are scaled by d**-0.5. Returns (B, Sq, H, d)."""
+    enforces the kernel's limits, prefix_len in [0, Sk] among them).
+    Query i sits at position Sk - Sq + i; scores are scaled by d**-0.5.
+    Under ``causal``, keys below ``prefix_len`` are visible to every query
+    (the reference's ``make_mask``: the VLM's patch prefix). Returns
+    (B, Sq, H, d)."""
     d = _dims(q, k, v)[3]
     check_cuda_operand(q, "q")
     check_cuda_operand(k, "k", q.dtype)
@@ -48,14 +52,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     load_kernels()
     torch.ops.repro_torch.flash_attention(q, k, v, out, causal, window,
-                                          d ** -0.5)
+                                          prefix_len, d ** -0.5)
     LAUNCH_COUNTS["flash_attention"] += 1
     return out
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: Optional[int] = None
-                  ) -> torch.Tensor:
+                  causal: bool = True, window: Optional[int] = None,
+                  prefix_len: Optional[int] = None) -> torch.Tensor:
     """Plain masked GQA attention in float32 (no blocking, no online
     softmax); the heads stay grouped (KV, G) so KV is never repeated.
     Masked probabilities are zeroed after the softmax, as the kernels do
@@ -69,7 +73,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kpos = torch.arange(Sk, device=q.device)
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
-        mask &= qpos[:, None] >= kpos[None, :]
+        seen = qpos[:, None] >= kpos[None, :]
+        if prefix_len is not None:
+            seen |= kpos[None, :] < prefix_len
+        mask &= seen
     if window is not None:
         mask &= (qpos[:, None] - kpos[None, :]) < window
     scores = torch.where(mask, scores, NEG_INF)

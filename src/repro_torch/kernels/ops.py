@@ -118,12 +118,13 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    prefix_len: Optional[int] = None) -> torch.Tensor:
     """(B,Sq,H,d) x (B,Sk,KV,d)^2 -> (B,Sq,H,d)."""
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len)
     if q.device.type == "cpu":
-        return _fa.attention_ref(q, k, v, causal=causal, window=window)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+        return _fa.attention_ref(q, k, v, **kw)
+    return _fa.flash_attention(q, k, v, **kw)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,10 +1,13 @@
-"""GQA attention for prefill and for one-token decode against a KV cache.
+"""GQA attention for prefill (causal, with a prefix, non-causal, and
+cross attention over an encoder memory) and for one-token decode against
+a KV cache (self attention with the cache write, or cross attention over
+the memory's cache).
 
-Counterpart of ``repro/models/attention.py`` for the families this port
-serves (dense; no cross attention and no VLM prefix yet). The reference
-chose between a jnp path and its Pallas kernels (``use_pallas``); the
-port always goes through ``kernels.ops``: the hand-written kernels on a
-CUDA tensor, their plain versions on a CPU tensor. Heads stay grouped
+Counterpart of ``repro/models/attention.py``. The reference chose between
+a jnp path and its Pallas kernels (``use_pallas``; its VLM prefill, with
+a ``prefix_len``, always took the jnp path); the port always goes through
+``kernels.ops``: the hand-written kernels on a CUDA tensor, their plain
+versions on a CPU tensor, ``prefix_len`` included. Heads stay grouped
 (KV, G), so repeated KV is never materialised.
 """
 from __future__ import annotations
@@ -36,38 +39,51 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _project_qkv(p, x: torch.Tensor, x_kv: torch.Tensor, cfg: ModelConfig,
-                 dtype: torch.dtype):
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+def _project_q(p, x: torch.Tensor, cfg: ModelConfig, dtype: torch.dtype
+               ) -> torch.Tensor:
     q = x @ p["wq"].to(dtype)
-    k = x_kv @ p["wk"].to(dtype)
-    v = x_kv @ p["wv"].to(dtype)
     if cfg.qkv_bias:
         q = q + p["bq"].to(dtype)
+    return q.reshape(x.shape[:2] + (cfg.num_heads, cfg.head_dim))
+
+
+def project_kv(p, memory: torch.Tensor, cfg: ModelConfig,
+               dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project a sequence (an encoder memory, for cross-attention
+    caching) to (K, V): (B, S, KV, hd) each."""
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    B, S = memory.shape[:2]
+    k = memory @ p["wk"].to(dtype)
+    v = memory @ p["wv"].to(dtype)
+    if cfg.qkv_bias:
         k = k + p["bk"].to(dtype)
         v = v + p["bv"].to(dtype)
-    B, Sq = x.shape[:2]
-    Sk = x_kv.shape[1]
-    return (q.reshape(B, Sq, h, hd), k.reshape(B, Sk, kv, hd),
-            v.reshape(B, Sk, kv, hd))
+    return k.reshape(B, S, kv, hd), v.reshape(B, S, kv, hd)
 
 
 def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
-              positions: torch.Tensor, window: Optional[int] = None,
+              positions: torch.Tensor, causal: bool = True,
+              window: Optional[int] = None, prefix_len: Optional[int] = None,
+              x_kv: Optional[torch.Tensor] = None, rope: bool = True,
               dtype=torch.bfloat16
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence causal self attention (prefill) through the flash
+    """Full-sequence attention (prefill, encoder, cross) through the flash
     kernel.
 
-    x: (B, S, D); positions: (S,) positions of the tokens. Returns
-    (out, (k, v)): the post-rope k and v fill the cache.
+    x: (B, Sq, D); x_kv: the source of K and V (an encoder memory for
+    cross attention), x when not given; positions: (Sq,) positions of the
+    q tokens. Under ``causal``, keys below ``prefix_len`` are visible to
+    every query. Returns (out, (k, v)): the post-rope k and v fill the
+    cache (for cross attention, the memory's cache).
     """
-    q, k, v = _project_qkv(p, x, x, cfg, dtype)
-    if cfg.use_rope:
+    q = _project_q(p, x, cfg, dtype)
+    k, v = project_kv(p, x if x_kv is None else x_kv, cfg, dtype)
+    if rope and cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, torch.arange(k.shape[1], device=k.device),
                        cfg.rope_theta)
-    out = kops.flash_attention(q, k, v, causal=True, window=window)
+    out = kops.flash_attention(q, k, v, causal=causal, window=window,
+                               prefix_len=prefix_len)
     out = out.reshape(out.shape[:2] + (-1,)) @ p["wo"].to(dtype)
     return out, (k, v)
 
@@ -84,7 +100,9 @@ def to_ring(k: torch.Tensor, seq_len: int, ring_len: int) -> torch.Tensor:
 def decode_attention(p, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, cache_pos: torch.Tensor,
                      cfg: ModelConfig, *, window: Optional[int] = None,
-                     dtype=torch.bfloat16
+                     rope: bool = True, dtype=torch.bfloat16,
+                     cross: bool = False,
+                     memory_len: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token attention against a KV cache.
 
@@ -94,19 +112,30 @@ def decode_attention(p, x: torch.Tensor, cache_k: torch.Tensor,
     token's k and v are written into the caches in place (the analogue of
     the reference's donated cache), then the decode kernel reads the
     valid slots; nothing here reads a tensor back to the host.
+
+    ``cross``: the caches hold an encoder memory's K and V; only q is
+    projected, nothing is written, and the slots below ``memory_len`` (an
+    int32 scalar tensor on x's device; the whole cache when not given)
+    attend.
     Returns (out, cache_k, cache_v).
     """
     S_cache = cache_k.shape[1]
-    q, k, v = _project_qkv(p, x, x, cfg, dtype)
-    if cfg.use_rope:
-        pos = cache_pos.reshape(1)
+    q = _project_q(p, x, cfg, dtype)
+    pos = cache_pos.reshape(1)
+    if rope and cfg.use_rope:
         q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
-    slot = cache_pos % S_cache if window is not None else cache_pos
-    slot = slot.reshape(1).long()
-    cache_k.index_copy_(1, slot, k)
-    cache_v.index_copy_(1, slot, v)
-    valid_len = torch.clamp(cache_pos + 1, max=S_cache).to(torch.int32)
+    if cross:
+        valid_len = memory_len if memory_len is not None else torch.full(
+            (), S_cache, dtype=torch.int32, device=x.device)
+    else:
+        k, v = project_kv(p, x, cfg, dtype)
+        if rope and cfg.use_rope:
+            k = apply_rope(k, pos, cfg.rope_theta)
+        slot = cache_pos % S_cache if window is not None else cache_pos
+        slot = slot.reshape(1).long()
+        cache_k.index_copy_(1, slot, k)
+        cache_v.index_copy_(1, slot, v)
+        valid_len = torch.clamp(cache_pos + 1, max=S_cache).to(torch.int32)
     out = kops.decode_attention(q[:, 0], cache_k, cache_v, valid_len)
     out = out.reshape(out.shape[0], 1, -1) @ p["wo"].to(dtype)
     return out, cache_k, cache_v

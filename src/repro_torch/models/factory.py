@@ -1,23 +1,25 @@
-"""Model factory: init / prefill / decode for the families the port serves.
+"""Model factory: init / prefill / decode for every family.
 
-Counterpart of ``repro/models/factory.py`` for the dense, ssm (mamba2)
-and hybrid (zamba2: mamba2 core layers and one shared-weight attention
-block run before every ``hybrid_attn_every`` of them) families:
+Counterpart of ``repro/models/factory.py`` for the dense, MoE (mixtral,
+kimi-k2), enc-dec (whisper: a LayerNorm encoder over stubbed frame
+embeddings, and a decoder with learned positions and cross attention),
+ssm (mamba2), VLM (paligemma: stubbed patch embeddings prepended to the
+text, which every text token sees) and hybrid (zamba2: mamba2 core
+layers and one shared-weight attention block run before every
+``hybrid_attn_every`` of them) families:
 
   init_params(cfg, gen)                          -> param tree (f32)
   cast_params(params, dtype)                     -> the same, cast for compute
   init_cache(cfg, batch, seq_len)                -> stacked cache tree
   prefill(params, batch, cfg, seq_len)           -> (cache, last_logits)
   decode_step(params, token, cache, pos, cfg)    -> (logits, cache)
-  count_params_analytic(cfg)                     -> int
+  count_params_analytic(cfg, active_only)        -> int
 
-The other families raise ``NotImplementedError`` naming the ROADMAP item
-that ports them; training (``loss_fn``, ``forward``) comes with the LM
-training slice.
+Training (``loss_fn``, ``forward``) comes with the LM training slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -28,21 +30,17 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import embed_init
 
-_NOT_PORTED = {
-    "moe": "the other LM families (MoE)",
-    "encdec": "the other LM families (enc-dec)",
-    "vlm": "the other LM families (VLM)",
-}
+WHISPER_DEC_MAX_POS = 32768   # sized for the decode_32k shape
+
+_KIND = {"dense": "dense", "vlm": "dense", "moe": "moe", "ssm": "ssm",
+         "hybrid": "ssm", "encdec": "dec"}
 
 
 def _layer_kind(cfg: ModelConfig) -> str:
-    kind = {"dense": "dense", "ssm": "ssm", "hybrid": "ssm"}.get(cfg.family)
-    if kind is None:
-        item = _NOT_PORTED.get(cfg.family, "its family")
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"ROADMAP.md queue 1, {item}")
-    return kind
+    if cfg.family not in _KIND:
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}); "
+                         f"known: {sorted(_KIND)}")
+    return _KIND[cfg.family]
 
 
 # ---------------------------------------------------------------------------
@@ -52,7 +50,10 @@ def _layer_kind(cfg: ModelConfig) -> str:
 def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32,
                 device=None) -> Dict[str, Any]:
     """Random parameters from ``gen`` on ``device`` (the generator's device
-    unless given; ``meta`` builds the shapes only)."""
+    unless given; ``meta`` builds the shapes only). The norms and the MoE
+    router are float32 whatever ``dtype`` is, as the reference's; every
+    other leaf is drawn in float32 and cast to ``dtype`` (the same
+    numbers as a float32 init cast afterwards)."""
     kind = _layer_kind(cfg)
     device = device or gen.device
     p: Dict[str, Any] = {
@@ -65,16 +66,28 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32,
     if cfg.family == "hybrid":
         p["shared_attn"] = tf.init_layer(gen, cfg, kind="dense", dtype=dtype,
                                          device=device)
+    if cfg.family == "encdec":
+        p["enc_layers"] = tf.init_stack(gen, cfg, cfg.encoder_layers,
+                                        kind="enc", dtype=dtype,
+                                        device=device)
+        p["enc_ln_f"] = tf.init_norm(cfg, device=device)
+        p["dec_pos"] = torch.randn(
+            (WHISPER_DEC_MAX_POS, cfg.d_model), generator=gen,
+            device=device).mul_(0.01).to(dtype)
     if not cfg.tie_embeddings:
         p["head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
                                device=device)
     return p
 
 
-# Kept in float32: the norm weights (the kernel's float32 weight), and the
-# SSM's decay parameters, which the reference uses in float32 arithmetic
-# (``dt_bias``, ``A_log``; ``D_skip`` it casts at its use, as the port).
-_FLOAT32 = ("ln1", "ln2", "ln_f", "norm_w", "A_log", "dt_bias")
+# Kept in float32: the norm weights (the rmsnorm kernel's float32 weight;
+# the LayerNorm's weight and bias, which the reference applies in float32),
+# and the SSM's decay parameters, which the reference uses in float32
+# arithmetic (``dt_bias``, ``A_log``; ``D_skip`` it casts at its use, as
+# the port). The MoE router, stored in float32, is multiplied in the
+# compute dtype (``moe.py:134``), so it is cast like any other weight.
+_FLOAT32 = ("ln1", "ln2", "ln3", "ln_f", "enc_ln_f", "norm_w", "A_log",
+            "dt_bias")
 
 
 def cast_params(params, dtype: torch.dtype):
@@ -106,6 +119,26 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig,
     return x @ table.to(dtype).T
 
 
+def _sinusoid(S: int, D: int, dtype: torch.dtype, device=None
+              ) -> torch.Tensor:
+    """(S, D) sinusoidal positions: sin of the first D/2, cos of the rest."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(D // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, 2 * dim / D)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
+
+
+def _encode(params, frames: torch.Tensor, cfg: ModelConfig,
+            dtype: torch.dtype) -> torch.Tensor:
+    """Whisper encoder over stubbed (B, S_enc, D) frame embeddings."""
+    S = frames.shape[1]
+    x = frames.to(dtype) + _sinusoid(S, cfg.d_model, dtype, frames.device)
+    pos = torch.arange(S, device=frames.device)
+    x = tf.stack_forward(params["enc_layers"], x, cfg, kind="enc",
+                         positions=pos, dtype=dtype)
+    return tf.apply_norm(params["enc_ln_f"], x, cfg)
+
+
 def _hybrid_groups(cfg: ModelConfig):
     """The hybrid's (start, end) core-layer slices; the shared attention
     block runs before each. The last may be shorter."""
@@ -125,6 +158,8 @@ def _slice_layers(stacked, s: int, e: int):
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device=None):
+    """``seq_len`` sizes the attention caches (the VLM's counts its patch
+    prefix); enc-dec adds the encoder memory's cross-attention cache."""
     kind = _layer_kind(cfg)
     if cfg.family == "hybrid":
         core = tf.init_layer_cache(cfg, cfg.num_layers, batch, seq_len,
@@ -137,18 +172,31 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                                             device=device),
                            "v": torch.zeros(shape, dtype=dtype,
                                             device=device)}}
+    mem = cfg.encoder_seq if cfg.family == "encdec" else 0
     return tf.init_layer_cache(cfg, cfg.num_layers, batch, seq_len,
-                               kind=kind, dtype=dtype, device=device)
+                               kind=kind, dtype=dtype, device=device,
+                               memory_len=mem)
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             seq_len: int, *, dtype=torch.bfloat16) -> Tuple[Any, torch.Tensor]:
     """Process a full prompt; returns (cache, logits of the final position).
-    ``seq_len`` sizes the ring of a sliding-window cache."""
+    ``batch`` holds ``tokens`` (B, S), and ``frames`` (enc-dec) or
+    ``patches`` (VLM). ``seq_len`` sizes the attention caches: when it is
+    shorter than the sequence (the VLM's patches count), only the last
+    ``seq_len`` keys are kept, as the reference's ring."""
     kind = _layer_kind(cfg)
     tokens = batch["tokens"]
     ring = attn_lib.cache_len_for(cfg, seq_len)
+    memory = None
+    prefix_len = None
     x = _embed(params, tokens, cfg, dtype)
+    if cfg.family == "encdec":
+        memory = _encode(params, batch["frames"], cfg, dtype)
+        x = x + params["dec_pos"][:tokens.shape[1]].to(dtype)
+    elif cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(dtype), x], dim=1)
+        prefix_len = cfg.num_patch_tokens
     S = x.shape[1]
     pos = torch.arange(S, device=x.device)
     if cfg.family == "hybrid":
@@ -167,20 +215,32 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                  "shared": stack_trees(shared)}
     else:
         x, cache = tf.stack_prefill(params["layers"], x, cfg, kind=kind,
-                                    positions=pos, dtype=dtype,
+                                    positions=pos, prefix_len=prefix_len,
+                                    memory=memory, dtype=dtype,
                                     ring_len=ring, seq_len=S)
     return cache, _logits(params, x[:, -1:].contiguous(), cfg, dtype)
 
 
 def decode_step(params, token: torch.Tensor, cache, cache_pos: torch.Tensor,
-                cfg: ModelConfig, *, dtype=torch.bfloat16
+                cfg: ModelConfig, *, dtype=torch.bfloat16,
+                memory_len: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Any]:
     """One decode step. token: (B,1) int; cache_pos: int32 scalar tensor on
-    the model's device, the absolute position of this token. The cache is
-    updated in place and returned."""
+    the model's device, the absolute position of this token (the VLM's
+    counts its patch prefix). enc-dec: ``memory_len``, an int32 scalar
+    tensor on that device, the valid slots of the memory's cache (all of
+    them when not given; a caller that steps many times makes it once).
+    The cache is updated in place and returned."""
     kind = _layer_kind(cfg)
     x = _embed(params, token, cfg, dtype)
-    if cfg.family == "hybrid":
+    if cfg.family == "encdec":
+        # the learned position by a device index: no read back to the host
+        x = x + torch.index_select(params["dec_pos"], 0,
+                                   cache_pos.reshape(1).long()).to(dtype)
+        x, cache = tf.stack_decode(params["layers"], x, cache, cache_pos,
+                                   cfg, kind=kind, memory_len=memory_len,
+                                   dtype=dtype)
+    elif cfg.family == "hybrid":
         for gi, (s, e) in enumerate(_hybrid_groups(cfg)):
             sc = {"k": cache["shared"]["k"][gi],
                   "v": cache["shared"]["v"][gi]}
@@ -214,16 +274,38 @@ def _ssm_params(cfg: ModelConfig) -> int:
             + 3 * H + d_inner + d_inner * cfg.d_model)
 
 
-def count_params_analytic(cfg: ModelConfig) -> int:
-    kind = _layer_kind(cfg)
+def _norm_params(cfg: ModelConfig) -> int:
+    return 2 * cfg.d_model if cfg.family == "encdec" else cfg.d_model
+
+
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False
+                          ) -> int:
+    """The parameters ``init_params`` builds; ``active_only`` counts the
+    experts a token runs (MoE: k of E, the shared ones, the router)."""
+    _layer_kind(cfg)
     D, V = cfg.d_model, cfg.vocab_size
-    total = V * D + D
+    norm = _norm_params(cfg)
+    total = V * D + norm
     if not cfg.tie_embeddings:
         total += V * D
-    dense = _attn_params(cfg) + 2 * D + 3 * D * cfg.d_ff
-    if kind == "dense":
-        return total + cfg.num_layers * dense
-    total += cfg.num_layers * (_ssm_params(cfg) + D)
-    if cfg.family == "hybrid":
-        total += dense
+    dense = _attn_params(cfg) + 2 * norm + 3 * D * cfg.d_ff
+    if cfg.family in ("dense", "vlm"):
+        total += cfg.num_layers * dense
+    elif cfg.family == "moe":
+        m = cfg.moe
+        e = m.experts_per_token if active_only else m.num_experts
+        per = (_attn_params(cfg) + 2 * norm + D * m.num_experts
+               + 3 * e * D * m.expert_d_ff
+               + 3 * m.num_shared_experts * D * m.expert_d_ff)
+        total += cfg.num_layers * per
+    elif cfg.family in ("ssm", "hybrid"):
+        total += cfg.num_layers * (_ssm_params(cfg) + norm)
+        if cfg.family == "hybrid":
+            total += dense
+    else:                                                  # encdec
+        enc_mlp = 2 * D * cfg.d_ff + cfg.d_ff + D
+        enc_per = _attn_params(cfg) + 2 * norm + enc_mlp
+        dec_per = 2 * _attn_params(cfg) + 3 * norm + enc_mlp
+        total += (cfg.encoder_layers * enc_per + cfg.num_layers * dec_per
+                  + norm + WHISPER_DEC_MAX_POS * D)
     return total

@@ -1,5 +1,5 @@
 """Shared layer primitives: init helpers, RMSNorm (plain and gated),
-rotary, SwiGLU MLP.
+LayerNorm, rotary, SwiGLU and GELU MLPs.
 
 Counterpart of ``repro/models/layers.py``. Params are plain nested dicts
 of tensors (the JAX package's layout: ``(in, out)`` matrices); compute
@@ -16,24 +16,38 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 
 
-def dense_init(gen: torch.Generator, shape, dtype=torch.float32,
-               device=None) -> torch.Tensor:
-    """Normal(0, 1 / fan_in) with the fan-in on axis 0 ((in, out))."""
-    std = 1.0 / (shape[0] ** 0.5)
-    return (torch.randn(shape, generator=gen, device=device or gen.device)
-            * std).to(dtype)
+def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
+               dtype=torch.float32, device=None) -> torch.Tensor:
+    """Normal(0, 1 / fan_in), the fan-in the size of axis ``in_axis``
+    (axis 0 of an ``(in, out)`` matrix; axis 1 of the stacked ``(E, in,
+    out)`` expert weights). Drawn in float32 and scaled in place, then
+    cast: a ``dtype`` of bfloat16 gives the float32 draw rounded once,
+    with one float32 copy of the leaf alive at a time."""
+    w = torch.randn(shape, generator=gen, device=device or gen.device)
+    return w.mul_(1.0 / (shape[in_axis] ** 0.5)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int,
                dtype=torch.float32, device=None) -> torch.Tensor:
-    return (torch.randn((vocab, d_model), generator=gen,
-                        device=device or gen.device) * 0.02).to(dtype)
+    return torch.randn((vocab, d_model), generator=gen,
+                       device=device or gen.device).mul_(0.02).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
              ) -> torch.Tensor:
     """Through the ``rmsnorm`` kernel (its plain version on the CPU)."""
     return kops.rmsnorm(x, weight, eps=eps)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm in float32 (the population variance), cast back to x's
+    dtype. Plain PyTorch: the reference has no kernel for it."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
 
 
 def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
@@ -89,3 +103,22 @@ def mlp(p, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     w_down = p["w_down"].to(compute_dtype)
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+                  dtype=torch.float32, device=None):
+    """Whisper-style 2-matrix GELU MLP (with biases)."""
+    w_in = dense_init(gen, (d_model, d_ff), dtype=dtype, device=device)
+    w_out = dense_init(gen, (d_ff, d_model), dtype=dtype, device=device)
+    return {"w_in": w_in,
+            "b_in": torch.zeros((d_ff,), dtype=dtype, device=w_in.device),
+            "w_out": w_out,
+            "b_out": torch.zeros((d_model,), dtype=dtype,
+                                 device=w_in.device)}
+
+
+def gelu_mlp(p, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation."""
+    h = F.gelu(x @ p["w_in"].to(compute_dtype)
+               + p["b_in"].to(compute_dtype), approximate="tanh")
+    return h @ p["w_out"].to(compute_dtype) + p["b_out"].to(compute_dtype)

@@ -1,9 +1,13 @@
-"""Transformer blocks and layer stacks: the two layer kinds the port
-serves.
+"""Transformer blocks and layer stacks for every family.
 
-Counterpart of ``repro/models/transformer.py`` for two kinds of layer:
-  dense   pre-norm GQA attention + SwiGLU MLP (llama-style; also the
-          hybrid family's shared attention block)
+Counterpart of ``repro/models/transformer.py``. Layer kinds:
+  dense   pre-norm GQA attention + SwiGLU MLP (llama-style: the dense and
+          VLM families, and the hybrid family's shared attention block)
+  moe     attention + capacity-factor MoE (mixtral / kimi-k2)
+  enc     whisper encoder: LayerNorm, non-causal self attention, GELU MLP
+  dec     whisper decoder: causal self attention, cross attention over the
+          encoder memory, GELU MLP; its cache adds the memory's ``xk`` /
+          ``xv``
   ssm     pre-norm Mamba-2 SSD block (the ssm family, and the hybrid
           family's core layers)
 The layout is the reference's: parameters and caches are stacked
@@ -11,28 +15,28 @@ The layout is the reference's: parameters and caches are stacked
 stack, the port loops over the layers in Python (``torch.unbind`` gives
 each layer views of the stacked leaves, so the in-place cache writes land
 in the stack). A stack's depth is its leading dimension, so a slice of
-the layers (the hybrid's groups) runs as it is. The other kinds (MoE,
-enc-dec) come with their slices.
+the layers (the hybrid's groups) runs as it is.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch._tree import stack_trees, tree_leaves, unstack_tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import init_mlp, mlp, rms_norm
+from repro_torch.models.layers import (gelu_mlp, init_gelu_mlp, init_mlp,
+                                       layer_norm, mlp, rms_norm)
 
-_KINDS = ("dense", "ssm")
+_KINDS = ("dense", "moe", "enc", "dec", "ssm")
 
 
 def _check_kind(kind: str) -> None:
     if kind not in _KINDS:
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet (ROADMAP.md, queue 1)")
+        raise ValueError(f"unknown layer kind {kind!r}; known: {_KINDS}")
 
 
 def _depth(stacked) -> int:
@@ -40,12 +44,23 @@ def _depth(stacked) -> int:
     return tree_leaves(stacked)[0].shape[0]
 
 
+def _use_ln(cfg: ModelConfig) -> bool:
+    return cfg.family == "encdec"     # whisper uses LayerNorm w/ bias
+
+
 def init_norm(cfg: ModelConfig, device=None):
-    """RMSNorm's weight (the enc-dec family's LayerNorm comes with it)."""
-    return {"w": torch.ones((cfg.d_model,), device=device)}
+    """RMSNorm's weight, or LayerNorm's weight and bias (whisper)."""
+    p = {"w": torch.ones((cfg.d_model,), device=device)}
+    if _use_ln(cfg):
+        p["b"] = torch.zeros((cfg.d_model,), device=device)
+    return p
 
 
 def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """LayerNorm where the norm has a bias (plain PyTorch: the reference
+    has no kernel for it), else the rmsnorm kernel."""
+    if "b" in p:
+        return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
     return rms_norm(x, p["w"], cfg.norm_eps)
 
 
@@ -61,12 +76,25 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, *, kind: str,
         return {"ln1": init_norm(cfg, device=device),
                 "ssm": ssm_lib.init_ssm(gen, cfg, dtype=dtype,
                                         device=device)}
-    return {"ln1": init_norm(cfg, device=device),
-            "attn": attn_lib.init_attention(gen, cfg, dtype=dtype,
-                                            device=device),
-            "ln2": init_norm(cfg, device=device),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dtype,
-                            device=device)}
+    p = {"ln1": init_norm(cfg, device=device),
+         "attn": attn_lib.init_attention(gen, cfg, dtype=dtype,
+                                         device=device),
+         "ln2": init_norm(cfg, device=device)}
+    if kind == "dense":
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dtype,
+                            device=device)
+    elif kind == "moe":
+        p["moe"] = moe_lib.init_moe(gen, cfg, dtype=dtype, device=device)
+    elif kind == "enc":
+        p["mlp"] = init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dtype,
+                                 device=device)
+    else:                                                  # dec
+        p["xattn"] = attn_lib.init_attention(gen, cfg, dtype=dtype,
+                                             device=device)
+        p["ln3"] = init_norm(cfg, device=device)
+        p["mlp"] = init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dtype,
+                                 device=device)
+    return p
 
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig, n_layers: int, *,
@@ -76,36 +104,89 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig, n_layers: int, *,
 
 
 # ---------------------------------------------------------------------------
+# full-sequence forward of the attention kinds
+# ---------------------------------------------------------------------------
+
+def _attn_layer(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
+                positions: torch.Tensor, prefix_len: Optional[int],
+                memory: Optional[torch.Tensor], dtype):
+    """One dense / moe / enc / dec layer over a whole sequence. Returns
+    (x, self (k, v), cross (k, v) or None). The MoE's aux loss is left
+    out: serving has no use for it (LM training adds it)."""
+    causal = kind != "enc"
+    h, kv = attn_lib.attention(
+        p["attn"], apply_norm(p["ln1"], x, cfg), cfg, positions=positions,
+        causal=causal, window=cfg.sliding_window if causal else None,
+        prefix_len=prefix_len, dtype=dtype)
+    x = x + h
+    if kind == "dec":
+        # the cross attention's K and V are project_kv(memory): the
+        # memory's cache
+        h, xkv = attn_lib.attention(
+            p["xattn"], apply_norm(p["ln2"], x, cfg), cfg,
+            positions=positions, causal=False, x_kv=memory, rope=False,
+            dtype=dtype)
+        x = x + h
+        x = x + gelu_mlp(p["mlp"], apply_norm(p["ln3"], x, cfg), dtype)
+        return x, kv, xkv
+    y = apply_norm(p["ln2"], x, cfg)
+    if kind == "moe":
+        h, _ = moe_lib.moe_block(p["moe"], y, cfg, dtype=dtype)
+    elif kind == "enc":
+        h = gelu_mlp(p["mlp"], y, dtype)
+    else:
+        h = mlp(p["mlp"], y, dtype)
+    return x + h, kv, None
+
+
+def stack_forward(stacked, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
+                  positions: torch.Tensor, prefix_len: Optional[int] = None,
+                  memory: Optional[torch.Tensor] = None,
+                  dtype=torch.bfloat16):
+    """Loop over the layers of an attention kind (the whisper encoder's
+    stack; no cache; the SSM forward with an initial state comes with LM
+    training). Returns x."""
+    for layer_p in unstack_tree(stacked, _depth(stacked)):
+        x, _, _ = _attn_layer(layer_p, x, cfg, kind=kind,
+                              positions=positions, prefix_len=prefix_len,
+                              memory=memory, dtype=dtype)
+    return x
+
+
+# ---------------------------------------------------------------------------
 # prefill: full-sequence forward that also emits per-layer caches
 # ---------------------------------------------------------------------------
 
 def layer_prefill(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
-                  positions: torch.Tensor, dtype=torch.bfloat16,
-                  ring_len: int, seq_len: int):
+                  positions: torch.Tensor, prefix_len: Optional[int] = None,
+                  memory: Optional[torch.Tensor] = None,
+                  dtype=torch.bfloat16, ring_len: int, seq_len: int):
     """Returns (x, layer_cache)."""
     _check_kind(kind)
     if kind == "ssm":
         h, cache = ssm_lib.ssm_block(p["ssm"], apply_norm(p["ln1"], x, cfg),
                                      cfg, dtype=dtype, return_cache=True)
         return x + h, cache
-    h, (k, v) = attn_lib.attention(
-        p["attn"], apply_norm(p["ln1"], x, cfg), cfg, positions=positions,
-        window=cfg.sliding_window, dtype=dtype)
-    x = x + h
+    x, (k, v), xkv = _attn_layer(p, x, cfg, kind=kind, positions=positions,
+                                 prefix_len=prefix_len, memory=memory,
+                                 dtype=dtype)
     cache = {"k": attn_lib.to_ring(k, seq_len, ring_len),
              "v": attn_lib.to_ring(v, seq_len, ring_len)}
-    y = apply_norm(p["ln2"], x, cfg)
-    return x + mlp(p["mlp"], y, dtype), cache
+    if xkv is not None:
+        cache["xk"], cache["xv"] = xkv
+    return x, cache
 
 
 def stack_prefill(stacked, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
-                  positions: torch.Tensor, dtype=torch.bfloat16,
-                  ring_len: int, seq_len: int):
+                  positions: torch.Tensor, prefix_len: Optional[int] = None,
+                  memory: Optional[torch.Tensor] = None,
+                  dtype=torch.bfloat16, ring_len: int, seq_len: int):
     """Loop over layers, emitting the stacked (L, ...) cache tree."""
     caches = []
     for layer_p in unstack_tree(stacked, _depth(stacked)):
         x, cache = layer_prefill(layer_p, x, cfg, kind=kind,
-                                 positions=positions, dtype=dtype,
+                                 positions=positions, prefix_len=prefix_len,
+                                 memory=memory, dtype=dtype,
                                  ring_len=ring_len, seq_len=seq_len)
         caches.append(cache)
     return x, stack_trees(caches)
@@ -117,10 +198,12 @@ def stack_prefill(stacked, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
 
 def layer_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                  cache_pos: torch.Tensor, cfg: ModelConfig, *, kind: str,
+                 memory_len: Optional[torch.Tensor] = None,
                  dtype=torch.bfloat16):
-    """x: (B,1,D). cache: this layer's {"k", "v"} (dense) or
-    {"ssm_state", "conv_state"} (ssm), written in place. Returns
-    (x, cache)."""
+    """x: (B,1,D). cache: this layer's {"k", "v"} (and the memory's
+    {"xk", "xv"} for dec) or {"ssm_state", "conv_state"} (ssm), written in
+    place. ``memory_len``: dec's valid memory slots, an int32 scalar
+    tensor on x's device. Returns (x, cache)."""
     _check_kind(kind)
     if kind == "ssm":
         h, cache = ssm_lib.ssm_decode_step(
@@ -130,19 +213,36 @@ def layer_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
         p["attn"], apply_norm(p["ln1"], x, cfg), cache["k"], cache["v"],
         cache_pos, cfg, window=cfg.sliding_window, dtype=dtype)
     x = x + h
+    cache = dict(cache, k=nk, v=nv)
+    if kind == "dec":
+        h, _, _ = attn_lib.decode_attention(
+            p["xattn"], apply_norm(p["ln2"], x, cfg), cache["xk"],
+            cache["xv"], cache_pos, cfg, rope=False, dtype=dtype,
+            cross=True, memory_len=memory_len)
+        x = x + h
+        return x + gelu_mlp(p["mlp"], apply_norm(p["ln3"], x, cfg),
+                            dtype), cache
     y = apply_norm(p["ln2"], x, cfg)
-    return x + mlp(p["mlp"], y, dtype), dict(cache, k=nk, v=nv)
+    if kind == "moe":
+        h, _ = moe_lib.moe_block(p["moe"], y, cfg, dtype=dtype)
+    elif kind == "enc":
+        h = gelu_mlp(p["mlp"], y, dtype)
+    else:
+        h = mlp(p["mlp"], y, dtype)
+    return x + h, cache
 
 
 def stack_decode(stacked, x: torch.Tensor, caches, cache_pos: torch.Tensor,
-                 cfg: ModelConfig, *, kind: str, dtype=torch.bfloat16):
+                 cfg: ModelConfig, *, kind: str,
+                 memory_len: Optional[torch.Tensor] = None,
+                 dtype=torch.bfloat16):
     """Loop over (layer params, layer cache); the stacked caches are
     updated in place. Returns (x, caches)."""
     n = _depth(stacked)
     for layer_p, layer_cache in zip(unstack_tree(stacked, n),
                                     unstack_tree(caches, n)):
         x, _ = layer_decode(layer_p, x, layer_cache, cache_pos, cfg,
-                            kind=kind, dtype=dtype)
+                            kind=kind, memory_len=memory_len, dtype=dtype)
     return x, caches
 
 
@@ -152,7 +252,7 @@ def stack_decode(stacked, x: torch.Tensor, caches, cache_pos: torch.Tensor,
 
 def init_layer_cache(cfg: ModelConfig, n_layers: int, batch: int,
                      seq_len: int, *, kind: str, dtype=torch.bfloat16,
-                     device=None):
+                     device=None, memory_len: int = 0):
     """Stacked (L, ...) cache tree for ``stack_decode``."""
     _check_kind(kind)
     if kind == "ssm":
@@ -162,5 +262,10 @@ def init_layer_cache(cfg: ModelConfig, n_layers: int, batch: int,
     S = attn_lib.cache_len_for(cfg, seq_len)
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     shape = (n_layers, batch, S, kv, hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "dec":
+        mem = (n_layers, batch, memory_len, kv, hd)
+        c["xk"] = torch.zeros(mem, dtype=dtype, device=device)
+        c["xv"] = torch.zeros(mem, dtype=dtype, device=device)
+    return c

@@ -7,9 +7,17 @@ Counterpart of ``repro/serve/engine.py``. ``make_prefill_step`` /
 
 ``greedy_generate`` is the serving path: prefill a batch of prompts, then
 decode greedily with the KV cache (the SSM states for the ssm family, both
-for the hybrid; ``_grow_cache`` pads only the attention caches). It runs
+for the hybrid, and the encoder memory's cross-attention cache for
+enc-dec; ``_grow_cache`` pads only the self-attention caches). It runs
 where its tensors are: the hand-written kernels on a CUDA device, their
 plain versions on the CPU.
+
+The VLM's patch prefix counts in the cache: the caches hold
+``num_patch_tokens + prompt_len + num_tokens`` slots and decode starts at
+position ``num_patch_tokens + prompt_len``. (The reference sizes them
+from ``prompt_len + num_tokens`` alone, so its prefill keeps only the
+last keys of the prefix and prompt, and its decode writes past the
+cache; see ROADMAP.md, "Reference paths that are red".)
 The decode position is a device int32 scalar advanced on the device, and
 the cache is written in place, so no step reads a tensor back to the host.
 """
@@ -42,12 +50,22 @@ def make_prefill_step(rc: RunConfig, seq_len: int) -> Callable:
 
 
 def make_decode_step(rc: RunConfig) -> Callable:
+    """enc-dec: the memory's valid length is made on the device once, at
+    the first step, and reused by every later one."""
     cfg = rc.model
     cdtype = dtype_of(rc.compute_dtype)
+    memory_len = {}                          # device -> int32 scalar
 
     def decode_step(params, token, cache, cache_pos):
+        kw = {}
+        if cfg.family == "encdec":
+            dev = cache_pos.device
+            if dev not in memory_len:
+                memory_len[dev] = torch.full((), cfg.encoder_seq,
+                                             dtype=torch.int32, device=dev)
+            kw["memory_len"] = memory_len[dev]
         return factory.decode_step(params, token, cache, cache_pos, cfg,
-                                   dtype=cdtype)
+                                   dtype=cdtype, **kw)
 
     return decode_step
 
@@ -62,9 +80,11 @@ def greedy_generate(rc: RunConfig, params, batch: Dict[str, torch.Tensor],
     """Prefill the prompt then greedily decode ``num_tokens`` tokens;
     returns (B, num_tokens) int32. As in the reference, the first token
     comes from the prefill and the last of the ``num_tokens`` decode
-    steps' logits go unused."""
+    steps' logits go unused. ``batch`` holds ``tokens`` (B, prompt_len),
+    and ``frames`` (enc-dec) or ``patches`` (VLM)."""
     cfg = rc.model
-    total = prompt_len + num_tokens
+    prefix = prefix_len(cfg)
+    total = prefix + prompt_len + num_tokens
     params = factory.cast_params(params, dtype_of(rc.compute_dtype))
     prefill_step = make_prefill_step(rc, total)
     decode_step = make_decode_step(rc)
@@ -74,7 +94,8 @@ def greedy_generate(rc: RunConfig, params, batch: Dict[str, torch.Tensor],
     cache = _grow_cache(cfg, cache, total)
     out = []
     tok = _argmax_token(logits)
-    pos = torch.tensor(prompt_len, dtype=torch.int32, device=tok.device)
+    pos = torch.tensor(prefix + prompt_len, dtype=torch.int32,
+                       device=tok.device)
     for _ in range(num_tokens):
         out.append(tok)
         logits, cache = decode_step(params, tok, cache, pos)
@@ -83,9 +104,15 @@ def greedy_generate(rc: RunConfig, params, batch: Dict[str, torch.Tensor],
     return torch.cat(out, dim=1)
 
 
+def prefix_len(cfg: ModelConfig) -> int:
+    """Positions before the prompt: the VLM's patch tokens."""
+    return cfg.num_patch_tokens if cfg.family == "vlm" else 0
+
+
 def _grow_cache(cfg: ModelConfig, cache, total_len: int):
-    """Pad prefill-sized attention caches (dim after the batch dim) up to
-    ``total_len`` ring slots (a no-op for a full sliding-window ring)."""
+    """Pad prefill-sized self-attention caches (``k``/``v``: dim after the
+    batch dim) up to ``total_len`` ring slots (a no-op for a full
+    sliding-window ring); the memory's ``xk``/``xv`` stay as they are."""
     target = cache_len_for(cfg, total_len)
 
     def grow(tree):

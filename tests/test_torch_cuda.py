@@ -589,6 +589,11 @@ def test_rmsnorm_kernel_matches_plain(dev, shape, dtype):
     (1, 130, 130, 4, 2, 33, True, None),      # d 33: unaligned rows
     (1, 300, 300, 16, 1, 64, True, None),     # G = 16 over several tiles
     (1, 2048, 2048, 4, 2, 64, True, None),    # long: many rescales
+    (1, 200, 200, 8, 1, 256, True, None),     # head_dim 256 (paligemma)
+    (1, 130, 130, 2, 1, 200, True, None),     # d 200: a padded 256 tile
+    (1, 1500, 1500, 4, 4, 64, False, None),   # whisper's encoder tail
+    (1, 100, 1500, 4, 4, 64, False, None),    # whisper's cross attention
+    (1, 150, 150, 4, 2, 112, True, 64),       # kimi's d 112, a window
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(dev, B, Sq, Sk, H, KV, d,
@@ -598,6 +603,32 @@ def test_flash_attention_kernel_matches_plain(dev, B, Sq, Sk, H, KV, d,
     k = torch.randn((B, Sk, KV, d), generator=g, device=dev).to(dtype)
     v = torch.randn((B, Sk, KV, d), generator=g, device=dev).to(dtype)
     kw = dict(causal=causal, window=window)
+    got = fa.flash_attention(q, k, v, **kw)
+    assert_kernel_close(got, fa.attention_ref(q, k, v, **kw))
+    assert bool(torch.isfinite(got).all())
+    assert rops.LAUNCH_COUNTS["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,d,prefix,window", [
+    (2, 200, 200, 8, 1, 256, 64, None),       # paligemma's d and G 8
+    (1, 150, 150, 4, 2, 64, 100, None),       # prefix ends mid-tile
+    (1, 130, 130, 4, 2, 64, 130, None),       # all prefix: bidirectional
+    (1, 100, 100, 4, 1, 256, 0, None),        # an empty prefix: causal
+    (1, 40, 130, 4, 2, 64, 90, None),         # Sq < Sk
+    (1, 200, 200, 4, 2, 64, 70, 32),          # a window over the prefix
+    (1, 320, 320, 8, 1, 256, 256, None),      # a 256-token prefix, tiles
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_prefix_matches_plain(dev, B, Sq, Sk, H, KV,
+                                                     d, prefix, window,
+                                                     dtype):
+    """Under the causal mask keys below ``prefix_len`` are visible to
+    every query (the VLM prefill's make_mask)."""
+    g = torch.Generator(device=dev).manual_seed(Sq + prefix + d)
+    q = torch.randn((B, Sq, H, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Sk, KV, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Sk, KV, d), generator=g, device=dev).to(dtype)
+    kw = dict(causal=True, window=window, prefix_len=prefix)
     got = fa.flash_attention(q, k, v, **kw)
     assert_kernel_close(got, fa.attention_ref(q, k, v, **kw))
     assert bool(torch.isfinite(got).all())
@@ -650,6 +681,11 @@ def test_flash_attention_kernel_takes_an_unaligned_base(dev, dtype):
     (8, 1088, 14, 2, 64, 241),       # ends in split 5's first warp tile
     (8, 1088, 14, 2, 64, 48),        # exactly one split
     (8, 32_768, 14, 2, 64, 32_768),  # decode_32k at G 7
+    (2, 1344, 8, 1, 256, 1300),      # paligemma's d 256, G 8
+    (1, 300, 4, 4, 256, 290),        # G 1 at d 256
+    (1, 200, 2, 1, 200, 150),        # d 200: lanes past d load zeros
+    (1, 150, 2, 2, 136, 149),        # d 136: 17 of a row's 32 lanes load
+    (2, 1500, 16, 16, 64, 1500),     # whisper's cross cache, all valid
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_matches_plain(dev, B, S, H, KV, d, vl,
@@ -870,16 +906,19 @@ def _binding_case(name, dev):
     if name == "per_scores_rows":
         pri = torch.ones(8, **f32)
         return lambda: ops.per_scores(pri, torch.ones(9, **f32), 0.6)
-    if name in ("flash_heads", "flash_head_dim"):
-        H, d = (3, 8) if name == "flash_heads" else (2, 256)
+    if name in ("flash_heads", "flash_head_dim", "flash_prefix"):
+        H, d = (3, 8) if name == "flash_heads" else (2, 264) \
+            if name == "flash_head_dim" else (2, 8)
         q = torch.ones((1, 4, H, d), **f32)
         kv = torch.ones((1, 4, 2, d), **f32)
+        prefix = 5 if name == "flash_prefix" else None
         return lambda: ops.flash_attention(q, kv, kv, torch.empty_like(q),
-                                           True, None, 0.1)
-    if name in ("decode_group", "decode_empty_cache"):
-        H, S = (34, 8) if name == "decode_group" else (4, 0)
-        q = torch.ones((1, H, 8), **f32)
-        kv = torch.ones((1, S, 2, 8), **f32)
+                                           True, None, prefix, 0.1)
+    if name in ("decode_group", "decode_empty_cache", "decode_head_dim"):
+        H, S, d = {"decode_group": (34, 8, 8), "decode_empty_cache": (4, 0, 8),
+                   "decode_head_dim": (4, 8, 264)}[name]
+        q = torch.ones((1, H, d), **f32)
+        kv = torch.ones((1, S, 2, d), **f32)
         return lambda: ops.decode_attention(q, kv, kv, torch.ones(1, **i32),
                                             torch.empty_like(q), 0.1)
     S, P, chunk = (64, 129, 64) if name == "ssd_dims" else (512, 16, 512)
@@ -892,8 +931,8 @@ def _binding_case(name, dev):
 @pytest.mark.parametrize("name", [
     "ring_write_capacity", "ring_write_fields", "ring_write_no_fields",
     "ring_write_batches", "ring_write_field_rows", "ring_write_batch_rows",
-    "ring_write_row_shape", "per_topk_k", "per_topk_rows", "flash_heads", "flash_head_dim",
-    "decode_group", "decode_empty_cache", "ssd_dims", "ssd_chunk",
+    "ring_write_row_shape", "per_topk_k", "per_topk_rows", "flash_heads",
+    "flash_head_dim", "flash_prefix", "decode_group", "decode_head_dim", "decode_empty_cache", "ssd_dims", "ssd_chunk",
     "ring_write_rowloop_capacity", "ring_gather_rowloop_rows",
     "per_scores_rows", "ring_gather_fields", "ring_gather_no_fields",
     "ring_gather_field_rows"])
@@ -1012,3 +1051,43 @@ def test_poll_guard_returns_without_a_sync(dev):
     assert still_busy and waited < 0.2, waited
     torch.cuda.synchronize()
     assert tr._poll_guard() == 4 and not tr._guard_q
+
+
+NEW_FAMILIES = [("mixtral-8x7b", 80), ("kimi-k2-1t-a32b", 24),
+                ("whisper-medium", 24), ("paligemma-3b", 24)]
+
+
+@pytest.mark.parametrize("arch,P", NEW_FAMILIES)
+def test_new_families_serving_on_the_card_matches_the_cpu(dev, arch, P):
+    """Reduced MoE (mixtral's 64-slot window wrapped by an 80-token
+    prompt; kimi's shared expert), enc-dec and VLM at float32 compute,
+    the same parameters and prompts (frames, patches): prefill plus 6
+    decode steps give the same tokens on the card as on the CPU, through
+    the kernels. Launches a run (7 forwards): L + 1 + L norms a forward
+    (none for whisper's LayerNorms), a flash attention a layer in the
+    prefill (whisper: encoder, self and cross), one decode attention a
+    layer a step (whisper: self and cross)."""
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape, RunConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import factory
+    from repro_torch.serve.engine import greedy_generate, prefix_len
+    cfg = get_config(arch).reduced()
+    shape = InputShape("s", seq_len=P + prefix_len(cfg), global_batch=2,
+                       kind="prefill")
+    rc = RunConfig(model=cfg, shape=shape, compute_dtype="float32")
+    params = factory.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = make_batch(cfg, shape, torch.Generator().manual_seed(1))
+    want = greedy_generate(rc, params, batch, P, 6)
+    rops.reset_launch_counts()
+    got = greedy_generate(rc, tree_map(lambda a: a.to(dev), params),
+                          tree_map(lambda a: a.to(dev), batch), P, 6)
+    assert torch.equal(got.cpu(), want)
+    L = cfg.num_layers
+    if cfg.family == "encdec":
+        expect = {"flash_attention": 3 * L, "decode_attention": 2 * L * 6}
+    else:
+        expect = {"rmsnorm": (2 * L + 1) * 7, "flash_attention": L,
+                  "decode_attention": L * 6}
+    assert dict(rops.LAUNCH_COUNTS) == expect

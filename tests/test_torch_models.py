@@ -31,7 +31,7 @@ from repro.models import layers as jlayers
 from repro.models import transformer as jtf
 from repro_torch import interop
 from repro_torch._tree import tree_leaves
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import ARCHS, get_config, get_shape
 from repro_torch.models import attention as tattn
 from repro_torch.models import factory as tfactory
 from repro_torch.models import layers as tlayers
@@ -41,7 +41,9 @@ torch.set_num_threads(2)
 
 RTOL, ATOL = 1e-5, 2e-5
 DENSE = ("qwen2-0.5b", "smollm-360m", "h2o-danube-1.8b")
-PORTED = DENSE + ("mamba2-130m", "zamba2-1.2b")
+PORTED = DENSE + ("mamba2-130m", "zamba2-1.2b", "qwen2.5-32b",
+                  "mixtral-8x7b", "kimi-k2-1t-a32b", "whisper-medium",
+                  "paligemma-3b")
 
 
 def close(got, want, rtol=RTOL, atol=ATOL):
@@ -93,11 +95,17 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_unported_arch_and_family_raise():
+    """Every architecture and family of the reference is ported: an
+    unknown arch, shape or family raises, naming the known ones."""
     with pytest.raises(KeyError, match="mixtral-8x7b"):
-        get_config("mixtral-8x7b")
+        get_config("mixtral-8x7b-instruct")
+    with pytest.raises(KeyError, match="decode_32k"):
+        get_shape("decode_64k")
+    assert get_shape("decode_32k").is_decode
+    assert get_shape("decode_32k").seq_len == 32_768
     cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
-                              family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*MoE"):
+                              family="rnn")
+    with pytest.raises(ValueError, match="unknown family.*moe"):
         tfactory.init_params(cfg, torch.Generator())
 
 

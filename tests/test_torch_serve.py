@@ -283,9 +283,13 @@ def test_make_batch_draws_tokens_from_the_generator():
     assert torch.equal(a["tokens"], b["tokens"])
     assert int(a["tokens"].min()) >= 0
     assert int(a["tokens"].max()) < cfg.vocab_size
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_batch(dataclasses.replace(cfg, family="vlm"), shape,
-                   torch.Generator())
+    # the VLM reserves its patch prefix inside seq_len and draws patches
+    # after the tokens (tests/test_torch_vlm.py holds the rest)
+    vlm = dataclasses.replace(cfg, family="vlm", num_patch_tokens=4)
+    c = make_batch(vlm, shape, torch.Generator().manual_seed(5))
+    assert c["tokens"].shape == (3, 8) and c["patches"].shape == (3, 4, 256)
+    d = make_batch(vlm, shape, torch.Generator().manual_seed(5))
+    assert all(torch.equal(c[k], d[k]) for k in ("tokens", "patches"))
 
 
 def test_launcher_serves_on_the_cpu(capsys):
