@@ -126,10 +126,35 @@ and prints no result line):
      (1 of 61 layers, all 384 experts, parameters drawn in bf16) and
      qwen2.5-32b (8 of 64 layers), with exact launch counts, timed; then
      ``python -m repro_torch.examples.serve_decode --arch mixtral-8x7b``
-     (the card's tokens against the CPU's, reduced).
+     (the card's tokens against the CPU's, reduced);
+  11. LM training of the attention families: the backward kernels
+     (``rmsnorm_bwd``, ``flash_attention_bwd``, and the forward's LSE)
+     against their plain versions at qwen2-0.5b's training shape (B 8,
+     1024 tokens, 14 heads over 2, d 64; norms of 8192 x 896), a window
+     of 256, whisper-medium's encoder and cross shapes, kimi's d 112,
+     paligemma's 256-patch prefix at d 256 and rows that see no key, in
+     float32 (within 1e-4 of the largest gradient value) and bf16 (1e-2),
+     then timed beside their bounds, their plain versions and the
+     library's backward (``F.rms_norm``'s and SDPA's, by
+     ``torch.autograd.grad`` on a retained graph); 8 full-width
+     qwen2-0.5b train steps through ``train_loop`` (f32 parameters, bf16
+     compute, adamw, clip 1.0, remat; batches of 8 x 1024 from
+     ``batch_iterator``) with the exact launches of every step
+     (``TRAIN_STEP_LAUNCHES``), then 8 on one repeated batch, whose loss
+     must fall; one float32 train step of reduced qwen2-0.5b,
+     h2o-danube-1.8b, mixtral-8x7b (the CPU's routing replayed; the free
+     run's gap printed), whisper-medium and paligemma-3b on the card
+     against the CPU (loss, gradients and the new parameters, within
+     ``tests/test_torch_trainer.py``'s limits); one full-width step under
+     ``torch.cuda.set_sync_debug_mode("error")``; and ``python -m
+     repro_torch.launch.train lm --arch qwen2-0.5b --steps 3 --batch 2
+     --seq 128``.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
+import io
+import itertools
 import json
 import math
 import os
@@ -198,6 +223,38 @@ NEW_FLASH_SHAPES = (
     ("kimi-k2 d 112", 8, 1024, 1024, 64, 8, 112, True, None, None),
     ("paligemma-3b prefix", 8, 1280, 1280, 8, 1, 256, True, None, 256),
 )
+# LM training: qwen2-0.5b, 8 x 1024 tokens a step, 8 steps
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen2-0.5b", 8, 1024, 8
+# Exact launches of one qwen2-0.5b train step (24 layers, remat on): the
+# forward's 2 norms and 1 flash attention a layer and the final norm,
+# the backward's recompute of each checkpointed layer (its 2 norms and
+# its flash attention once more), and one backward launch of each norm
+# and attention the loss reaches
+TRAIN_STEP_LAUNCHES = {"rmsnorm": 2 * 24 + 1 + 2 * 24, "rmsnorm_bwd": 49,
+                       "flash_attention": 48, "flash_attention_bwd": 24}
+# The backward kernels' checks: (label, B, Sq, Sk, H, KV, d, causal,
+# window, prefix_len); the first is qwen2-0.5b's training shape
+BWD_FLASH_SHAPES = (
+    ("qwen2-0.5b train", 8, 1024, 1024, 14, 2, 64, True, None, None),
+    ("window 256", 2, 1024, 1024, 14, 2, 64, True, 256, None),
+    ("whisper-medium encoder", 2, 1500, 1500, 16, 16, 64, False, None,
+     None),
+    ("whisper-medium cross", 2, 1024, 1500, 16, 16, 64, False, None, None),
+    ("kimi-k2 d 112", 2, 1024, 1024, 64, 8, 112, True, None, None),
+    ("paligemma-3b prefix", 2, 1280, 1280, 8, 1, 256, True, None, 256),
+    ("rows that see no key", 1, 70, 30, 4, 2, 64, True, None, None),
+)
+# a backward kernel's largest error, relative to the largest gradient
+# value: its sums run over the sequence and the G heads in another order
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# the forward's row logsumexp against attention_ref's, where finite (the
+# bf16 forward sums ex2.approx terms; tests/test_torch_cuda.py's limits)
+LSE_TOL = {"rtol": 1e-5, "atol": 1e-4}
+# card against CPU, one float32 train step: (arch, sequence length, a
+# VLM's counting its patches), as tests/test_torch_trainer.py
+TRAIN_CHECKS = (("qwen2-0.5b", 32), ("h2o-danube-1.8b", 80),
+                ("mixtral-8x7b", 80), ("whisper-medium", 24),
+                ("paligemma-3b", 40))
 # Decode attention: (label, B, S, H, KV, d, valid slots checked); timed
 # with every slot valid
 NEW_DECODE_SHAPES = (
@@ -2079,7 +2136,10 @@ class RouteLog:
     and ``moe._routing``'s bf16 dispatch and combine), by call, so that
     two runs fed the same tokens can be compared route by route. Given
     another run's log (``replay``), each call hands out that run's
-    dispatch and combine in place of its own (its own still recorded)."""
+    dispatch and combine in place of its own (its own still recorded);
+    the combine keeps its own gradient (``replayed + own - own.detach()``,
+    the replayed value exactly), so a training step's router gradient
+    flows as it would."""
 
     def __init__(self, replay=None):
         from repro_torch.models import moe
@@ -2097,7 +2157,9 @@ class RouteLog:
             out = self.routing(logits, k, capacity)
             if self.replay is not None:
                 d, c = self.replay.slots[len(self.slots)]
-                out = (d.to(logits.device), c.to(logits.device)) + out[2:]
+                own = out[1]
+                out = (d.to(logits.device),
+                       c.to(logits.device) + (own - own.detach())) + out[2:]
             self.slots.append((out[0].cpu(), out[1].cpu()))
             return out
 
@@ -2286,6 +2348,317 @@ def run_serving_main_path(dev, arch, layers=None, param_dtype="float32"):
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
              "launches": launches}
     return stats, launches
+
+
+# --------------------------------------------------------------------------- #
+# phase 11: LM training
+# --------------------------------------------------------------------------- #
+
+def grad_gap(got, want):
+    """(max abs error, that error over the largest |want|) of a gradient
+    against its plain version; the gradient must be finite."""
+    import torch
+    require(got.dtype == want.dtype and got.shape == want.shape,
+            f"gradient {got.dtype} {tuple(got.shape)} != plain "
+            f"{want.dtype} {tuple(want.shape)}")
+    require(bool(torch.isfinite(got).all()), "gradient not finite")
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(float(want.float().abs().max()), 1e-30)
+
+
+def check_backward_kernels(dev):
+    """``rmsnorm_bwd`` at 8192 x 896 and ``flash_attention_bwd`` (with the
+    forward's LSE) at ``BWD_FLASH_SHAPES``, bf16 and float32, against
+    their plain versions on the same inputs, each gradient within
+    ``GRAD_TOL`` of its largest value; the forward's LSE is held against
+    ``attention_ref``'s within ``LSE_TOL`` where finite, and the rows that
+    see no key have a -inf LSE and zero gradients. Returns ({kernel: max
+    abs error}, {kernel: {dtype: largest relative gap}, "lse": {dtype:
+    largest LSE gap}}, rows)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    errs = {"rmsnorm_bwd": 0.0, "flash_attention_bwd": 0.0}
+    rel = {"rmsnorm_bwd": {}, "flash_attention_bwd": {}, "lse": {}}
+    rows = []
+
+    def hold(name, dtype, label, got, want):
+        key = "float32" if dtype == torch.float32 else "bfloat16"
+        gaps = [grad_gap(a, b) for a, b in zip(got, want)]
+        worst = max(g[1] for g in gaps)
+        require(worst <= GRAD_TOL[key], f"{name} ({label}, {key}): "
+                f"{worst} of the largest gradient > {GRAD_TOL[key]}")
+        errs[name] = max(errs[name], max(g[0] for g in gaps))
+        rel[name][key] = max(rel[name].get(key, 0.0), worst)
+        rows.append({"kernel": name, "shape": label, "dtype": key,
+                     "max_abs_err": max(g[0] for g in gaps),
+                     "rel_gap": worst})
+        return rows[-1]
+
+    for dtype in (torch.bfloat16, torch.float32):
+        x, dy = model_inputs(dev, 31, dtype, (TRAIN_B * TRAIN_S, D_MODEL),
+                             (TRAIN_B * TRAIN_S, D_MODEL))
+        w, = model_inputs(dev, 32, torch.float32, (D_MODEL,))
+        hold("rmsnorm_bwd", dtype, "8192 x 896", rms.rmsnorm_bwd(x, w, dy),
+             rms.rmsnorm_bwd_ref(x, w, dy))
+        for label, B, Sq, Sk, H, KV, d, causal, window, prefix in \
+                BWD_FLASH_SHAPES:
+            kw = dict(causal=causal, window=window, prefix_len=prefix)
+            q, k, v, dout = model_inputs(
+                dev, Sq + Sk + d + 1, dtype, (B, Sq, H, d), (B, Sk, KV, d),
+                (B, Sk, KV, d), (B, Sq, H, d))
+            out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            _, want_lse = fa.attention_ref(q, k, v, return_lse=True, **kw)
+            require(bool((torch.isneginf(lse) == torch.isneginf(
+                want_lse)).all()), f"LSE's -inf rows differ ({label})")
+            seen = torch.isfinite(want_lse)
+            lse_err = float((lse[seen] - want_lse[seen]).abs().max())
+            require(torch.allclose(lse[seen], want_lse[seen], **LSE_TOL),
+                    f"flash_attention's LSE ({label}, {dtype}): max abs "
+                    f"error {lse_err} past {LSE_TOL}")
+            got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            row = hold("flash_attention_bwd", dtype, label, got,
+                       fa.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                  **kw))
+            row["lse_max_abs_err"] = lse_err
+            key = row["dtype"]
+            rel["lse"][key] = max(rel["lse"].get(key, 0.0), lse_err)
+            if causal and Sq > Sk:
+                blind = Sq - Sk
+                require(bool(torch.isneginf(lse[..., :blind]).all()) and
+                        bool((got[0][:, :blind] == 0).all()),
+                        "rows that see no key: LSE not -inf or dq not 0")
+            del q, k, v, dout, out, lse, want_lse, got
+            torch.cuda.empty_cache()
+    return errs, rel, rows
+
+
+def time_backward_kernels(dev):
+    """The two backward kernels at qwen2-0.5b's training shape, bf16:
+    kernel, plain version and the library's backward (``F.rms_norm``'s
+    and SDPA's with ``enable_gqa``, each ``torch.autograd.grad`` on a
+    retained graph). Bounds: the bytes (each input read once, each output
+    written once) over 3.35 TB/s, or the FLOPs over the bf16 tensor peak
+    (flash: 2.5 times the forward's, five products against two, over
+    the causal mask's visible pairs), the larger."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    bf16 = torch.bfloat16
+    out = {}
+
+    def bound(nbytes, flops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    rows = TRAIN_B * TRAIN_S
+    x, dy = model_inputs(dev, 41, bf16, (rows, D_MODEL), (rows, D_MODEL))
+    w, = model_inputs(dev, 42, torch.float32, (D_MODEL,))
+    xl = x.detach().requires_grad_()
+    wl = w.to(bf16).requires_grad_()
+    yl = F.rms_norm(xl, (D_MODEL,), wl, 1e-6)
+    b, by = bound(3 * x.numel() * 2 + 2 * D_MODEL * 4, 10 * x.numel())
+    out["rmsnorm_bwd"] = {
+        "ms": event_ms(lambda: rms.rmsnorm_bwd(x, w, dy)),
+        "plain_ms": event_ms(lambda: rms.rmsnorm_bwd_ref(x, w, dy)),
+        "library_ms": event_ms(lambda: torch.autograd.grad(
+            yl, (xl, wl), dy, retain_graph=True)),
+        "library": "F.rms_norm backward (bf16 weight)", "bound_ms": b,
+        "bound_by": by, "shape": [rows, D_MODEL]}
+    del xl, wl, yl
+
+    B, S = TRAIN_B, TRAIN_S
+    q, k, v, dout = model_inputs(dev, 43, bf16, (B, S, HEADS, HEAD_DIM),
+                                 (B, S, KV_HEADS, HEAD_DIM),
+                                 (B, S, KV_HEADS, HEAD_DIM),
+                                 (B, S, HEADS, HEAD_DIM))
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_()
+                  for a in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+    dot = dout.transpose(1, 2).contiguous()
+    pairs = S * (S + 1) // 2
+    b, by = bound(4 * q.numel() * 2 + 4 * k.numel() * 2 + lse.numel() * 4,
+                  10 * B * HEADS * HEAD_DIM * pairs)
+    out["flash_attention_bwd"] = {
+        "ms": event_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, dout),
+                       iters=10, warmup=2),
+        "plain_ms": event_ms(lambda: fa.flash_attention_bwd_ref(
+            q, k, v, o, lse, dout), iters=5, warmup=1),
+        "library_ms": event_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), iters=20, warmup=3),
+        "library": "F.scaled_dot_product_attention(enable_gqa) backward",
+        "bound_ms": b, "bound_by": by, "shape": [B, S, HEADS, HEAD_DIM],
+        "forward_lse_ms": event_ms(lambda: fa.flash_attention(
+            q, k, v, return_lse=True), iters=20, warmup=3),
+        "forward_ms": event_ms(lambda: fa.flash_attention(q, k, v),
+                               iters=20, warmup=3)}
+    return out
+
+
+def train_rc(cfg, seq, batch, **kw):
+    from repro_torch.configs.base import InputShape, RunConfig
+    return RunConfig(model=cfg, shape=InputShape("train", seq, batch,
+                                                 "train"), **kw)
+
+
+def run_train_main_path(dev):
+    """Full-width qwen2-0.5b (f32 parameters from seed 0, bf16 compute,
+    adamw, clip 1.0, remat) through ``train_loop``: ``TRAIN_STEPS`` steps
+    on ``batch_iterator``'s batches, then as many on one repeated batch,
+    whose loss must fall; each run's launches zeroed just before and
+    read just after, exactly ``TRAIN_STEP_LAUNCHES`` a step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from repro_torch.models import factory
+    from repro_torch.train.trainer import train_loop
+    cfg = get_config(TRAIN_ARCH)
+    rc = train_rc(cfg, TRAIN_S, TRAIN_B)
+    expect = {k: n * TRAIN_STEPS for k, n in TRAIN_STEP_LAUNCHES.items()}
+    stats, counts = {}, {}
+    for label, batches in (
+            ("batch_iterator", batch_iterator(cfg, rc.shape, seed=0,
+                                              device=dev)),
+            ("one batch repeated", itertools.repeat(next(batch_iterator(
+                cfg, rc.shape, seed=1, device=dev))))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train_loop(rc, batches, steps=TRAIN_STEPS, device=dev)
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCH_COUNTS)
+        require(launches == expect,
+                f"train launches {launches} != expected {expect}")
+        require(len(res.losses) == TRAIN_STEPS and
+                all(math.isfinite(x) for x in res.losses),
+                f"losses {res.losses}")
+        for name, c in launches.items():
+            counts[name] = counts.get(name, 0) + c
+        stats[label] = {
+            "arch": TRAIN_ARCH, "params": factory.count_params_analytic(cfg),
+            "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS,
+            "step_ms": 1e3 / res.steps_per_sec,
+            "tokens_per_s": TRAIN_B * TRAIN_S * res.steps_per_sec,
+            "wall_s": wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "first_loss": res.losses[0], "last_loss": res.losses[-1],
+            "losses": res.losses, "launches": launches}
+    rep = stats["one batch repeated"]
+    require(rep["last_loss"] < rep["first_loss"],
+            f"the loss on a repeated batch did not fall: {rep['losses']}")
+    return stats, counts
+
+
+def run_train_sanitized(dev):
+    """One full-width qwen2-0.5b train step (after a warm-up step) under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing in it waits for
+    the card."""
+    import torch
+    from repro_torch import sync_debug_mode
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    rc = train_rc(cfg, TRAIN_S, TRAIN_B)
+    params, state, opt = init_train_state(
+        rc, torch.Generator(device=dev).manual_seed(0))
+    step = make_train_step(rc, opt)
+    batches = batch_iterator(cfg, rc.shape, device=dev)
+    step(params, state, next(batches))
+    batch = next(batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sync_debug_mode(dev, "error"):
+        params, state, metrics = step(params, state, batch)
+    torch.cuda.synchronize()
+    loss = float(metrics["loss"])
+    require(math.isfinite(loss), f"sanitized step loss {loss}")
+    return {"loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def check_training_device_vs_cpu(dev, arch, seq):
+    """Reduced ``arch``, float32 compute: one train step (adamw, clip 1.0,
+    remat) on the card and on the CPU from the same parameters and batch.
+    The loss within 1e-5 relative, each gradient leaf within 2e-5 of its
+    largest value, the new parameters within 2 lr (Adam's sign of a
+    near-zero gradient) with at most 0.1% of the elements past 1e-6 +
+    1e-5 |p|: ``tests/test_torch_trainer.py``'s limits. The MoE's routing
+    is the CPU's, replayed (``RouteLog``); its free run's gaps and flips
+    are returned beside."""
+    import torch
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import factory
+    from repro_torch.train import trainer
+    from repro_torch.train.optimizer import make_optimizer
+    cfg = get_config(arch).reduced()
+    rc = train_rc(cfg, seq, 2, compute_dtype="float32")
+    params = factory.init_params(cfg, torch.Generator().manual_seed(5))
+    batch = make_batch(cfg, rc.shape, torch.Generator().manual_seed(6))
+    opt = make_optimizer(rc.optimizer, rc.learning_rate,
+                         weight_decay=rc.weight_decay, grad_clip=rc.grad_clip)
+
+    def run(where, log):
+        p = tree_map(lambda a: a.detach().clone().to(where).requires_grad_(),
+                     params)
+        with log:
+            loss, _, grads = trainer.value_and_grad(rc, p, to_device(batch,
+                                                                     where))
+        opt.update(grads, opt.init(p), p)
+        return (float(loss), [g.cpu() for g in grads],
+                torch.cat([a.detach().cpu().ravel() for a in tree_leaves(p)]))
+
+    def gaps(got, want):
+        loss_rel = abs(got[0] - want[0]) / abs(want[0])
+        grad_rel = max(float((a - b).abs().max()) /
+                       max(float(b.abs().max()), 1e-30)
+                       for a, b in zip(got[1], want[1]))
+        d = (got[2] - want[2]).abs()
+        past = float((d > 1e-6 + 1e-5 * want[2].abs()).float().mean())
+        return {"loss_rel": loss_rel, "grad_rel": grad_rel,
+                "param_max": float(d.max()), "param_share_past": past}
+
+    moe = cfg.family == "moe"
+    cpu_log = RouteLog() if moe else contextlib.nullcontext()
+    want = run("cpu", cpu_log)
+    got = gaps(run(dev, RouteLog(replay=cpu_log) if moe
+                   else contextlib.nullcontext()), want)
+    require(got["loss_rel"] <= 1e-5 and got["grad_rel"] <= 2e-5 and
+            got["param_max"] <= 2 * rc.learning_rate and
+            got["param_share_past"] < 1e-3,
+            f"train step card vs cpu ({arch}): {got}")
+    if moe:
+        dev_log = RouteLog()
+        free = gaps(run(dev, dev_log), want)
+        routes, gates = route_flips(cpu_log, dev_log)
+        got["free_run"] = {**free, "routes_flipped": routes,
+                           "gates_flipped": gates}
+    return got
+
+
+def run_lm_launcher():
+    """``python -m repro_torch.launch.train lm --arch qwen2-0.5b --steps 3
+    --batch 2 --seq 128`` in this process, as a user calls it (full
+    width, the card): it must exit 0 and print a finite final loss."""
+    from repro_torch.launch import train
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(["lm", "--arch", "qwen2-0.5b", "--steps", "3",
+                         "--batch", "2", "--seq", "128"])
+    lines = out.getvalue().strip().splitlines()
+    final = lines[-1]
+    require(rc == 0 and final.startswith("steps/sec") and
+            math.isfinite(float(final.split()[-1])),
+            f"lm launcher: rc {rc}, {lines}")
+    return lines
 
 
 def run_launcher():
@@ -2642,6 +3015,46 @@ def main():
           " | ".join(lines[:4]), flush=True)
     print(f"new families: {time.perf_counter() - t_fam:.1f} s", flush=True)
 
+    # LM training of the attention families
+    t_train = time.perf_counter()
+    torch.cuda.empty_cache()
+    bwd_errs, bwd_rel, rows = check_backward_kernels(dev)
+    for row in rows:
+        print(f"{row['kernel']} ({row['shape']}, {row['dtype']}): " +
+              json.dumps(row), flush=True)
+    print("backward kernels' largest gap, of the largest gradient value, "
+          "and the forward's largest LSE gap: " + json.dumps(bwd_rel) +
+          f" (limits {GRAD_TOL}, LSE {LSE_TOL})", flush=True)
+    errs.update(bwd_errs)
+    bwd_timing = time_backward_kernels(dev)
+    for name, t in bwd_timing.items():
+        print(f"{name}: max_abs_err {errs[name]} " + " ".join(
+            f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in t.items()) + f" ({card})", flush=True)
+    timing.update(bwd_timing)
+    torch.cuda.empty_cache()
+    stats, counts = run_train_main_path(dev)
+    add_launches(counts)
+    for label, st in stats.items():
+        print(f"train main path ({TRAIN_ARCH}, {label}): " +
+              json.dumps({**st, "card": card}), flush=True)
+        for k in ("step_ms", "tokens_per_s", "peak_mem_gb", "first_loss",
+                  "last_loss"):
+            print(f"train {TRAIN_ARCH} ({label}) {k} {st[k]} ({card})",
+                  flush=True)
+    for arch, seq in TRAIN_CHECKS:
+        got = check_training_device_vs_cpu(dev, arch, seq)
+        print(f"train step on cuda vs cpu (reduced {arch}, float32, "
+              f"{seq} tokens): " + json.dumps(got), flush=True)
+    torch.cuda.empty_cache()
+    print("sanitized train step (qwen2-0.5b, sync debug mode \"error\"): " +
+          json.dumps({**run_train_sanitized(dev), "card": card}), flush=True)
+    torch.cuda.empty_cache()
+    lines = run_lm_launcher()
+    print("launcher (lm --arch qwen2-0.5b --steps 3 --batch 2 --seq 128): "
+          + " | ".join(lines), flush=True)
+    print(f"LM training: {time.perf_counter() - t_train:.1f} s", flush=True)
+
     sources = {"ring_write": ("ring_ops.cu", "replay_ops.py:188"),
                "ring_gather": ("ring_ops.cu", "replay_ops.py:302"),
                "per_topk": ("per_ops.cu", "replay_ops.py:496"),
@@ -2654,7 +3067,11 @@ def main():
                "ssd_scan": ("ssd_scan.cu", "ssd_scan.py:76"),
                "per_scores": ("per_ops.cu", "replay_ops.py:369"),
                "ring_write_rowloop": ("ring_ops.cu", "replay_ops.py:609"),
-               "ring_gather_rowloop": ("ring_ops.cu", "replay_ops.py:644")}
+               "ring_gather_rowloop": ("ring_ops.cu", "replay_ops.py:644"),
+               # the TPU kernels had no backward: the forward's wrapper
+               "rmsnorm_bwd": ("rmsnorm.cu", "rmsnorm.py:29"),
+               "flash_attention_bwd": ("flash_attention.cu",
+                                       "flash_attention.py:77")}
     kernels = [{"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/" + src,
                 "replaces": "src/repro/kernels/" + tpu,

@@ -148,9 +148,24 @@ class InputShape:
 
 @dataclass(frozen=True)
 class RunConfig:
-    """What the server needs besides the model itself: the forward runs
-    in ``compute_dtype`` over float32 parameters (norms, softmax and RoPE
-    in float32)."""
+    """What the trainer and the server need besides the model itself,
+    with the reference's defaults: the forward runs in ``compute_dtype``
+    over ``param_dtype`` parameters (norms, softmax and RoPE in float32);
+    training takes ``optimizer`` (adamw, adam or sgd) at
+    ``learning_rate`` with ``weight_decay``, clips the gradients' global
+    norm at ``grad_clip`` (0: no clipping) and under ``remat``
+    checkpoints each layer. The reference's distribution fields (fsdp,
+    tensor and sequence parallelism) and ``use_pallas`` have no
+    counterpart: the port runs on one card and always calls its
+    kernels."""
     model: ModelConfig
     shape: InputShape
+    # optimization
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.0
+    optimizer: str = "adamw"
+    grad_clip: float = 1.0
+    # precision
+    param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    remat: bool = True            # activation checkpointing over the layers

@@ -4,14 +4,20 @@ Counterpart of ``repro/data/tokens.py``. Tokens, frame embeddings
 (enc-dec) and patch embeddings (VLM) are drawn from an explicit
 ``torch.Generator`` on its device, in that order; JAX's threefry gives
 other numbers from the same seed, so parity tests carry the reference's
-batch across instead.
+batch across instead. ``batch_iterator`` is the reference's endless
+stream: batch i from its own generator keyed by (seed, i), the
+counterpart of ``fold_in(key, i)``, so a batch does not depend on the
+ones drawn before it.
 """
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Iterator, Optional
 
+import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import InputShape, ModelConfig
 
 
@@ -39,3 +45,21 @@ def make_batch(cfg: ModelConfig, shape: InputShape, gen: torch.Generator
         out["patches"] = torch.randn((B, cfg.num_patch_tokens, cfg.d_model),
                                      generator=gen, device=dev)
     return out
+
+
+def batch_iterator(cfg: ModelConfig, shape: InputShape, seed: int = 0,
+                   batch: Optional[int] = None, seq: Optional[int] = None,
+                   device="cuda") -> Iterator[Dict[str, torch.Tensor]]:
+    """Endless ``make_batch`` batches on ``device`` (the card unless the
+    caller asks for the CPU; ``batch`` and ``seq`` override the shape's),
+    batch i drawn from a generator seeded by SeedSequence((seed, i))."""
+    device = resolve_device(device)
+    shape = dataclasses.replace(
+        shape, global_batch=batch or shape.global_batch,
+        seq_len=seq or shape.seq_len)
+    i = 0
+    while True:
+        s = np.random.SeedSequence((seed, i)).generate_state(1, np.uint64)
+        yield make_batch(cfg, shape, torch.Generator(
+            device=device).manual_seed(int(s[0])))
+        i += 1

@@ -7,7 +7,9 @@ module turns them into the port's tensors and back (env states, plain
 dicts of arrays, go through ``to_tensors`` / ``to_numpy`` as they are).
 The LM stack's parameters and KV caches (``factory.init_params``,
 ``factory.prefill``) are nested dicts of stacked ``(L, ...)`` leaves on
-both sides and go through ``to_tensors`` / ``to_numpy`` as they are.
+both sides and go through ``to_tensors`` / ``to_numpy`` as they are;
+an optimizer's ``OptState`` goes through ``opt_state_from_numpy`` /
+``opt_state_to_numpy``.
 The port keeps the JAX weight layout (``(in, out)`` matrices, the
 ensemble and the layers stacked on a leading axis), so every leaf maps
 one to one and no transpose is needed. Leaves keep their dtype, bfloat16
@@ -68,9 +70,16 @@ def _fields(obj, names) -> Dict[str, Any]:
     return dict(zip(names, obj))
 
 
-def _opt_state(obj, device) -> OptState:
+def opt_state_from_numpy(state, device) -> OptState:
+    """The JAX package's ``OptState(step, mu, nu)`` (or a mapping of those
+    fields) -> the port's, leaf for leaf."""
     return OptState(**{k: to_tensors(v, device)
-                       for k, v in _fields(obj, OptState._fields).items()})
+                       for k, v in _fields(state, OptState._fields).items()})
+
+
+def opt_state_to_numpy(state: OptState) -> Dict[str, Any]:
+    """-> ``{"step", "mu", "nu"}`` of numpy arrays."""
+    return {k: to_numpy(v) for k, v in state._asdict().items()}
 
 
 def algo_state_from_numpy(state, device) -> AlgoState:
@@ -78,7 +87,7 @@ def algo_state_from_numpy(state, device) -> AlgoState:
     f = _fields(state, AlgoState._fields)
     opts = ("opt_actor", "opt_q", "opt_alpha")
     return AlgoState(**{k: (None if v is None else
-                            _opt_state(v, device) if k in opts
+                            opt_state_from_numpy(v, device) if k in opts
                             else to_tensors(v, device))
                         for k, v in f.items()})
 
@@ -88,8 +97,7 @@ def algo_state_to_numpy(state: AlgoState) -> Dict[str, Any]:
     ``{"step", "mu", "nu"}`` dicts, a ``None`` one as ``None``."""
     out = {}
     for k, v in state._asdict().items():
-        out[k] = (None if v is None else
-                  {n: to_numpy(x) for n, x in v._asdict().items()}
+        out[k] = (None if v is None else opt_state_to_numpy(v)
                   if isinstance(v, OptState) else to_numpy(v))
     return out
 

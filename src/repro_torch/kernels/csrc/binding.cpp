@@ -2,7 +2,7 @@
 // torch.ops.repro_torch.ring_write / ring_gather / per_topk /
 // priority_scatter / per_scores and the bench baselines
 // ring_write_rowloop / ring_gather_rowloop (replay) and rmsnorm /
-// flash_attention /
+// rmsnorm_bwd / flash_attention / flash_attention_bwd /
 // decode_attention / ssd_scan (the LM model) for CUDA tensors. The only
 // source that includes PyTorch's headers, and only the light ones
 // (torch/library.h, not torch/extension.h), to keep the build short.
@@ -328,6 +328,34 @@ void rmsnorm(const at::Tensor& x, const at::Tensor& weight, at::Tensor out,
                                 c10::cuda::getCurrentCUDAStream()));
 }
 
+// dx (like x) and dw (weight's (dim,), float32), allocated here with the
+// float32 partial sums of dw that the second launch adds (model_ops.h).
+std::vector<at::Tensor> rmsnorm_bwd(const at::Tensor& x,
+                                    const at::Tensor& weight,
+                                    const at::Tensor& dy, double eps) {
+  const bool bf16 = check_activation(x, "x");
+  check_operand(dy, "dy", x.scalar_type());
+  check_vector(weight, "weight", at::kFloat);
+  TORCH_CHECK(x.dim() >= 1 && weight.size(0) == x.size(-1), "weight has ",
+              num(weight.size(0)), " elements, x's rows ",
+              num(x.dim() ? x.size(-1) : 0));
+  TORCH_CHECK(dy.sizes() == x.sizes(), "dy must have x's shape");
+  const int64_t dim = x.size(-1);
+  const int64_t rows = dim ? x.numel() / dim : 0;
+  TORCH_CHECK(dim < (int64_t{1} << 31) &&
+                  rmsnorm_bwd_parts(rows) < (int64_t{1} << 31),
+              "rmsnorm_bwd: the row length or the row count out of range");
+  const c10::cuda::CUDAGuard guard(x.device());
+  at::Tensor dx = x.new_empty(x.sizes());
+  at::Tensor dw = weight.new_empty({dim});
+  at::Tensor part = weight.new_empty({rmsnorm_bwd_parts(rows), dim});
+  C10_CUDA_CHECK(launch_rmsnorm_bwd(
+      dx.data_ptr(), dw.data_ptr<float>(), part.data_ptr<float>(),
+      x.data_ptr(), dy.data_ptr(), weight.data_ptr<float>(), rows, dim,
+      static_cast<float>(eps), bf16, c10::cuda::getCurrentCUDAStream()));
+  return {dx, dw};
+}
+
 void check_attention_dims(int64_t H, int64_t KV, int64_t d) {
   TORCH_CHECK(KV > 0 && H % KV == 0, "query heads ", num(H),
               " are not a multiple of KV heads ", num(KV));
@@ -335,31 +363,84 @@ void check_attention_dims(int64_t H, int64_t KV, int64_t d) {
               " not in [1, ", num(kMaxHeadDim), "]");
 }
 
-void flash_attention(const at::Tensor& q, const at::Tensor& k,
-                     const at::Tensor& v, at::Tensor out, bool causal,
-                     std::optional<int64_t> window,
-                     std::optional<int64_t> prefix_len, double scale) {
+// The checks flash_attention and its backward share: q, k and v of one
+// float32 or bf16 type, (B, Sq, H, d) and (B, Sk, KV, d), within the
+// kernels' limits; an lse (B, H, Sq) float32. Returns whether they are
+// bf16 and the prefix length.
+std::pair<bool, int64_t> check_flash(const at::Tensor& q, const at::Tensor& k,
+                                     const at::Tensor& v,
+                                     const at::Tensor* lse,
+                                     std::optional<int64_t> prefix_len) {
   const bool bf16 = check_activation(q, "q");
   check_operand(k, "k", q.scalar_type());
   check_operand(v, "v", q.scalar_type());
-  check_operand(out, "out", q.scalar_type());
   TORCH_CHECK(q.dim() == 4 && k.dim() == 4, "q and k must be 4-d");
   TORCH_CHECK(k.sizes() == v.sizes(), "k and v differ in shape");
-  TORCH_CHECK(out.sizes() == q.sizes(), "out must have q's shape");
   const int64_t B = q.size(0), Sq = q.size(1), H = q.size(2), d = q.size(3);
   const int64_t Sk = k.size(1), KV = k.size(2);
   TORCH_CHECK(k.size(0) == B && k.size(3) == d, "k must be (B, Sk, KV, d)");
   check_attention_dims(H, KV, d);
   TORCH_CHECK(Sq < (1 << 30) && Sk < (1 << 30), "sequence too long");
+  TORCH_CHECK(B < 65536 && H < 65536, "flash attention takes B and H below "
+              "65536, got ", num(B), " and ", num(H));
   const int64_t prefix = prefix_len.value_or(0);
   TORCH_CHECK(prefix >= 0 && prefix <= Sk, "prefix_len ", num(prefix),
               " not in [0, ", num(Sk), "]");
+  if (lse != nullptr) {
+    check_operand(*lse, "lse", at::kFloat);
+    TORCH_CHECK(lse->dim() == 3 && lse->size(0) == B && lse->size(1) == H &&
+                    lse->size(2) == Sq,
+                "lse must be (B, H, Sq) = (", num(B), ", ", num(H), ", ",
+                num(Sq), ")");
+  }
+  return {bf16, prefix};
+}
+
+void flash_attention(const at::Tensor& q, const at::Tensor& k,
+                     const at::Tensor& v, at::Tensor out, bool causal,
+                     std::optional<int64_t> window,
+                     std::optional<int64_t> prefix_len, double scale,
+                     const std::optional<at::Tensor>& lse) {
+  const auto [bf16, prefix] =
+      check_flash(q, k, v, lse.has_value() ? &*lse : nullptr, prefix_len);
+  check_operand(out, "out", q.scalar_type());
+  TORCH_CHECK(out.sizes() == q.sizes(), "out must have q's shape");
   const c10::cuda::CUDAGuard guard(q.device());
   C10_CUDA_CHECK(launch_flash_attention(
-      out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk,
-      H, KV, d, static_cast<float>(scale), causal, prefix,
-      window.has_value(), window.value_or(0), bf16,
+      out.data_ptr(), lse.has_value() ? lse->data_ptr<float>() : nullptr,
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), q.size(0), q.size(1),
+      k.size(1), q.size(2), k.size(2), q.size(3), static_cast<float>(scale),
+      causal, prefix, window.has_value(), window.value_or(0), bf16,
       c10::cuda::getCurrentCUDAStream()));
+}
+
+// dq, dk and dv, allocated here (zeros where no query or no key is), with
+// the float32 scratch delta (B, H, Sq) (model_ops.h).
+std::vector<at::Tensor> flash_attention_bwd(
+    const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+    const at::Tensor& out, const at::Tensor& lse, const at::Tensor& dout,
+    bool causal, std::optional<int64_t> window,
+    std::optional<int64_t> prefix_len, double scale) {
+  const auto [bf16, prefix] = check_flash(q, k, v, &lse, prefix_len);
+  check_operand(out, "out", q.scalar_type());
+  check_operand(dout, "dout", q.scalar_type());
+  TORCH_CHECK(out.sizes() == q.sizes() && dout.sizes() == q.sizes(),
+              "out and dout must have q's shape");
+  const int64_t B = q.size(0), Sq = q.size(1), H = q.size(2), d = q.size(3);
+  const int64_t Sk = k.size(1), KV = k.size(2);
+  const c10::cuda::CUDAGuard guard(q.device());
+  const bool empty = Sq == 0 || Sk == 0;
+  at::Tensor dq = empty ? q.new_zeros(q.sizes()) : q.new_empty(q.sizes());
+  at::Tensor dk = empty ? k.new_zeros(k.sizes()) : k.new_empty(k.sizes());
+  at::Tensor dv = empty ? v.new_zeros(v.sizes()) : v.new_empty(v.sizes());
+  at::Tensor delta = q.new_empty({B, H, Sq}, q.options().dtype(at::kFloat));
+  C10_CUDA_CHECK(launch_flash_attention_bwd(
+      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr<float>(),
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+      lse.data_ptr<float>(), dout.data_ptr(), B, Sq, Sk, H, KV, d,
+      static_cast<float>(scale), causal, prefix, window.has_value(),
+      window.value_or(0), bf16, c10::cuda::getCurrentCUDAStream()));
+  return {dq, dk, dv};
 }
 
 void decode_attention(const at::Tensor& q, const at::Tensor& k_cache,
@@ -458,8 +539,14 @@ TORCH_LIBRARY(repro_torch, m) {
         "-> ()");
   m.def("ring_gather_rowloop(Tensor data, Tensor idx) -> Tensor");
   m.def("rmsnorm(Tensor x, Tensor weight, Tensor(a!) out, float eps) -> ()");
+  m.def("rmsnorm_bwd(Tensor x, Tensor weight, Tensor dy, float eps) "
+        "-> Tensor[]");
   m.def("flash_attention(Tensor q, Tensor k, Tensor v, Tensor(a!) out, "
-        "bool causal, int? window, int? prefix_len, float scale) -> ()");
+        "bool causal, int? window, int? prefix_len, float scale, "
+        "Tensor(b!)? lse=None) -> ()");
+  m.def("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
+        "Tensor lse, Tensor dout, bool causal, int? window, int? prefix_len, "
+        "float scale) -> Tensor[]");
   m.def("decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, "
         "Tensor valid_len, Tensor(a!) out, float scale) -> ()");
   m.def("ssd_scan(Tensor x, Tensor dtA, Tensor B_, Tensor C_, int chunk) "
@@ -475,7 +562,9 @@ TORCH_LIBRARY_IMPL(repro_torch, CUDA, m) {
   m.impl("ring_write_rowloop", &ring_write_rowloop);
   m.impl("ring_gather_rowloop", &ring_gather_rowloop);
   m.impl("rmsnorm", &rmsnorm);
+  m.impl("rmsnorm_bwd", &rmsnorm_bwd);
   m.impl("flash_attention", &flash_attention);
+  m.impl("flash_attention_bwd", &flash_attention_bwd);
   m.impl("decode_attention", &decode_attention);
   m.impl("ssd_scan", &ssd_scan);
 }

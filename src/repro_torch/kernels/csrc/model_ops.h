@@ -21,19 +21,44 @@ cudaError_t launch_rmsnorm(void* out, const void* x, const float* w,
                            int64_t rows, int64_t dim, float eps, bool bf16,
                            cudaStream_t stream);
 
+// RMSNorm's backward, for dy like x: dx like x, dw (dim,) float32 summed
+// over the rows. dw_part is float32 scratch of rmsnorm_bwd_parts(rows)
+// rows of dim: the partial sums of blocks of rows, which a second launch
+// adds in order (no atomics: the same bits every run).
+int64_t rmsnorm_bwd_parts(int64_t rows);
+cudaError_t launch_rmsnorm_bwd(void* dx, float* dw, float* dw_part,
+                               const void* x, const void* dy, const float* w,
+                               int64_t rows, int64_t dim, float eps,
+                               bool bf16, cudaStream_t stream);
+
 // Online-softmax GQA attention: q (B, Sq, H, d), k and v (B, Sk, KV, d),
 // out like q. Query row i sits at position Sk - Sq + i; key j attends if
 // j < Sk, and (causal) j <= its position or j < prefix_len, and
 // (has_window) position - j < window. Query head h reads KV head h / (H /
 // KV). Requires d <= kMaxHeadDim and 0 <= prefix_len <= Sk. bf16 runs on
-// the tensor cores, float32 on a SIMT kernel.
-cudaError_t launch_flash_attention(void* out, const void* q, const void* k,
-                                   const void* v, int64_t B, int64_t Sq,
-                                   int64_t Sk, int64_t H, int64_t KV,
-                                   int64_t d, float scale, bool causal,
-                                   int64_t prefix_len, bool has_window,
-                                   int64_t window, bool bf16,
-                                   cudaStream_t stream);
+// the tensor cores, float32 on a SIMT kernel. lse, when not null, takes
+// each row's log-sum-exp of its scaled scores, (B, H, Sq) float32: -inf
+// for a row that sees no key.
+cudaError_t launch_flash_attention(void* out, float* lse, const void* q,
+                                   const void* k, const void* v, int64_t B,
+                                   int64_t Sq, int64_t Sk, int64_t H,
+                                   int64_t KV, int64_t d, float scale,
+                                   bool causal, int64_t prefix_len,
+                                   bool has_window, int64_t window,
+                                   bool bf16, cudaStream_t stream);
+
+// The backward of launch_flash_attention under the same masks: given q,
+// k, v, the forward's out and lse, and dout (like out), writes dq (like
+// q), dk and dv (like k; each summed over the H / KV query heads of its
+// KV head), all float32 math. delta is float32 scratch (B, H, Sq) for
+// rowsum(dout * out). Three launches, no atomics: delta; a key-tile
+// kernel for dk and dv; a query-tile kernel for dq.
+cudaError_t launch_flash_attention_bwd(
+    void* dq, void* dk, void* dv, float* delta, const void* q,
+    const void* k, const void* v, const void* out, const float* lse,
+    const void* dout, int64_t B, int64_t Sq, int64_t Sk, int64_t H,
+    int64_t KV, int64_t d, float scale, bool causal, int64_t prefix_len,
+    bool has_window, int64_t window, bool bf16, cudaStream_t stream);
 
 // Query heads one block of decode_attention's first pass scores; a
 // larger group (G up to kMaxDecodeGroup) runs in chunks of this many.

@@ -17,6 +17,14 @@ on anything it does not take), a CPU tensor to the plain PyTorch
 version. There is no switch and no fallback between the two: where the
 reference chose between its jnp path and its Pallas kernels with
 ``use_pallas``, the port's model code always calls these.
+
+Gradients: where an operand needs one (grad mode on and an operand that
+requires grad), ``rmsnorm`` and ``flash_attention`` go through their
+``autograd.Function``s (``_rms.RMSNorm``, ``_fa.FlashAttention``), whose
+backward is a kernel too on the card; elsewhere (serving) they call the
+forward alone, and flash writes no LSE. ``decode_attention`` and
+``ssd_scan`` have no backward yet, so they refuse such a call with a
+``ValueError`` on either device: the CPU trains no path the card cannot.
 """
 from __future__ import annotations
 
@@ -109,9 +117,29 @@ def ring_gather_rowloop(data: torch.Tensor, idx: torch.Tensor
     return _replay.ring_gather_rowloop(data, idx)
 
 
+def _needs_grad(*operands: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in operands)
+
+
+def no_backward(name: str) -> ValueError:
+    """The refusal of a gradient through a kernel with no backward yet."""
+    return ValueError(
+        f"{name} has no backward kernel yet: a gradient through it "
+        "would not train on the card (call it under torch.no_grad() or "
+        "with operands that do not require grad)")
+
+
+def _refuse_grad(name: str, *operands: torch.Tensor) -> None:
+    if _needs_grad(*operands):
+        raise no_backward(name)
+
+
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6
             ) -> torch.Tensor:
     """Row-wise RMSNorm of (..., D) in float32, cast back to x's dtype."""
+    if _needs_grad(x, weight):
+        return _rms.RMSNorm.apply(x, weight, eps)
     if x.device.type == "cpu":
         return _rms.rmsnorm_ref(x, weight, eps=eps)
     return _rms.rmsnorm(x, weight, eps=eps)
@@ -121,6 +149,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     prefix_len: Optional[int] = None) -> torch.Tensor:
     """(B,Sq,H,d) x (B,Sk,KV,d)^2 -> (B,Sq,H,d)."""
+    if _needs_grad(q, k, v):
+        return _fa.FlashAttention.apply(q, k, v, causal, window, prefix_len)
     kw = dict(causal=causal, window=window, prefix_len=prefix_len)
     if q.device.type == "cpu":
         return _fa.attention_ref(q, k, v, **kw)
@@ -130,7 +160,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, valid_len: torch.Tensor
                      ) -> torch.Tensor:
-    """(B,H,d) x (B,S,KV,d)^2 -> (B,H,d); ``valid_len`` a scalar tensor."""
+    """(B,H,d) x (B,S,KV,d)^2 -> (B,H,d); ``valid_len`` a scalar tensor.
+    Refuses a call that needs a gradient (no backward kernel yet)."""
+    _refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return _dec.decode_attention_ref(q, k_cache, v_cache, valid_len)
     return _dec.decode_attention(q, k_cache, v_cache, valid_len)
@@ -140,7 +172,10 @@ def ssd_scan(x: torch.Tensor, dtA: torch.Tensor, B_: torch.Tensor,
              C_: torch.Tensor, *, chunk: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba-2 SSD scan: (B,S,H,P), (B,S,H), (B,S,H,N)^2 ->
-    (y (B,S,H,P), final_state (B,H,P,N)); chunks of min(chunk, S)."""
+    (y (B,S,H,P), final_state (B,H,P,N)); chunks of min(chunk, S).
+    Refuses a call that needs a gradient (no backward kernel yet: SSM
+    training is the next slice's)."""
+    _refuse_grad("ssd_scan", x, dtA, B_, C_)
     if x.device.type == "cpu":
         return _ssd.ssd_scan_ref(x, dtA, B_, C_, chunk=chunk)
     return _ssd.ssd_scan(x, dtA, B_, C_, chunk=chunk)

@@ -1,4 +1,5 @@
-"""Training launcher: the ``rl`` mode of ``repro/launch/train.py``.
+"""Training launcher: the ``rl`` and ``lm`` modes of
+``repro/launch/train.py``.
 
 Spreeze SAC, TD3 or DDPG on a batched PyTorch env: ``SpreezeTrainer``'s
 fused megastep over the device-resident replay ring, or with
@@ -15,6 +16,15 @@ Prints the card line and then the reference's JSON report
 (``sampling_hz``, ``update_hz``, ``update_frame_hz``, ``solved_time_s``,
 ``final_return``, ``transfer``).
 
+``lm``: language-model training of an attention architecture (dense,
+MoE, enc-dec, VLM) with the reference's flags (``--arch --reduced
+--steps --batch --seq --lr``), ``RunConfig``'s defaults (adamw, clip
+1.0, remat, f32 parameters, bf16 compute), random weights from seed 0 and
+``batch_iterator``'s batches; ``--layers`` cuts the depth at full width.
+Prints a loss line every 10 steps, the card line, then ``steps/sec ...
+final loss ...``, as the reference. The ssm and hybrid architectures
+raise (``ssd_scan`` has no backward kernel yet).
+
 Examples:
   python -m repro_torch.launch.train rl --env pendulum --algo sac --seconds 120
   python -m repro_torch.launch.train rl --algo td3 --seconds 30
@@ -23,14 +33,18 @@ Examples:
   python -m repro_torch.launch.train rl --algo ddpg --device cpu \\
       --seconds 2 --num-envs 2 --batch-size 64
   python -m repro_torch.launch.train rl --adapt --seconds 30
+  python -m repro_torch.launch.train lm --arch qwen2-0.5b --steps 3 \
+      --batch 2 --seq 128
+  python -m repro_torch.launch.train lm --arch smollm-360m --reduced \
+      --device cpu --steps 3
 
-Not ported yet: the reference's ``lm`` mode; argparse refuses it, as it
-refuses ``--prioritized``, which the reference's launcher does not have
-either.
+argparse refuses ``--prioritized``, which the reference's launcher does
+not have either, and an ``--arch`` that is not registered.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
@@ -59,7 +73,19 @@ def main(argv=None):
                          "megastep first (paper §3.4)")
     rl.add_argument("--seed", type=int, default=0)
     rl.add_argument("--device", default="cuda")
+    lm = sub.add_parser("lm")
+    from repro_torch.configs import ARCHS
+    lm.add_argument("--arch", required=True, choices=ARCHS)
+    lm.add_argument("--reduced", action="store_true")
+    lm.add_argument("--steps", type=int, default=100)
+    lm.add_argument("--batch", type=int, default=2)
+    lm.add_argument("--seq", type=int, default=128)
+    lm.add_argument("--lr", type=float, default=3e-4)
+    lm.add_argument("--layers", type=int, default=None)
+    lm.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.mode == "lm":
+        return _lm(args)
 
     from repro_torch import card_line
     from repro_torch.core import SpreezeConfig, SpreezeTrainer
@@ -96,6 +122,33 @@ def main(argv=None):
         else None,
         "transfer": hist.transfer_stats,
     }, indent=2))
+    return 0
+
+
+def _lm(args) -> int:
+    from repro_torch import card_line, resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape, RunConfig
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.train.trainer import train_loop
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    shape = InputShape("cli", seq_len=args.seq, global_batch=args.batch,
+                       kind="train")
+    rc = RunConfig(model=cfg, shape=shape, learning_rate=args.lr)
+    res = train_loop(rc, batch_iterator(cfg, shape, device=dev),
+                     steps=args.steps, device=dev,
+                     callback=lambda i, p, m: (
+                         print(f"  step {i:4d} loss {float(m['loss']):.4f}",
+                               flush=True) if i % 10 == 0 else None))
+    print(card_line(dev))
+    print(f"steps/sec {res.steps_per_sec:.3f}  "
+          f"final loss {res.losses[-1]:.4f}")
     return 0
 
 

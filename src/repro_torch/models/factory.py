@@ -14,8 +14,13 @@ layers and one shared-weight attention block run before every
   prefill(params, batch, cfg, seq_len)           -> (cache, last_logits)
   decode_step(params, token, cache, pos, cfg)    -> (logits, cache)
   count_params_analytic(cfg, active_only)        -> int
+  forward(params, batch, cfg, remat)             -> (logits, aux_loss)
+  loss_fn(params, batch, cfg, remat)             -> (loss, {"ce", "aux"})
 
-Training (``loss_fn``, ``forward``) comes with the LM training slice.
+``forward`` and ``loss_fn`` train the attention families (dense, MoE,
+enc-dec, VLM) on the card: every kernel they reach has a backward kernel.
+The ssm and hybrid families raise ``ssd_scan``'s refusal of a gradient
+until its backward kernel lands.
 """
 from __future__ import annotations
 
@@ -25,10 +30,11 @@ import torch
 
 from repro_torch._tree import stack_trees, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import embed_init
+from repro_torch.models.layers import cross_entropy, embed_init
 
 WHISPER_DEC_MAX_POS = 32768   # sized for the decode_32k shape
 
@@ -129,13 +135,14 @@ def _sinusoid(S: int, D: int, dtype: torch.dtype, device=None
 
 
 def _encode(params, frames: torch.Tensor, cfg: ModelConfig,
-            dtype: torch.dtype) -> torch.Tensor:
-    """Whisper encoder over stubbed (B, S_enc, D) frame embeddings."""
+            dtype: torch.dtype, remat: bool = False) -> torch.Tensor:
+    """Whisper encoder over stubbed (B, S_enc, D) frame embeddings, each
+    layer checkpointed under ``remat`` (training)."""
     S = frames.shape[1]
     x = frames.to(dtype) + _sinusoid(S, cfg.d_model, dtype, frames.device)
     pos = torch.arange(S, device=frames.device)
-    x = tf.stack_forward(params["enc_layers"], x, cfg, kind="enc",
-                         positions=pos, dtype=dtype)
+    x, _ = tf.stack_forward(params["enc_layers"], x, cfg, kind="enc",
+                            positions=pos, dtype=dtype, remat=remat)
     return tf.apply_norm(params["enc_ln_f"], x, cfg)
 
 
@@ -150,6 +157,60 @@ def _hybrid_groups(cfg: ModelConfig):
 def _slice_layers(stacked, s: int, e: int):
     """Layers [s, e) of a stacked tree, as views."""
     return tree_map(lambda a: a[s:e], stacked)
+
+
+# ---------------------------------------------------------------------------
+# train forward
+# ---------------------------------------------------------------------------
+
+def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            dtype=torch.bfloat16, remat: bool = True
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (logits (B, S, V), aux_loss). ``batch`` holds tokens (and
+    frames or patches); the VLM's logits cover its patch prefix too."""
+    kind = _layer_kind(cfg)
+    if kind == "ssm":                        # the ssm and hybrid families
+        raise ops.no_backward("ssd_scan")
+    tokens = batch["tokens"]
+    if cfg.family == "encdec":
+        memory = _encode(params, batch["frames"], cfg, dtype, remat)
+        x = _embed(params, tokens, cfg, dtype)
+        x = x + params["dec_pos"][:tokens.shape[1]].to(dtype)
+        pos = torch.arange(tokens.shape[1], device=x.device)
+        x, aux = tf.stack_forward(params["layers"], x, cfg, kind="dec",
+                                  positions=pos, memory=memory, dtype=dtype,
+                                  remat=remat)
+        return _logits(params, x, cfg, dtype), aux
+
+    x = _embed(params, tokens, cfg, dtype)
+    prefix_len = None
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(dtype), x], dim=1)
+        prefix_len = cfg.num_patch_tokens
+    pos = torch.arange(x.shape[1], device=x.device)
+    x, aux = tf.stack_forward(params["layers"], x, cfg, kind=kind,
+                              positions=pos, prefix_len=prefix_len,
+                              dtype=dtype, remat=remat)
+    return _logits(params, x, cfg, dtype), aux
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            dtype=torch.bfloat16, remat: bool = True
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE (+ the MoE aux loss). The targets are the tokens
+    rolled by one with the last position masked, as the reference; the
+    VLM's text logits sit after its P patches."""
+    logits, aux = forward(params, batch, cfg, dtype=dtype, remat=remat)
+    tokens = batch["tokens"]
+    B, S_text = tokens.shape
+    targets = torch.roll(tokens, -1, dims=1)
+    mask = (torch.arange(S_text, device=tokens.device) < S_text - 1).float()
+    mask = mask.expand(B, S_text)
+    if cfg.family == "vlm":
+        P = cfg.num_patch_tokens
+        logits = logits[:, P:P + S_text]
+    ce = cross_entropy(logits, targets, mask)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Shared layer primitives: init helpers, RMSNorm (plain and gated),
-LayerNorm, rotary, SwiGLU and GELU MLPs.
+LayerNorm, rotary, SwiGLU and GELU MLPs, and the training loss's
+cross-entropy.
 
 Counterpart of ``repro/models/layers.py``. Params are plain nested dicts
 of tensors (the JAX package's layout: ``(in, out)`` matrices); compute
@@ -122,3 +123,16 @@ def gelu_mlp(p, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     h = F.gelu(x @ p["w_in"].to(compute_dtype)
                + p["b_in"].to(compute_dtype), approximate="tanh")
     return h @ p["w_out"].to(compute_dtype) + p["b_out"].to(compute_dtype)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor = None) -> torch.Tensor:
+    """Mean next-token CE in float32. logits (B, S, V), targets (B, S)
+    int; with ``mask``, the masked mean over max(sum(mask), 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

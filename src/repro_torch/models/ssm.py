@@ -7,7 +7,7 @@ tensor, its plain version on a CPU tensor), where the reference chose
 between its jnp ``ssd_chunked`` and its Pallas kernel with
 ``use_pallas``. The scan starts from a zero state: the reference's
 ``initial_state`` is passed only by ``layer_forward(ssm_state=...)``,
-which nothing calls, and comes with the training slice. The decode step
+which nothing calls, and comes with SSM training. The decode step
 is plain tensor code, as in the reference, and writes ``ssm_state`` and
 ``conv_state`` in place into the caches it is given.
 

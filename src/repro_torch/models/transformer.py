@@ -16,15 +16,23 @@ stack, the port loops over the layers in Python (``torch.unbind`` gives
 each layer views of the stacked leaves, so the in-place cache writes land
 in the stack). A stack's depth is its leading dimension, so a slice of
 the layers (the hybrid's groups) runs as it is.
+
+``stack_forward`` is the training forward: under ``remat`` each layer
+runs inside ``torch.utils.checkpoint.checkpoint(..., use_reentrant=
+False)``, the counterpart of the reference's ``jax.checkpoint`` of its
+scan body, so the backward recomputes each layer's forward (its norms
+and its attention once more) instead of keeping its activations.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tree import stack_trees, tree_leaves, unstack_tree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -111,8 +119,8 @@ def _attn_layer(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
                 positions: torch.Tensor, prefix_len: Optional[int],
                 memory: Optional[torch.Tensor], dtype):
     """One dense / moe / enc / dec layer over a whole sequence. Returns
-    (x, self (k, v), cross (k, v) or None). The MoE's aux loss is left
-    out: serving has no use for it (LM training adds it)."""
+    (x, the MoE's aux loss or None, self (k, v), cross (k, v) or None)."""
+    aux = None
     causal = kind != "enc"
     h, kv = attn_lib.attention(
         p["attn"], apply_norm(p["ln1"], x, cfg), cfg, positions=positions,
@@ -128,29 +136,58 @@ def _attn_layer(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
             dtype=dtype)
         x = x + h
         x = x + gelu_mlp(p["mlp"], apply_norm(p["ln3"], x, cfg), dtype)
-        return x, kv, xkv
+        return x, aux, kv, xkv
     y = apply_norm(p["ln2"], x, cfg)
     if kind == "moe":
-        h, _ = moe_lib.moe_block(p["moe"], y, cfg, dtype=dtype)
+        h, aux = moe_lib.moe_block(p["moe"], y, cfg, dtype=dtype)
     elif kind == "enc":
         h = gelu_mlp(p["mlp"], y, dtype)
     else:
         h = mlp(p["mlp"], y, dtype)
-    return x + h, kv, None
+    return x + h, aux, kv, None
+
+
+def layer_forward(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
+                  positions: torch.Tensor, prefix_len: Optional[int] = None,
+                  memory: Optional[torch.Tensor] = None,
+                  dtype=torch.bfloat16):
+    """One attention layer over a whole sequence (training). Returns (x,
+    aux_loss, extra): extra, the SSM layer's final state in the
+    reference, is None; the ``ssm`` kind raises ``ssd_scan``'s refusal of
+    a gradient until its backward kernel lands."""
+    _check_kind(kind)
+    if kind == "ssm":
+        raise ops.no_backward("ssd_scan")
+    x, aux, _, _ = _attn_layer(p, x, cfg, kind=kind, positions=positions,
+                               prefix_len=prefix_len, memory=memory,
+                               dtype=dtype)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux, None
 
 
 def stack_forward(stacked, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
                   positions: torch.Tensor, prefix_len: Optional[int] = None,
                   memory: Optional[torch.Tensor] = None,
-                  dtype=torch.bfloat16):
-    """Loop over the layers of an attention kind (the whisper encoder's
-    stack; no cache; the SSM forward with an initial state comes with LM
-    training). Returns x."""
+                  dtype=torch.bfloat16, remat: bool = True):
+    """Loop over the layers (no cache). Under ``remat`` each layer is
+    checkpointed: its activations are dropped and recomputed in the
+    backward. Returns (x, total aux loss)."""
+    def body(layer_p, h):
+        h, a, _ = layer_forward(layer_p, h, cfg, kind=kind,
+                                positions=positions, prefix_len=prefix_len,
+                                memory=memory, dtype=dtype)
+        return h, a
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer_p in unstack_tree(stacked, _depth(stacked)):
-        x, _, _ = _attn_layer(layer_p, x, cfg, kind=kind,
-                              positions=positions, prefix_len=prefix_len,
-                              memory=memory, dtype=dtype)
-    return x
+        if remat:
+            x, a = checkpoint(body, layer_p, x, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = body(layer_p, x)
+        aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -167,9 +204,10 @@ def layer_prefill(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
         h, cache = ssm_lib.ssm_block(p["ssm"], apply_norm(p["ln1"], x, cfg),
                                      cfg, dtype=dtype, return_cache=True)
         return x + h, cache
-    x, (k, v), xkv = _attn_layer(p, x, cfg, kind=kind, positions=positions,
-                                 prefix_len=prefix_len, memory=memory,
-                                 dtype=dtype)
+    x, _, (k, v), xkv = _attn_layer(p, x, cfg, kind=kind,
+                                    positions=positions,
+                                    prefix_len=prefix_len, memory=memory,
+                                    dtype=dtype)
     cache = {"k": attn_lib.to_ring(k, seq_len, ring_len),
              "v": attn_lib.to_ring(v, seq_len, ring_len)}
     if xkv is not None:

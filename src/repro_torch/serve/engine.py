@@ -31,12 +31,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import factory
 from repro_torch.models.attention import cache_len_for
-
-
-def dtype_of(name: str) -> torch.dtype:
-    """A ``RunConfig`` dtype name -> torch dtype (the model kernels take
-    float32 and bfloat16)."""
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+from repro_torch.train.trainer import dtype_of
 
 
 def make_prefill_step(rc: RunConfig, seq_len: int) -> Callable:

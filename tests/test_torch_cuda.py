@@ -718,6 +718,152 @@ def test_decode_attention_kernel_takes_an_unaligned_base(dev, dtype):
     assert rops.LAUNCH_COUNTS["decode_attention"] == 1
 
 
+def assert_grad_close(got, want, rel):
+    """A backward kernel against its plain version: the sums run over the
+    sequence and the G heads in another order, so |got - want| <= rel
+    times the largest |want| (float32 1e-4, bf16 1e-2)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= rel * max(scale, 1e-30), (err, scale)
+
+
+GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("shape", [(8, 896), (3, 17, 64), (5, 33),
+                                   (70, 2560), (1, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_kernel_matches_plain(dev, shape, dtype):
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + 1)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    w = torch.randn(shape[-1:], generator=g, device=dev)
+    dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    dx, dw = rms.rmsnorm_bwd(x, w, dy)
+    ex, ew = rms.rmsnorm_bwd_ref(x, w, dy)
+    assert_grad_close(dx, ex, GRAD_REL[dtype])
+    assert_grad_close(dw, ew, GRAD_REL[dtype])
+    dx2, dw2 = rms.rmsnorm_bwd(x, w, dy)         # no atomics: same bits
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert rops.LAUNCH_COUNTS["rmsnorm_bwd"] == 2
+
+
+def test_rmsnorm_function_on_the_card_matches_the_cpu(dev):
+    """``ops.rmsnorm`` under autograd: the kernels' gradients on the card
+    against the plain versions' on the CPU, one backward launch."""
+    from repro_torch.kernels import ops
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 7, 96), generator=g)
+    w = torch.randn((96,), generator=g)
+    dy = torch.randn((4, 7, 96), generator=g)
+    grads = {}
+    for where in ("cpu", dev):
+        xs, ws = (t.to(where).requires_grad_() for t in (x, w))
+        y = ops.rmsnorm(xs, ws)
+        grads[str(where)] = torch.autograd.grad(y, (xs, ws), dy.to(where))
+    for got, want in zip(grads[str(dev)], grads["cpu"]):
+        assert_grad_close(got.cpu(), want, 1e-4)
+    assert dict(rops.LAUNCH_COUNTS) == {"rmsnorm": 1, "rmsnorm_bwd": 1}
+
+
+# (B, Sq, Sk, H, KV, d, causal, window, prefix_len)
+FLASH_BWD_CASES = [
+    (2, 64, 64, 4, 2, 32, True, None, None),
+    (1, 100, 100, 14, 2, 64, True, None, None),   # tail, G = 7
+    (1, 40, 130, 6, 2, 64, True, None, None),     # Sq < Sk
+    (1, 200, 200, 4, 1, 64, True, 64, None),      # window over tiles
+    (1, 33, 33, 2, 2, 8, False, None, None),      # non-causal
+    (1, 20, 30, 4, 2, 64, False, 16, None),       # window, non-causal
+    (1, 70, 30, 2, 1, 32, True, None, None),      # Sq > Sk: keyless rows
+    (1, 150, 150, 4, 2, 80, True, None, None),    # d 80
+    (1, 150, 150, 4, 2, 112, True, 64, None),     # kimi's d 112, window
+    (1, 130, 130, 2, 1, 128, True, None, None),   # d 128
+    (1, 200, 200, 8, 1, 256, True, None, 64),     # paligemma: d 256, G 8
+    (1, 150, 150, 4, 2, 64, True, None, 100),     # prefix ends mid-tile
+    (1, 200, 200, 4, 2, 64, True, 32, 70),        # window over the prefix
+    (1, 300, 300, 2, 2, 64, False, None, None),   # whisper's encoder
+    (1, 100, 300, 2, 2, 64, False, None, None),   # whisper's cross
+    (1, 256, 256, 16, 1, 64, True, None, None),   # G = 16
+    (2, 100, 100, 4, 2, 40, True, None, None),    # d 40: a padded tile
+    (1, 64, 64, 2, 1, 96, True, 3, None),         # d 96, a narrow window
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,d,causal,window,prefix",
+                         FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_matches_plain(dev, B, Sq, Sk, H, KV, d,
+                                                  causal, window, prefix,
+                                                  dtype):
+    """The forward's LSE (-inf where a row sees no key) and the backward
+    kernels' dq, dk, dv against the plain versions, on the same inputs;
+    two runs give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(Sq * H + d + 7)
+    q = torch.randn((B, Sq, H, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Sk, KV, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Sk, KV, d), generator=g, device=dev).to(dtype)
+    dout = torch.randn((B, Sq, H, d), generator=g, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    want_out, want_lse = fa.attention_ref(q, k, v, return_lse=True, **kw)
+    assert_kernel_close(out, want_out)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    for a, b in zip(got, want):
+        assert_grad_close(a, b, GRAD_REL[dtype])
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert rops.LAUNCH_COUNTS["flash_attention_bwd"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_takes_an_unaligned_base(dev, dtype):
+    """Operands one element past a 16-byte boundary: the bf16 backward
+    takes its float32 SIMT kernels instead of the tensor-core ones."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    shapes = ((1, 130, 4, 64), (1, 130, 2, 64), (1, 130, 2, 64),
+              (1, 130, 4, 64))
+    q, k, v, dout = (torch.randn(1 + s[1] * s[2] * s[3], generator=g,
+                                 device=dev).to(dtype)[1:].view(s)
+                     for s in shapes)
+    assert all(a.data_ptr() % 16 for a in (q, k, v, dout))
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, dout)
+    for a, b in zip(got, want):
+        assert_grad_close(a, b, GRAD_REL[dtype])
+
+
+def test_flash_attention_lse_only_when_asked(dev):
+    """Serving's call writes no LSE and returns the output alone."""
+    q = torch.randn((1, 64, 2, 64), device=dev, dtype=torch.bfloat16)
+    out = fa.flash_attention(q, q, q)
+    assert isinstance(out, torch.Tensor) and out.shape == q.shape
+
+
+def test_flash_function_on_the_card_matches_the_cpu(dev):
+    """``ops.flash_attention`` under autograd: the kernels' gradients on
+    the card against the plain versions' on the CPU (float32, G 3, a
+    window), one forward and one backward launch."""
+    from repro_torch.kernels import ops
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn((2, 90, 6, 64), generator=g)
+    k = torch.randn((2, 90, 2, 64), generator=g)
+    v = torch.randn((2, 90, 2, 64), generator=g)
+    dout = torch.randn((2, 90, 6, 64), generator=g)
+    grads = {}
+    for where in ("cpu", dev):
+        ts = [t.to(where).requires_grad_() for t in (q, k, v)]
+        out = ops.flash_attention(*ts, window=40)
+        grads[str(where)] = torch.autograd.grad(out, ts, dout.to(where))
+    for got, want in zip(grads[str(dev)], grads["cpu"]):
+        assert_grad_close(got.cpu(), want, 1e-4)
+    assert dict(rops.LAUNCH_COUNTS) == {"flash_attention": 1,
+                                        "flash_attention_bwd": 1}
+
+
 def test_model_kernel_wrappers_validate_operands(dev):
     x = torch.ones((4, 8), device=dev)
     with pytest.raises(ValueError, match="CUDA"):
@@ -914,6 +1060,25 @@ def _binding_case(name, dev):
         prefix = 5 if name == "flash_prefix" else None
         return lambda: ops.flash_attention(q, kv, kv, torch.empty_like(q),
                                            True, None, prefix, 0.1)
+    if name == "flash_batch":
+        q = torch.ones((65536, 1, 1, 8), **f32)
+        return lambda: ops.flash_attention(q, q, q, torch.empty_like(q),
+                                           True, None, None, 0.1)
+    if name in ("flash_lse_shape", "flash_bwd_lse_shape",
+                "flash_bwd_prefix", "flash_bwd_heads"):
+        H = 3 if name == "flash_bwd_heads" else 2
+        q = torch.ones((1, 4, H, 8), **f32)
+        kv = torch.ones((1, 4, 2, 8), **f32)
+        lse = torch.zeros((1, 2, 5 if "lse" in name else 4), **f32)
+        prefix = 5 if name == "flash_bwd_prefix" else None
+        if name == "flash_lse_shape":
+            return lambda: ops.flash_attention(q, kv, kv, torch.empty_like(q),
+                                               True, None, None, 0.1, lse)
+        return lambda: ops.flash_attention_bwd(q, kv, kv, q, lse, q, True,
+                                               None, prefix, 0.1)
+    if name == "rmsnorm_bwd_weight":
+        x = torch.ones((3, 8), **f32)
+        return lambda: ops.rmsnorm_bwd(x, torch.ones(7, **f32), x, 1e-6)
     if name in ("decode_group", "decode_empty_cache", "decode_head_dim"):
         H, S, d = {"decode_group": (34, 8, 8), "decode_empty_cache": (4, 0, 8),
                    "decode_head_dim": (4, 8, 264)}[name]
@@ -932,7 +1097,9 @@ def _binding_case(name, dev):
     "ring_write_capacity", "ring_write_fields", "ring_write_no_fields",
     "ring_write_batches", "ring_write_field_rows", "ring_write_batch_rows",
     "ring_write_row_shape", "per_topk_k", "per_topk_rows", "flash_heads",
-    "flash_head_dim", "flash_prefix", "decode_group", "decode_head_dim", "decode_empty_cache", "ssd_dims", "ssd_chunk",
+    "flash_head_dim", "flash_prefix", "flash_batch", "flash_lse_shape",
+    "flash_bwd_lse_shape", "flash_bwd_prefix", "flash_bwd_heads",
+    "rmsnorm_bwd_weight", "decode_group", "decode_head_dim", "decode_empty_cache", "ssd_dims", "ssd_chunk",
     "ring_write_rowloop_capacity", "ring_gather_rowloop_rows",
     "per_scores_rows", "ring_gather_fields", "ring_gather_no_fields",
     "ring_gather_field_rows"])
