@@ -143,12 +143,29 @@ and prints no result line):
      (``TRAIN_STEP_LAUNCHES``), then 8 on one repeated batch, whose loss
      must fall; one float32 train step of reduced qwen2-0.5b,
      h2o-danube-1.8b, mixtral-8x7b (the CPU's routing replayed; the free
-     run's gap printed), whisper-medium and paligemma-3b on the card
+     run's gap printed), whisper-medium, paligemma-3b, mamba2-130m and
+     zamba2-1.2b (3 layers; the SSMs over three chunks of 32) on the card
      against the CPU (loss, gradients and the new parameters, within
      ``tests/test_torch_trainer.py``'s limits); one full-width step under
      ``torch.cuda.set_sync_debug_mode("error")``; and ``python -m
      repro_torch.launch.train lm --arch qwen2-0.5b --steps 3 --batch 2
-     --seq 128``.
+     --seq 128``;
+  12. SSM and hybrid training: the scan's backward kernel
+     (``ssd_scan_bwd``) against its plain version on the chunk-start
+     states of the forward kernel, at mamba2-130m's and zamba2-1.2b's
+     training shapes (B 8, 1024 tokens, chunk 256; H 24, P 64, N 128 and
+     H 64, P 64, N 64), one ragged chunk of 80, and P 24, N 20 over
+     chunks of 32 from an initial state with a final state's gradient,
+     in bf16 and float32, each gradient within ``GRAD_TOL`` of its
+     largest value, and that forward (with its initial state and its
+     states) against ``ssd_scan_ref``; then timed at mamba2's training
+     shape beside its bound and its plain version, with the serving and
+     training forwards and their device launches; full-width mamba2-130m
+     (8 steps) and zamba2-1.2b (4 steps) through ``train_loop`` as in
+     phase 11, with exact launches (``SSM_TRAIN_LAUNCHES``) and the loss
+     falling on a repeated batch; one mamba2 step under the sync debug
+     mode "error"; and ``python -m repro_torch.launch.train lm --arch
+     mamba2-130m --steps 3 --batch 2 --seq 256``.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -251,10 +268,41 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # bf16 forward sums ex2.approx terms; tests/test_torch_cuda.py's limits)
 LSE_TOL = {"rtol": 1e-5, "atol": 1e-4}
 # card against CPU, one float32 train step: (arch, sequence length, a
-# VLM's counting its patches), as tests/test_torch_trainer.py
-TRAIN_CHECKS = (("qwen2-0.5b", 32), ("h2o-danube-1.8b", 80),
-                ("mixtral-8x7b", 80), ("whisper-medium", 24),
-                ("paligemma-3b", 40))
+# VLM's counting its patches, layers of the reduced config), as
+# tests/test_torch_trainer.py; the SSMs over three chunks of 32, zamba2's
+# 3 layers in two groups, (0, 2) and (2, 3), each after the shared block.
+# (At 5 layers the gradient of A_log, a sum over every row and head that
+# nearly cancels, lies 3.2e-5 of its largest value from the CPU's, and
+# 3.9e-5 with every kernel swapped for its plain version on the card:
+# the card's summation order, not a kernel, moves it past 2e-5.)
+TRAIN_CHECKS = (("qwen2-0.5b", 32, 2), ("h2o-danube-1.8b", 80, 2),
+                ("mixtral-8x7b", 80, 2), ("whisper-medium", 24, 2),
+                ("paligemma-3b", 40, 2), ("mamba2-130m", 96, 2),
+                ("zamba2-1.2b", 96, 3))
+# SSM and hybrid training, 8 x 1024 tokens a step: (arch, steps a run).
+# Exact launches of one step (remat on): mamba2-130m's 24 layers each run
+# ln1, the gated norm and the scan in the forward and again in the
+# backward's recompute, plus the final norm; one backward launch of each
+# norm and scan. zamba2-1.2b adds, before each of its 7 groups of core
+# layers (38 in all), the shared attention block, not checkpointed: 2
+# norms and a flash attention, each with its backward.
+SSM_TRAIN_RUNS = (("mamba2-130m", 8), ("zamba2-1.2b", 4))
+SSM_TRAIN_LAUNCHES = {
+    "mamba2-130m": {"rmsnorm": 2 * (2 * 24) + 1, "rmsnorm_bwd": 2 * 24 + 1,
+                    "ssd_scan": 2 * 24, "ssd_scan_bwd": 24},
+    "zamba2-1.2b": {"rmsnorm": 2 * (2 * 38) + 2 * 7 + 1,
+                    "rmsnorm_bwd": 2 * 38 + 2 * 7 + 1,
+                    "flash_attention": 7, "flash_attention_bwd": 7,
+                    "ssd_scan": 2 * 38, "ssd_scan_bwd": 38},
+}
+# The scan backward's checks: (label, B, S, H, P, N, chunk, initial state
+# and dfinal given); the first two are the training shapes
+BWD_SCAN_SHAPES = (
+    ("mamba2-130m train", TRAIN_B, TRAIN_S, 24, 64, 128, 256, False),
+    ("zamba2-1.2b train", TRAIN_B, TRAIN_S, 64, 64, 64, 256, False),
+    ("one ragged chunk of 80", 2, 80, 4, 32, 32, 256, True),
+    ("P 24, N 20, chunks of 32", 2, 96, 4, 24, 20, 32, True),
+)
 # Decode attention: (label, B, S, H, KV, d, valid slots checked); timed
 # with every slot valid
 NEW_DECODE_SHAPES = (
@@ -2506,21 +2554,24 @@ def train_rc(cfg, seq, batch, **kw):
                                                  "train"), **kw)
 
 
-def run_train_main_path(dev):
-    """Full-width qwen2-0.5b (f32 parameters from seed 0, bf16 compute,
-    adamw, clip 1.0, remat) through ``train_loop``: ``TRAIN_STEPS`` steps
-    on ``batch_iterator``'s batches, then as many on one repeated batch,
-    whose loss must fall; each run's launches zeroed just before and
-    read just after, exactly ``TRAIN_STEP_LAUNCHES`` a step."""
+def run_train_main_path(dev, arch=TRAIN_ARCH, steps=TRAIN_STEPS,
+                        per_step=None):
+    """Full-width ``arch`` (f32 parameters from seed 0, bf16 compute,
+    adamw, clip 1.0, remat) through ``train_loop``: ``steps`` steps on
+    ``batch_iterator``'s batches of 8 x 1024 tokens, then as many on one
+    repeated batch, whose loss must fall; each run's launches zeroed just
+    before and read just after, exactly ``per_step`` a step
+    (``TRAIN_STEP_LAUNCHES`` for qwen2-0.5b)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import batch_iterator
     from repro_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
     from repro_torch.models import factory
     from repro_torch.train.trainer import train_loop
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     rc = train_rc(cfg, TRAIN_S, TRAIN_B)
-    expect = {k: n * TRAIN_STEPS for k, n in TRAIN_STEP_LAUNCHES.items()}
+    per_step = per_step or TRAIN_STEP_LAUNCHES
+    expect = {k: n * steps for k, n in per_step.items()}
     stats, counts = {}, {}
     for label, batches in (
             ("batch_iterator", batch_iterator(cfg, rc.shape, seed=0,
@@ -2531,19 +2582,19 @@ def run_train_main_path(dev):
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         t0 = time.perf_counter()
-        res = train_loop(rc, batches, steps=TRAIN_STEPS, device=dev)
+        res = train_loop(rc, batches, steps=steps, device=dev)
         wall = time.perf_counter() - t0
         launches = dict(LAUNCH_COUNTS)
         require(launches == expect,
-                f"train launches {launches} != expected {expect}")
-        require(len(res.losses) == TRAIN_STEPS and
+                f"train launches ({arch}) {launches} != expected {expect}")
+        require(len(res.losses) == steps and
                 all(math.isfinite(x) for x in res.losses),
                 f"losses {res.losses}")
         for name, c in launches.items():
             counts[name] = counts.get(name, 0) + c
         stats[label] = {
-            "arch": TRAIN_ARCH, "params": factory.count_params_analytic(cfg),
-            "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS,
+            "arch": arch, "params": factory.count_params_analytic(cfg),
+            "batch": TRAIN_B, "seq": TRAIN_S, "steps": steps,
             "step_ms": 1e3 / res.steps_per_sec,
             "tokens_per_s": TRAIN_B * TRAIN_S * res.steps_per_sec,
             "wall_s": wall,
@@ -2552,12 +2603,13 @@ def run_train_main_path(dev):
             "losses": res.losses, "launches": launches}
     rep = stats["one batch repeated"]
     require(rep["last_loss"] < rep["first_loss"],
-            f"the loss on a repeated batch did not fall: {rep['losses']}")
+            f"the loss on a repeated batch did not fall ({arch}): "
+            f"{rep['losses']}")
     return stats, counts
 
 
-def run_train_sanitized(dev):
-    """One full-width qwen2-0.5b train step (after a warm-up step) under
+def run_train_sanitized(dev, arch=TRAIN_ARCH):
+    """One full-width ``arch`` train step (after a warm-up step) under
     ``torch.cuda.set_sync_debug_mode("error")``: nothing in it waits for
     the card."""
     import torch
@@ -2565,7 +2617,7 @@ def run_train_sanitized(dev):
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import batch_iterator
     from repro_torch.train.trainer import init_train_state, make_train_step
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     rc = train_rc(cfg, TRAIN_S, TRAIN_B)
     params, state, opt = init_train_state(
         rc, torch.Generator(device=dev).manual_seed(0))
@@ -2583,8 +2635,9 @@ def run_train_sanitized(dev):
     return {"loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3}
 
 
-def check_training_device_vs_cpu(dev, arch, seq):
-    """Reduced ``arch``, float32 compute: one train step (adamw, clip 1.0,
+def check_training_device_vs_cpu(dev, arch, seq, layers=2):
+    """Reduced ``arch`` (``layers`` deep), float32 compute: one train step
+    (adamw, clip 1.0,
     remat) on the card and on the CPU from the same parameters and batch.
     The loss within 1e-5 relative, each gradient leaf within 2e-5 of its
     largest value, the new parameters within 2 lr (Adam's sign of a
@@ -2599,7 +2652,7 @@ def check_training_device_vs_cpu(dev, arch, seq):
     from repro_torch.models import factory
     from repro_torch.train import trainer
     from repro_torch.train.optimizer import make_optimizer
-    cfg = get_config(arch).reduced()
+    cfg = get_config(arch).reduced(num_layers=layers)
     rc = train_rc(cfg, seq, 2, compute_dtype="float32")
     params = factory.init_params(cfg, torch.Generator().manual_seed(5))
     batch = make_batch(cfg, rc.shape, torch.Generator().manual_seed(6))
@@ -2644,15 +2697,127 @@ def check_training_device_vs_cpu(dev, arch, seq):
     return got
 
 
-def run_lm_launcher():
-    """``python -m repro_torch.launch.train lm --arch qwen2-0.5b --steps 3
-    --batch 2 --seq 128`` in this process, as a user calls it (full
+def scan_grad_inputs(dev, seed, dtype, B, S, H, P, N):
+    """``scan_inputs``, and a start state ~ 0.5 N(0, 1), dy ~ N(0, 1) in
+    ``dtype`` and dfinal ~ N(0, 1), float32."""
+    import torch
+    x, dtA, Bm, Cm = scan_inputs(dev, seed, dtype, B, S, H, P, N)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    s0 = torch.randn((B, H, P, N), generator=g, device=dev) * 0.5
+    dy = torch.randn((B, S, H, P), generator=g, device=dev).to(dtype)
+    dfin = torch.randn((B, H, P, N), generator=g, device=dev)
+    return x, dtA, Bm, Cm, s0, dy, dfin
+
+
+def check_ssd_scan_bwd(dev):
+    """``ssd_scan_bwd`` against ``ssd_scan_bwd_ref`` at ``BWD_SCAN_SHAPES``,
+    bf16 and float32, on the chunk-start states of the kernel's forward,
+    each gradient within ``GRAD_TOL`` of its largest value; that forward
+    (from the start state where one is given) and its states against
+    ``ssd_scan_ref`` with ``scan_close``. Returns (max abs error, {dtype:
+    largest relative gap}, rows)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    worst, rel, rows = 0.0, {}, []
+    names = ("dx", "ddtA", "dB", "dC", "dinitial")
+    for dtype in (torch.bfloat16, torch.float32):
+        key = "float32" if dtype == torch.float32 else "bfloat16"
+        for label, B, S, H, P, N, L, given in BWD_SCAN_SHAPES:
+            x, dtA, Bm, Cm, s0, dy, dfin = scan_grad_inputs(
+                dev, S * H + N + P, dtype, B, S, H, P, N)
+            s0, dfin = (s0, dfin) if given else (None, None)
+            fwd = ssd.ssd_scan(x, dtA, Bm, Cm, chunk=L, initial_state=s0,
+                               return_states=True)
+            want = ssd.ssd_scan_ref(x, dtA, Bm, Cm, chunk=L,
+                                    initial_state=s0, return_states=True)
+            fwd_err = max(scan_close(a, b) for a, b in zip(fwd, want))
+            got = ssd.ssd_scan_bwd(x, dtA, Bm, Cm, fwd[2], dy, dfin,
+                                   chunk=L)
+            plain = ssd.ssd_scan_bwd_ref(x, dtA, Bm, Cm, fwd[2], dy, dfin,
+                                         chunk=L)
+            gaps = dict(zip(names, (grad_gap(a, b)
+                                    for a, b in zip(got, plain))))
+            if not given:
+                del gaps["dinitial"]   # no start state: not returned
+            gap = max(g[1] for g in gaps.values())
+            require(gap <= GRAD_TOL[key], f"ssd_scan_bwd ({label}, {key}): "
+                    f"{gaps} past {GRAD_TOL[key]} of the largest gradient")
+            err = max(g[0] for g in gaps.values())
+            worst = max(worst, err)
+            rel[key] = max(rel.get(key, 0.0), gap)
+            rows.append({"kernel": "ssd_scan_bwd", "shape": label,
+                         "dtype": key, "max_abs_err": err, "rel_gap": gap,
+                         "rel_gap_by_grad": {k: g[1]
+                                             for k, g in gaps.items()},
+                         "initial_state_and_dfinal": given,
+                         "forward_max_abs_err": fwd_err})
+            del x, dtA, Bm, Cm, dy, fwd, want, got, plain
+            torch.cuda.empty_cache()
+    return worst, rel, rows
+
+
+def time_ssd_scan_bwd(dev):
+    """``ssd_scan_bwd`` at mamba2-130m's training shape, bf16: kernel and
+    plain version (CUDA events), the device launches of a call, and no
+    library call (no PyTorch call computes the scan or its gradient).
+    Bound: the bytes (x, dy, B_, C_ and the float32 chunk states and dtA
+    read once; dx, dB, dC and ddtA written once) over 3.35 TB/s, or the
+    FLOPs of the formulas over the bf16 tensor peak, the larger: per
+    chunk and head the L x L products G = C B^T, D = dy x^T, (W G)^T dy,
+    (W D)^T C and (W D) B, L^2 (3 N + 2 P) multiply-adds, and the state
+    products R B_s, R^T x_s, S_c^T dy_t and the chunk's own adjoint term,
+    4 L P N. Beside it the float32 kernels (the SIMT path) on the same
+    values upcast, the serving forward (``ssd_scan``, no states handed
+    back) and the training forward (``return_states``) at the same shape,
+    with their device launches."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    _, B, S, H, P, N, L, _ = BWD_SCAN_SHAPES[0]
+    x, dtA, Bm, Cm, _, dy, _ = scan_grad_inputs(dev, 51, torch.bfloat16, B,
+                                                S, H, P, N)
+    states = ssd.ssd_scan(x, dtA, Bm, Cm, chunk=L, return_states=True)[2]
+    f32 = [a.float() for a in (x, dtA, Bm, Cm)]
+    dy32 = dy.float()
+    nc = S // L
+    nbytes = 2 * (3 * B * S * H * P + 4 * B * S * H * N) \
+        + 4 * (B * H * nc * P * N + 2 * B * S * H)
+    flops = 2 * B * H * nc * (L * L * (3 * N + 2 * P) + 4 * L * P * N)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+
+    def bwd():
+        return ssd.ssd_scan_bwd(x, dtA, Bm, Cm, states, dy, chunk=L)
+    return {"ms": event_ms(bwd, iters=10, warmup=2),
+            "plain_ms": event_ms(lambda: ssd.ssd_scan_bwd_ref(
+                x, dtA, Bm, Cm, states, dy, chunk=L), iters=5, warmup=1),
+            "library_ms": None, "library": "none (no PyTorch call)",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "mbytes": nbytes / 1e6, "gflop": flops / 1e9,
+            "simt_f32_ms": event_ms(lambda: ssd.ssd_scan_bwd(
+                *f32, states, dy32, chunk=L), iters=5, warmup=1),
+            "f32_simt_bound_ms": flops / F32_FLOP_PER_S * 1e3,
+            "device_launches": device_launches(bwd, calls=5),
+            "forward_ms": event_ms(lambda: ssd.ssd_scan(x, dtA, Bm, Cm,
+                                                        chunk=L),
+                                   iters=20, warmup=3),
+            "forward_launches": device_launches(
+                lambda: ssd.ssd_scan(x, dtA, Bm, Cm, chunk=L)),
+            "forward_states_ms": event_ms(lambda: ssd.ssd_scan(
+                x, dtA, Bm, Cm, chunk=L, return_states=True), iters=20,
+                warmup=3),
+            "shape": [B, S, H, P, N, L]}
+
+
+def run_lm_launcher(arch="qwen2-0.5b", seq=128):
+    """``python -m repro_torch.launch.train lm --arch ARCH --steps 3
+    --batch 2 --seq SEQ`` in this process, as a user calls it (full
     width, the card): it must exit 0 and print a finite final loss."""
     from repro_torch.launch import train
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = train.main(["lm", "--arch", "qwen2-0.5b", "--steps", "3",
-                         "--batch", "2", "--seq", "128"])
+        rc = train.main(["lm", "--arch", arch, "--steps", "3",
+                         "--batch", "2", "--seq", str(seq)])
     lines = out.getvalue().strip().splitlines()
     final = lines[-1]
     require(rc == 0 and final.startswith("steps/sec") and
@@ -3042,10 +3207,10 @@ def main():
                   "last_loss"):
             print(f"train {TRAIN_ARCH} ({label}) {k} {st[k]} ({card})",
                   flush=True)
-    for arch, seq in TRAIN_CHECKS:
-        got = check_training_device_vs_cpu(dev, arch, seq)
-        print(f"train step on cuda vs cpu (reduced {arch}, float32, "
-              f"{seq} tokens): " + json.dumps(got), flush=True)
+    for arch, seq, layers in TRAIN_CHECKS:
+        got = check_training_device_vs_cpu(dev, arch, seq, layers)
+        print(f"train step on cuda vs cpu (reduced {arch}, {layers} layers,"
+              f" float32, {seq} tokens): " + json.dumps(got), flush=True)
     torch.cuda.empty_cache()
     print("sanitized train step (qwen2-0.5b, sync debug mode \"error\"): " +
           json.dumps({**run_train_sanitized(dev), "card": card}), flush=True)
@@ -3054,6 +3219,42 @@ def main():
     print("launcher (lm --arch qwen2-0.5b --steps 3 --batch 2 --seq 128): "
           + " | ".join(lines), flush=True)
     print(f"LM training: {time.perf_counter() - t_train:.1f} s", flush=True)
+
+    # SSM and hybrid training: the scan's backward kernel, then the paths
+    t_ssm = time.perf_counter()
+    torch.cuda.empty_cache()
+    errs["ssd_scan_bwd"], scan_rel, rows = check_ssd_scan_bwd(dev)
+    for row in rows:
+        print(f"ssd_scan_bwd ({row['shape']}, {row['dtype']}): " +
+              json.dumps(row), flush=True)
+    print("ssd_scan_bwd's largest gap, of the largest gradient value: " +
+          json.dumps(scan_rel) + f" (limits {GRAD_TOL})", flush=True)
+    timing["ssd_scan_bwd"] = time_ssd_scan_bwd(dev)
+    print(f"ssd_scan_bwd: max_abs_err {errs['ssd_scan_bwd']} " + " ".join(
+        f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in timing["ssd_scan_bwd"].items()) + f" ({card})",
+        flush=True)
+    for arch, steps in SSM_TRAIN_RUNS:
+        torch.cuda.empty_cache()
+        stats, counts = run_train_main_path(dev, arch, steps,
+                                            SSM_TRAIN_LAUNCHES[arch])
+        add_launches(counts)
+        for label, st in stats.items():
+            print(f"train main path ({arch}, {label}): " +
+                  json.dumps({**st, "card": card}), flush=True)
+            for k in ("step_ms", "tokens_per_s", "peak_mem_gb",
+                      "first_loss", "last_loss"):
+                print(f"train {arch} ({label}) {k} {st[k]} ({card})",
+                      flush=True)
+    torch.cuda.empty_cache()
+    print("sanitized train step (mamba2-130m, sync debug mode \"error\"): "
+          + json.dumps({**run_train_sanitized(dev, "mamba2-130m"),
+                        "card": card}), flush=True)
+    torch.cuda.empty_cache()
+    lines = run_lm_launcher("mamba2-130m", 256)
+    print("launcher (lm --arch mamba2-130m --steps 3 --batch 2 --seq 256): "
+          + " | ".join(lines), flush=True)
+    print(f"SSM training: {time.perf_counter() - t_ssm:.1f} s", flush=True)
 
     sources = {"ring_write": ("ring_ops.cu", "replay_ops.py:188"),
                "ring_gather": ("ring_ops.cu", "replay_ops.py:302"),
@@ -3071,7 +3272,8 @@ def main():
                # the TPU kernels had no backward: the forward's wrapper
                "rmsnorm_bwd": ("rmsnorm.cu", "rmsnorm.py:29"),
                "flash_attention_bwd": ("flash_attention.cu",
-                                       "flash_attention.py:77")}
+                                       "flash_attention.py:77"),
+               "ssd_scan_bwd": ("ssd_scan_bwd.cu", "ssd_scan.py:76")}
     kernels = [{"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/" + src,
                 "replaces": "src/repro/kernels/" + tpu,

@@ -3,9 +3,10 @@
 // priority_scatter / per_scores and the bench baselines
 // ring_write_rowloop / ring_gather_rowloop (replay) and rmsnorm /
 // rmsnorm_bwd / flash_attention / flash_attention_bwd /
-// decode_attention / ssd_scan (the LM model) for CUDA tensors. The only
-// source that includes PyTorch's headers, and only the light ones
-// (torch/library.h, not torch/extension.h), to keep the build short.
+// decode_attention / ssd_scan / ssd_scan_bwd (the LM model) for CUDA
+// tensors. The only source that includes PyTorch's headers, and only the
+// light ones (torch/library.h, not torch/extension.h), to keep the build
+// short.
 
 #include <map>
 #include <mutex>
@@ -481,9 +482,11 @@ void decode_attention(const at::Tensor& q, const at::Tensor& k_cache,
       static_cast<float>(scale), bf16, c10::cuda::getCurrentCUDAStream()));
 }
 
-std::vector<at::Tensor> ssd_scan(const at::Tensor& x, const at::Tensor& dtA,
-                                 const at::Tensor& B_, const at::Tensor& C_,
-                                 int64_t chunk) {
+// The checks the scan and its backward share: x (B, S, H, P) float32 or
+// bf16, dtA (B, S, H) float32, B_ and C_ (B, S, H, N) like x, within the
+// kernels' limits. Returns whether they are bf16.
+bool check_ssd(const at::Tensor& x, const at::Tensor& dtA,
+               const at::Tensor& B_, const at::Tensor& C_, int64_t chunk) {
   const bool bf16 = check_activation(x, "x");
   check_operand(dtA, "dtA", at::kFloat);
   check_operand(B_, "B_", x.scalar_type());
@@ -506,6 +509,36 @@ std::vector<at::Tensor> ssd_scan(const at::Tensor& x, const at::Tensor& dtA,
   TORCH_CHECK(B < 65536 && H < 65536 && S * H < (int64_t{1} << 31) &&
                   B * H < (int64_t{1} << 31),
               "ssd_scan shape out of range");
+  return bf16;
+}
+
+// A float32 (B, H, P, N) state of the scan (the initial state, or the
+// final state's gradient), or null when not given.
+const float* ssd_state_ptr(const std::optional<at::Tensor>& state,
+                           const char* name, const at::Tensor& x,
+                           int64_t N) {
+  if (!state.has_value()) return nullptr;
+  check_operand(*state, name, at::kFloat);
+  TORCH_CHECK(state->dim() == 4 && state->size(0) == x.size(0) &&
+                  state->size(1) == x.size(2) &&
+                  state->size(2) == x.size(3) && state->size(3) == N,
+              name, " must be (B, H, P, N) = (", num(x.size(0)), ", ",
+              num(x.size(2)), ", ", num(x.size(3)), ", ", num(N), ")");
+  TORCH_CHECK(state->device() == x.device(), name, " is not on x's device");
+  return state->data_ptr<float>();
+}
+
+// y and the final state, and with return_states the float32 state each
+// chunk starts from (the scratch the kernels write anyway).
+std::vector<at::Tensor> ssd_scan(const at::Tensor& x, const at::Tensor& dtA,
+                                 const at::Tensor& B_, const at::Tensor& C_,
+                                 int64_t chunk,
+                                 const std::optional<at::Tensor>& initial,
+                                 bool return_states) {
+  const bool bf16 = check_ssd(x, dtA, B_, C_, chunk);
+  const int64_t B = x.size(0), S = x.size(1), H = x.size(2), P = x.size(3);
+  const int64_t N = B_.size(3);
+  const float* init = ssd_state_ptr(initial, "initial_state", x, N);
   const c10::cuda::CUDAGuard guard(x.device());
   // the outputs, and the float32 scratch of the three passes (model_ops.h),
   // from the caching allocator on the current stream
@@ -516,10 +549,55 @@ std::vector<at::Tensor> ssd_scan(const at::Tensor& x, const at::Tensor& dtA,
   at::Tensor states = x.new_empty({B, H, S / chunk, P, N}, f32);
   C10_CUDA_CHECK(launch_ssd_scan(
       y.data_ptr(), final_state.data_ptr(), x.data_ptr(),
-      dtA.data_ptr<float>(), B_.data_ptr(), C_.data_ptr(),
+      dtA.data_ptr<float>(), B_.data_ptr(), C_.data_ptr(), init,
       acum.data_ptr<float>(), states.data_ptr<float>(), B, S, H, P, N, chunk,
       bf16, c10::cuda::getCurrentCUDAStream()));
+  if (return_states) return {y, final_state, states};
   return {y, final_state};
+}
+
+// dx, ddtA, dB, dC and dinitial, allocated here with the float32 scratch
+// of the five passes (model_ops.h).
+std::vector<at::Tensor> ssd_scan_bwd(const at::Tensor& x,
+                                     const at::Tensor& dtA,
+                                     const at::Tensor& B_,
+                                     const at::Tensor& C_,
+                                     const at::Tensor& states,
+                                     const at::Tensor& dy,
+                                     const std::optional<at::Tensor>& dfinal,
+                                     int64_t chunk) {
+  const bool bf16 = check_ssd(x, dtA, B_, C_, chunk);
+  check_operand(dy, "dy", x.scalar_type());
+  check_operand(states, "states", at::kFloat);
+  const int64_t B = x.size(0), S = x.size(1), H = x.size(2), P = x.size(3);
+  const int64_t N = B_.size(3);
+  TORCH_CHECK(dy.sizes() == x.sizes(), "dy must have x's shape");
+  TORCH_CHECK(states.dim() == 5 && states.size(0) == B &&
+                  states.size(1) == H && states.size(2) == S / chunk &&
+                  states.size(3) == P && states.size(4) == N,
+              "states must be (B, H, S / chunk, P, N) = (", num(B), ", ",
+              num(H), ", ", num(S / chunk), ", ", num(P), ", ", num(N), ")");
+  const float* dfin = ssd_state_ptr(dfinal, "dfinal", x, N);
+  const c10::cuda::CUDAGuard guard(x.device());
+  const auto f32 = x.options().dtype(at::kFloat);
+  at::Tensor dx = x.new_empty(x.sizes());
+  at::Tensor dB = B_.new_empty(B_.sizes());
+  at::Tensor dC = C_.new_empty(C_.sizes());
+  at::Tensor ddtA = dtA.new_empty(dtA.sizes());
+  at::Tensor dinit = x.new_empty({B, H, P, N}, f32);
+  at::Tensor acum = x.new_empty({B, H, S}, f32);
+  at::Tensor adj = x.new_empty({B, H, S / chunk, P, N}, f32);
+  at::Tensor rows = x.new_empty({3, B, H, S}, f32);   // drow, dcol, qrow
+  float* r = rows.data_ptr<float>();
+  const int64_t n = B * H * S;
+  C10_CUDA_CHECK(launch_ssd_scan_bwd(
+      dx.data_ptr(), ddtA.data_ptr<float>(), dB.data_ptr(), dC.data_ptr(),
+      dinit.data_ptr<float>(), x.data_ptr(), dtA.data_ptr<float>(),
+      B_.data_ptr(), C_.data_ptr(), states.data_ptr<float>(), dy.data_ptr(),
+      dfin, acum.data_ptr<float>(), adj.data_ptr<float>(), r, r + n,
+      r + 2 * n, B, S, H, P, N, chunk, bf16,
+      c10::cuda::getCurrentCUDAStream()));
+  return {dx, ddtA, dB, dC, dinit};
 }
 
 }  // namespace
@@ -549,8 +627,10 @@ TORCH_LIBRARY(repro_torch, m) {
         "float scale) -> Tensor[]");
   m.def("decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, "
         "Tensor valid_len, Tensor(a!) out, float scale) -> ()");
-  m.def("ssd_scan(Tensor x, Tensor dtA, Tensor B_, Tensor C_, int chunk) "
-        "-> Tensor[]");
+  m.def("ssd_scan(Tensor x, Tensor dtA, Tensor B_, Tensor C_, int chunk, "
+        "Tensor? initial_state=None, bool return_states=False) -> Tensor[]");
+  m.def("ssd_scan_bwd(Tensor x, Tensor dtA, Tensor B_, Tensor C_, "
+        "Tensor states, Tensor dy, Tensor? dfinal, int chunk) -> Tensor[]");
 }
 
 TORCH_LIBRARY_IMPL(repro_torch, CUDA, m) {
@@ -567,4 +647,5 @@ TORCH_LIBRARY_IMPL(repro_torch, CUDA, m) {
   m.impl("flash_attention_bwd", &flash_attention_bwd);
   m.impl("decode_attention", &decode_attention);
   m.impl("ssd_scan", &ssd_scan);
+  m.impl("ssd_scan_bwd", &ssd_scan_bwd);
 }

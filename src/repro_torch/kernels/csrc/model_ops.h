@@ -1,6 +1,7 @@
 // Launchers for the LM model kernels in rmsnorm.cu, flash_attention.cu,
-// decode_attention.cu and ssd_scan.cu. Plain C++ types only, like
-// ring_ops.h, so that binding.cpp and the .cu files compile independently.
+// decode_attention.cu, ssd_scan.cu and ssd_scan_bwd.cu. Plain C++ types
+// only, like ring_ops.h, so that binding.cpp and the .cu files compile
+// independently.
 // Tensors are float32 or bfloat16 (`bf16` says which); every launcher
 // returns the CUDA error of its launch (cudaSuccess when the kernels were
 // queued).
@@ -115,13 +116,34 @@ constexpr int kMaxSsdDim = 128;
 // Mamba-2 SSD chunked scan, float32 math: x (B, S, H, P) pre-scaled by dt,
 // dtA (B, S, H) float32, B_ and C_ (B, S, H, N) like x; y like x and
 // final_state (B, H, P, N) like x. Chunks of L rows, S % L == 0; the state
-// starts at zero. Scratch, float32: acum (B, H, S) takes each chunk's
-// cumulative sum of dtA, states (B, H, S / L, P, N) each chunk's own state
-// contribution and then the state it starts from. Three kernels: the
-// chunk states, the state recurrence, y. Requires L <= kMaxSsdChunk, P
-// and N <= kMaxSsdDim.
+// starts at initial_state ((B, H, P, N) float32) or, when it is null, at
+// zero. Scratch, float32: acum (B, H, S) takes each chunk's cumulative sum
+// of dtA, states (B, H, S / L, P, N) each chunk's own state contribution
+// and then the state it starts from (which the backward reads). Three
+// kernels: the chunk states, the state recurrence, y. Requires L <=
+// kMaxSsdChunk, P and N <= kMaxSsdDim.
 cudaError_t launch_ssd_scan(void* y, void* final_state, const void* x,
                             const float* dtA, const void* B_, const void* C_,
-                            float* acum, float* states, int64_t B, int64_t S,
-                            int64_t H, int64_t P, int64_t N, int64_t L,
-                            bool bf16, cudaStream_t stream);
+                            const float* initial_state, float* acum,
+                            float* states, int64_t B, int64_t S, int64_t H,
+                            int64_t P, int64_t N, int64_t L, bool bf16,
+                            cudaStream_t stream);
+
+// The backward of launch_ssd_scan: its operands, the float32 states each
+// chunk starts from (its `states` scratch after the call), dy like x and
+// dfinal ((B, H, P, N) float32, or null for zero). Writes dx, dB and dC
+// like x (dB and dC per head), ddtA (B, S, H) float32 and dinitial (B,
+// H, P, N) float32, the gradient of the initial state. Scratch, float32:
+// acum (B, H, S), adj (B, H, S / L, P, N) (each chunk's own adjoint term,
+// then the adjoint of the state it ends with), and drow, dcol, qrow (B,
+// H, S) (the parts of the gradient of the cumulative sum). Five kernels,
+// no atomics. The same limits as launch_ssd_scan.
+cudaError_t launch_ssd_scan_bwd(void* dx, float* ddtA, void* dB, void* dC,
+                                float* dinitial, const void* x,
+                                const float* dtA, const void* B_,
+                                const void* C_, const float* states,
+                                const void* dy, const float* dfinal,
+                                float* acum, float* adj, float* drow,
+                                float* dcol, float* qrow, int64_t B,
+                                int64_t S, int64_t H, int64_t P, int64_t N,
+                                int64_t L, bool bf16, cudaStream_t stream);

@@ -14,17 +14,19 @@
 //        dS_c = x_c^T (B_c * exp(A_cum[L-1] - A_cum))           (P, N)
 //      into the f32 scratch `states`, (B, H, chunks, P, N).
 //   2. The state pass, one thread per (b, h, p, n): over the chunks in
-//      order, from zero,
+//      order, from the float32 initial state (or from zero without one),
 //        S_{c+1} = exp(A_cum_c[L-1]) S_c + dS_c,
-//      writing over dS_c the state S_c that chunk c starts from, and the
-//      final state in x's dtype.
+//      writing over dS_c the state S_c that chunk c starts from (the
+//      backward, ssd_scan_bwd.cu, reads them there), and the final state
+//      in x's dtype.
 //   3. y, one block per (b, h, chunk, 64-row query tile):
 //        y[t] = sum_{s <= t} (C[t] . B[s]) exp(A_cum[t] - A_cum[s]) x[s]
 //               + exp(A_cum[t]) (C[t] . S_c)
 //      over the causal 64-row key tiles; key tiles past the diagonal are
-//      skipped (their decay weights are 0). The heaviest query tiles (the
-//      most key tiles) are launched first, so the tail of the grid is
-//      short.
+//      skipped (their decay weights are 0), and so is the state term of
+//      the first chunk when the scan starts from zero. The heaviest query
+//      tiles (the most key tiles) are launched first, so the tail of the
+//      grid is short.
 // Blocks of 128 threads; tiles come in by 16-byte cp.async where rows
 // allow it (rows of a multiple of 16 bytes from 16-byte aligned bases),
 // otherwise element by element, with zeros past the edges.
@@ -184,7 +186,8 @@ __device__ __forceinline__ Cell cell(int S, int H, int L) {
 template <typename T>
 __global__ void __launch_bounds__(kPassThreads)
     ssd_state_pass_kernel(T* __restrict__ fin, float* __restrict__ states,
-                          const float* __restrict__ acum, int S, int L,
+                          const float* __restrict__ acum,
+                          const float* __restrict__ init, int S, int L,
                           int PN) {
   constexpr int kGroup = 8;  // chunks whose loads are in flight together
   const int64_t bh = blockIdx.x;
@@ -193,7 +196,7 @@ __global__ void __launch_bounds__(kPassThreads)
   const int nc = S / L;
   float* st = states + bh * nc * PN + e;
   const float* a_last = acum + bh * S + L - 1;
-  float s = 0.0f;
+  float s = init != nullptr ? init[bh * PN + e] : 0.0f;
   for (int c0 = 0; c0 < nc; c0 += kGroup) {
     float d[kGroup], carry[kGroup];
 #pragma unroll
@@ -325,7 +328,7 @@ __global__ void __launch_bounds__(kThreads)
                  const float* __restrict__ Bm, const float* __restrict__ Cm,
                  const float* __restrict__ acum,
                  const float* __restrict__ states, int S, int H, int P, int N,
-                 int L, bool vec) {
+                 int L, bool vec, bool has_init) {
   constexpr int kLdP = simt_ld(kPG);
   constexpr int kLdN = simt_ld(kNG);
   constexpr int kLdS = kT + 4;
@@ -352,7 +355,8 @@ __global__ void __launch_bounds__(kThreads)
   load_rows(Cs, kLdN,
             Cm + (k.row_b + static_cast<int64_t>(k.c0 + t0) * H) * N,
             static_cast<int64_t>(H) * N, nq, kT, N, 64 * kNG, vec);
-  if (k.c > 0)
+  const bool has_state = k.c > 0 || has_init;
+  if (has_state)
     load_rows(BSs, kLdN, states + (k.bh * nc + k.c) * P * N,
               static_cast<int64_t>(N), P, 64 * kPG, N, 64 * kNG, N % 4 == 0);
   cp_async_commit();
@@ -365,7 +369,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < kPC; ++j) acc[i][j] = 0.0f;
-  if (k.c > 0) {  // exp(A_cum[t]) C[t] . S_c
+  if (has_state) {  // exp(A_cum[t]) C[t] . S_c
     for (int n = 0; n < 64 * kNG; n += 4) {
       float4 cv[8], sv[kPC];
 #pragma unroll
@@ -693,7 +697,7 @@ __global__ void __launch_bounds__(kThreads, kYMinBlocks<kPD, kND>)
                     const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
                     const float* __restrict__ acum,
                     const float* __restrict__ states, int S, int H, int P,
-                    int N, int L, bool vec) {
+                    int N, int L, bool vec, bool has_init) {
   constexpr int kLdP = tc_ld(kPD);
   constexpr int kLdN = tc_ld(kND);
   constexpr int kStage = kT * (kLdN + kLdP);  // a key tile: B rows, x rows
@@ -735,7 +739,8 @@ __global__ void __launch_bounds__(kThreads, kYMinBlocks<kPD, kND>)
             Cm + (k.row_b + static_cast<int64_t>(k.c0 + t0) * H) * N,
             static_cast<int64_t>(H) * N, nq, kT, N, 16 * kND, vec);
   cp_async_commit();
-  if (k.c > 0)
+  const bool has_state = k.c > 0 || has_init;
+  if (has_state)
     load_split_state(Shi, Slo, kLdN, states + (k.bh * nc + k.c) * P * N, P,
                      N, 16 * kPD, 16 * kND);
   cp_async_wait<0>();
@@ -764,7 +769,7 @@ __global__ void __launch_bounds__(kThreads, kYMinBlocks<kPD, kND>)
   for (int n = 0; n < 2 * kPD; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  if (k.c > 0) {  // exp(A_cum[t]) C[t] . (S_hi + S_lo)
+  if (has_state) {  // exp(A_cum[t]) C[t] . (S_hi + S_lo)
 #pragma unroll
     for (int kk = 0; kk < kND; ++kk)
 #pragma unroll
@@ -887,7 +892,8 @@ template <typename T, typename StateKernel, typename YKernel>
 cudaError_t run_passes(StateKernel state_kernel, size_t state_smem,
                        YKernel y_kernel, size_t y_smem, void* y, void* fin,
                        const void* x, const float* dtA, const void* Bm,
-                       const void* Cm, float* acum, float* states, int64_t B,
+                       const void* Cm, const float* init, float* acum,
+                       float* states, int64_t B,
                        int64_t S, int64_t H, int64_t P, int64_t N, int64_t L,
                        cudaStream_t stream) {
   constexpr int kE = 16 / sizeof(T);  // elements a 16-byte chunk
@@ -913,7 +919,7 @@ cudaError_t run_passes(StateKernel state_kernel, size_t state_smem,
   ssd_state_pass_kernel<T><<<dim3(static_cast<unsigned>(B * H),
                                   (PN + kPassThreads - 1) / kPassThreads),
                              kPassThreads, 0, stream>>>(
-      static_cast<T*>(fin), states, acum, Si, Li, PN);
+      static_cast<T*>(fin), states, acum, init, Si, Li, PN);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -926,14 +932,15 @@ cudaError_t run_passes(StateKernel state_kernel, size_t state_smem,
   y_kernel<<<tiles, kThreads, y_smem, stream>>>(
       static_cast<T*>(y), static_cast<const T*>(x),
       static_cast<const T*>(Bm), static_cast<const T*>(Cm), acum, states,
-      Si, Hi, Pi, Ni, Li, vec);
+      Si, Hi, Pi, Ni, Li, vec, init != nullptr);
   return cudaGetLastError();
 }
 
 template <int kPG, int kNG>
 cudaError_t launch_simt(void* y, void* fin, const void* x, const float* dtA,
-                        const void* Bm, const void* Cm, float* acum,
-                        float* states, int64_t B, int64_t S, int64_t H,
+                        const void* Bm, const void* Cm, const float* init,
+                        float* acum, float* states, int64_t B, int64_t S,
+                        int64_t H,
                         int64_t P, int64_t N, int64_t L,
                         cudaStream_t stream) {
   const size_t state_smem =
@@ -945,13 +952,15 @@ cudaError_t launch_simt(void* y, void* fin, const void* x, const float* dtA,
                        kT * (kT + 4));
   return run_passes<float>(ssd_chunk_state_kernel<kPG, kNG>, state_smem,
                            ssd_y_kernel<kPG, kNG>, y_smem, y, fin, x, dtA,
-                           Bm, Cm, acum, states, B, S, H, P, N, L, stream);
+                           Bm, Cm, init, acum, states, B, S, H, P, N, L,
+                           stream);
 }
 
 template <int kPD, int kND>
 cudaError_t launch_tc(void* y, void* fin, const void* x, const float* dtA,
-                      const void* Bm, const void* Cm, float* acum,
-                      float* states, int64_t B, int64_t S, int64_t H,
+                      const void* Bm, const void* Cm, const float* init,
+                      float* acum, float* states, int64_t B, int64_t S,
+                      int64_t H,
                       int64_t P, int64_t N, int64_t L, cudaStream_t stream) {
   const size_t state_smem =
       sizeof(float) * (kMaxSsdChunk + kT) +
@@ -961,20 +970,22 @@ cudaError_t launch_tc(void* y, void* fin, const void* x, const float* dtA,
       sizeof(bf16) * (kT * tc_ld(kND) + 2 * kT * (tc_ld(kND) + tc_ld(kPD)));
   return run_passes<bf16>(ssd_chunk_state_tc_kernel<kPD, kND>, state_smem,
                           ssd_y_tc_kernel<kPD, kND>, y_smem, y, fin, x, dtA,
-                          Bm, Cm, acum, states, B, S, H, P, N, L, stream);
+                          Bm, Cm, init, acum, states, B, S, H, P, N, L,
+                          stream);
 }
 
 }  // namespace
 
 cudaError_t launch_ssd_scan(void* y, void* final_state, const void* x,
                             const float* dtA, const void* B_, const void* C_,
-                            float* acum, float* states, int64_t B, int64_t S,
-                            int64_t H, int64_t P, int64_t N, int64_t L,
-                            bool bf16, cudaStream_t stream) {
+                            const float* initial_state, float* acum,
+                            float* states, int64_t B, int64_t S, int64_t H,
+                            int64_t P, int64_t N, int64_t L, bool bf16,
+                            cudaStream_t stream) {
   if (B == 0 || H == 0 || S == 0) return cudaSuccess;
 #define REPRO_SSD(LAUNCH, PG, NG)                                       \
-  return LAUNCH<PG, NG>(y, final_state, x, dtA, B_, C_, acum, states, B, \
-                        S, H, P, N, L, stream)
+  return LAUNCH<PG, NG>(y, final_state, x, dtA, B_, C_, initial_state,    \
+                        acum, states, B, S, H, P, N, L, stream)
   if (bf16) {   // P and N padded to 64 or 128, in 16-column fragments
     if (P <= 64 && N <= 64) REPRO_SSD(launch_tc, 4, 4);
     if (P <= 64) REPRO_SSD(launch_tc, 4, 8);

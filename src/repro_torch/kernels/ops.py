@@ -19,12 +19,14 @@ reference chose between its jnp path and its Pallas kernels with
 ``use_pallas``, the port's model code always calls these.
 
 Gradients: where an operand needs one (grad mode on and an operand that
-requires grad), ``rmsnorm`` and ``flash_attention`` go through their
-``autograd.Function``s (``_rms.RMSNorm``, ``_fa.FlashAttention``), whose
-backward is a kernel too on the card; elsewhere (serving) they call the
-forward alone, and flash writes no LSE. ``decode_attention`` and
-``ssd_scan`` have no backward yet, so they refuse such a call with a
-``ValueError`` on either device: the CPU trains no path the card cannot.
+requires grad), ``rmsnorm``, ``flash_attention`` and ``ssd_scan`` go
+through their ``autograd.Function``s (``_rms.RMSNorm``,
+``_fa.FlashAttention``, ``_ssd.SSDScan``), whose backward is a kernel too
+on the card; elsewhere (serving) they call the forward alone, flash
+writes no LSE and the scan hands back no chunk states.
+``decode_attention`` has no backward (no training path runs it), so it
+refuses such a call with a ``ValueError`` on either device: the CPU
+trains no path the card cannot.
 """
 from __future__ import annotations
 
@@ -122,17 +124,13 @@ def _needs_grad(*operands: torch.Tensor) -> bool:
                                            for t in operands)
 
 
-def no_backward(name: str) -> ValueError:
-    """The refusal of a gradient through a kernel with no backward yet."""
-    return ValueError(
-        f"{name} has no backward kernel yet: a gradient through it "
-        "would not train on the card (call it under torch.no_grad() or "
-        "with operands that do not require grad)")
-
-
 def _refuse_grad(name: str, *operands: torch.Tensor) -> None:
+    """The refusal of a gradient through a kernel with no backward."""
     if _needs_grad(*operands):
-        raise no_backward(name)
+        raise ValueError(
+            f"{name} has no backward kernel: a gradient through it would "
+            "not train on the card (call it under torch.no_grad() or with "
+            "operands that do not require grad)")
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6
@@ -161,7 +159,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, valid_len: torch.Tensor
                      ) -> torch.Tensor:
     """(B,H,d) x (B,S,KV,d)^2 -> (B,H,d); ``valid_len`` a scalar tensor.
-    Refuses a call that needs a gradient (no backward kernel yet)."""
+    Refuses a call that needs a gradient (no backward kernel: no
+    training path runs it)."""
     _refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return _dec.decode_attention_ref(q, k_cache, v_cache, valid_len)
@@ -169,16 +168,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def ssd_scan(x: torch.Tensor, dtA: torch.Tensor, B_: torch.Tensor,
-             C_: torch.Tensor, *, chunk: int
+             C_: torch.Tensor, *, chunk: int,
+             initial_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba-2 SSD scan: (B,S,H,P), (B,S,H), (B,S,H,N)^2 ->
-    (y (B,S,H,P), final_state (B,H,P,N)); chunks of min(chunk, S).
-    Refuses a call that needs a gradient (no backward kernel yet: SSM
-    training is the next slice's)."""
-    _refuse_grad("ssd_scan", x, dtA, B_, C_)
-    if x.device.type == "cpu":
-        return _ssd.ssd_scan_ref(x, dtA, B_, C_, chunk=chunk)
-    return _ssd.ssd_scan(x, dtA, B_, C_, chunk=chunk)
+    (y (B,S,H,P), final_state (B,H,P,N)); chunks of min(chunk, S), from
+    ``initial_state`` (B,H,P,N) or zero."""
+    operands = (x, dtA, B_, C_) + (() if initial_state is None
+                                   else (initial_state,))
+    if _needs_grad(*operands):
+        return _ssd.SSDScan.apply(x, dtA, B_, C_, initial_state, chunk)
+    fn = _ssd.ssd_scan_ref if x.device.type == "cpu" else _ssd.ssd_scan
+    return fn(x, dtA, B_, C_, chunk=chunk, initial_state=initial_state)
 
 
 # --------------------------------------------------------------------------- #

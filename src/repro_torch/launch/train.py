@@ -16,14 +16,15 @@ Prints the card line and then the reference's JSON report
 (``sampling_hz``, ``update_hz``, ``update_frame_hz``, ``solved_time_s``,
 ``final_return``, ``transfer``).
 
-``lm``: language-model training of an attention architecture (dense,
-MoE, enc-dec, VLM) with the reference's flags (``--arch --reduced
---steps --batch --seq --lr``), ``RunConfig``'s defaults (adamw, clip
-1.0, remat, f32 parameters, bf16 compute), random weights from seed 0 and
-``batch_iterator``'s batches; ``--layers`` cuts the depth at full width.
-Prints a loss line every 10 steps, the card line, then ``steps/sec ...
-final loss ...``, as the reference. The ssm and hybrid architectures
-raise (``ssd_scan`` has no backward kernel yet).
+``lm``: language-model training of any registered architecture (dense,
+MoE, enc-dec, VLM, and the ssm and hybrid families: mamba2, zamba2) with
+the reference's flags (``--arch --reduced --steps --batch --seq --lr``),
+``RunConfig``'s defaults (adamw, clip 1.0, remat, f32 parameters, bf16
+compute), random weights from seed 0 and ``batch_iterator``'s batches;
+``--layers`` cuts the depth at full width. Prints a loss line every 10
+steps, the card line, then ``steps/sec ... final loss ...``, as the
+reference. An SSM's ``--seq`` must be at most its chunk or a multiple of
+it (256 at full width, 32 reduced), as the reference asserts.
 
 Examples:
   python -m repro_torch.launch.train rl --env pendulum --algo sac --seconds 120
@@ -37,6 +38,8 @@ Examples:
       --batch 2 --seq 128
   python -m repro_torch.launch.train lm --arch smollm-360m --reduced \
       --device cpu --steps 3
+  python -m repro_torch.launch.train lm --arch mamba2-130m --steps 3 \
+      --batch 2 --seq 256
 
 argparse refuses ``--prioritized``, which the reference's launcher does
 not have either, and an ``--arch`` that is not registered.

@@ -17,10 +17,10 @@ layers and one shared-weight attention block run before every
   forward(params, batch, cfg, remat)             -> (logits, aux_loss)
   loss_fn(params, batch, cfg, remat)             -> (loss, {"ce", "aux"})
 
-``forward`` and ``loss_fn`` train the attention families (dense, MoE,
-enc-dec, VLM) on the card: every kernel they reach has a backward kernel.
-The ssm and hybrid families raise ``ssd_scan``'s refusal of a gradient
-until its backward kernel lands.
+``forward`` and ``loss_fn`` train every family on the card: every kernel
+they reach has a backward kernel (rmsnorm, flash attention, the SSD
+scan). The hybrid runs its shared block before each group of core
+layers, not checkpointed, as the reference does.
 """
 from __future__ import annotations
 
@@ -30,7 +30,6 @@ import torch
 
 from repro_torch._tree import stack_trees, tree_map
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tf
@@ -169,8 +168,6 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     """-> (logits (B, S, V), aux_loss). ``batch`` holds tokens (and
     frames or patches); the VLM's logits cover its patch prefix too."""
     kind = _layer_kind(cfg)
-    if kind == "ssm":                        # the ssm and hybrid families
-        raise ops.no_backward("ssd_scan")
     tokens = batch["tokens"]
     if cfg.family == "encdec":
         memory = _encode(params, batch["frames"], cfg, dtype, remat)
@@ -188,6 +185,16 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
         x = torch.cat([batch["patches"].to(dtype), x], dim=1)
         prefix_len = cfg.num_patch_tokens
     pos = torch.arange(x.shape[1], device=x.device)
+    if cfg.family == "hybrid":
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for s, e in _hybrid_groups(cfg):
+            x, _, _ = tf.layer_forward(params["shared_attn"], x, cfg,
+                                       kind="dense", positions=pos,
+                                       dtype=dtype)
+            x, _ = tf.stack_forward(_slice_layers(params["layers"], s, e),
+                                    x, cfg, kind="ssm", positions=pos,
+                                    dtype=dtype, remat=remat)
+        return _logits(params, x, cfg, dtype), aux
     x, aux = tf.stack_forward(params["layers"], x, cfg, kind=kind,
                               positions=pos, prefix_len=prefix_len,
                               dtype=dtype, remat=remat)

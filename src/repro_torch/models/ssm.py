@@ -5,11 +5,17 @@ Counterpart of ``repro/models/ssm.py``. The prefill's chunked scan always
 goes through ``kernels.ops.ssd_scan`` (the hand-written kernel on a CUDA
 tensor, its plain version on a CPU tensor), where the reference chose
 between its jnp ``ssd_chunked`` and its Pallas kernel with
-``use_pallas``. The scan starts from a zero state: the reference's
-``initial_state`` is passed only by ``layer_forward(ssm_state=...)``,
-which nothing calls, and comes with SSM training. The decode step
-is plain tensor code, as in the reference, and writes ``ssm_state`` and
-``conv_state`` in place into the caches it is given.
+``use_pallas``. The scan starts from ``initial_state`` when one is
+given (``layer_forward(ssm_state=...)``), else from zero; the reference
+took its jnp path for a given state because its Pallas kernel had no
+such argument, while the port's kernel takes one. The state is carried
+through every chunk and into the final state, as the reference's oracle
+``ssd_ref`` carries it (its ``ssd_chunked`` keeps it for the first chunk
+alone). Under a gradient the
+scan goes through its backward kernel as well (``ops.ssd_scan``'s
+``SSDScan``). The decode step is plain tensor code, as in the reference,
+and writes ``ssm_state`` and ``conv_state`` in place into the caches it
+is given.
 
 Shapes follow the reference: heads H = d_inner / P, state N, groups G
 (1 for the configs), B and C broadcast from the groups to the heads.
@@ -17,7 +23,7 @@ Shapes follow the reference: heads H = d_inner / P, state N, groups G
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -110,10 +116,11 @@ def _split_xbc(xBC: torch.Tensor, cfg: ModelConfig, d_inner: int, H: int):
 
 
 def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, dtype=torch.bfloat16,
+              initial_state: Optional[torch.Tensor] = None,
               return_cache: bool = False):
     """Full-sequence Mamba-2 block. x: (B,S,D) -> (out, final_ssm_state),
     or (out, {"ssm_state", "conv_state"}) when ``return_cache`` (the
-    prefill)."""
+    prefill); the scan starts from ``initial_state`` (B,H,P,N) or zero."""
     B, S, _ = x.shape
     zxbcdt = x @ p["in_proj"].to(dtype)
     z, xBC_raw, dt, d_inner, H, s = _split_proj(zxbcdt, cfg)
@@ -123,7 +130,8 @@ def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, dtype=torch.bfloat16,
     dt = F.softplus(dt.float() + p["dt_bias"])                    # (B,S,H)
     A = -torch.exp(p["A_log"])                                     # (H,)
     y, fstate = kops.ssd_scan(x_in * dt[..., None].to(dtype),
-                              (dt * A).float(), B_, C_, chunk=s.chunk_size)
+                              (dt * A).float(), B_, C_, chunk=s.chunk_size,
+                              initial_state=initial_state)
     y = y + p["D_skip"].to(dtype)[None, None, :, None] * x_in
     y = gated_rms_norm(y.reshape(B, S, d_inner), z, p["norm_w"],
                        cfg.norm_eps)

@@ -21,7 +21,8 @@ the layers (the hybrid's groups) runs as it is.
 runs inside ``torch.utils.checkpoint.checkpoint(..., use_reentrant=
 False)``, the counterpart of the reference's ``jax.checkpoint`` of its
 scan body, so the backward recomputes each layer's forward (its norms
-and its attention once more) instead of keeping its activations.
+and its attention or its scan once more) instead of keeping its
+activations.
 """
 from __future__ import annotations
 
@@ -32,7 +33,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tree import stack_trees, tree_leaves, unstack_tree
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -150,20 +150,23 @@ def _attn_layer(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
 def layer_forward(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
                   positions: torch.Tensor, prefix_len: Optional[int] = None,
                   memory: Optional[torch.Tensor] = None,
-                  dtype=torch.bfloat16):
-    """One attention layer over a whole sequence (training). Returns (x,
-    aux_loss, extra): extra, the SSM layer's final state in the
-    reference, is None; the ``ssm`` kind raises ``ssd_scan``'s refusal of
-    a gradient until its backward kernel lands."""
+                  dtype=torch.bfloat16,
+                  ssm_state: Optional[torch.Tensor] = None):
+    """One layer over a whole sequence (training). Returns (x, aux_loss,
+    extra): extra is the ``ssm`` kind's final state (its scan starting
+    from ``ssm_state``, or zero), None for the attention kinds."""
     _check_kind(kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "ssm":
-        raise ops.no_backward("ssd_scan")
-    x, aux, _, _ = _attn_layer(p, x, cfg, kind=kind, positions=positions,
-                               prefix_len=prefix_len, memory=memory,
-                               dtype=dtype)
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, aux, None
+        h, extra = ssm_lib.ssm_block(p["ssm"], apply_norm(p["ln1"], x, cfg),
+                                     cfg, dtype=dtype,
+                                     initial_state=ssm_state)
+        return x + h, aux, extra
+    x, moe_aux, _, _ = _attn_layer(p, x, cfg, kind=kind,
+                                   positions=positions,
+                                   prefix_len=prefix_len, memory=memory,
+                                   dtype=dtype)
+    return x, aux if moe_aux is None else moe_aux, None
 
 
 def stack_forward(stacked, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
@@ -172,7 +175,8 @@ def stack_forward(stacked, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
                   dtype=torch.bfloat16, remat: bool = True):
     """Loop over the layers (no cache). Under ``remat`` each layer is
     checkpointed: its activations are dropped and recomputed in the
-    backward. Returns (x, total aux loss)."""
+    backward. An SSM layer's final state is dropped, as the reference's
+    scan drops it. Returns (x, total aux loss)."""
     def body(layer_p, h):
         h, a, _ = layer_forward(layer_p, h, cfg, kind=kind,
                                 positions=positions, prefix_len=prefix_len,

@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/train/trainer.py``. ``make_train_step`` returns
 one step: the loss and its gradients by autograd through
-``factory.loss_fn`` (the rmsnorm and flash attention kernels and their
-backward kernels on the card, their plain versions on the CPU), then
+``factory.loss_fn`` (the rmsnorm, flash attention and SSD scan kernels
+and their backward kernels on the card, their plain versions on the
+CPU), then
 the optimizer's in-place update of the parameters and moments (the
 analogue of the reference's donated buffers). Nothing in a step reads a
 tensor back to the host: the metrics stay on the device, and

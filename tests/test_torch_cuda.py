@@ -1003,6 +1003,130 @@ def test_ssd_scan_wrapper_validates_operands(dev):
     assert sum(rops.LAUNCH_COUNTS.values()) == 0
 
 
+def _scan_operands(dev, dtype, B, S, H, P, N, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=0.5):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    x, Bm, Cm = (rnd(B, S, H, n).to(dtype) for n in (P, N, N))
+    dtA = -torch.nn.functional.softplus(rnd(B, S, H, scale=1.0)) * 0.3
+    s0 = rnd(B, H, P, N)
+    dy = rnd(B, S, H, P, scale=1.0).to(dtype)
+    dfin = rnd(B, H, P, N, scale=1.0)
+    return x, dtA, Bm, Cm, s0, dy, dfin
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 128, 4, 32, 16, 32),
+    (2, 80, 4, 32, 32, 256),          # one ragged chunk
+    (1, 96, 2, 24, 20, 32),           # P, N not multiples of 16
+    (1, 1024, 2, 64, 128, 256),       # mamba2's P, N and chunk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_from_an_initial_state(dev, B, S, H, P, N, chunk,
+                                               dtype):
+    """The forward started from a given float32 state, and the chunk-start
+    states it hands back, against the plain version; still one launch."""
+    x, dtA, Bm, Cm, s0, _, _ = _scan_operands(dev, dtype, B, S, H, P, N, S)
+    y, fin, states = ssd.ssd_scan(x, dtA, Bm, Cm, chunk=chunk,
+                                  initial_state=s0, return_states=True)
+    wy, wfin, wstates = ssd.ssd_scan_ref(x, dtA, Bm, Cm, chunk=chunk,
+                                         initial_state=s0,
+                                         return_states=True)
+    assert_scan_close(y, wy)
+    assert_scan_close(fin, wfin)
+    assert_scan_close(states, wstates)
+    assert rops.LAUNCH_COUNTS["ssd_scan"] == 1
+
+
+def assert_grads_close(got, want, dtype):
+    """A backward kernel's gradients against the plain version's: each
+    within 1e-4 (float32) or 1e-2 (bf16) of its largest value, as
+    chip_smoke's GRAD_TOL (sums over the chunk, the state and the chunks
+    in other orders; bf16 outputs rounded once on each side)."""
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g).all())
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= rel * float(w.float().abs().max()), err
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,init,dfinal", [
+    (2, 128, 4, 32, 16, 32, False, False),
+    (2, 80, 4, 32, 32, 256, False, True),       # one ragged chunk
+    (1, 96, 2, 24, 20, 32, True, True),         # P 24, N 20, three chunks
+    (1, 1024, 2, 64, 128, 256, True, False),    # mamba2's P, N and chunk
+    (1, 1024, 3, 64, 64, 256, False, False),    # zamba2's
+    (1, 512, 2, 128, 128, 128, True, True),     # the largest P and N
+    (1, 256, 2, 128, 64, 128, False, True),     # P 128 over N 64
+    (1, 512, 2, 100, 72, 64, True, True),       # 8 chunks of one tile
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_bwd_kernel_matches_plain(dev, B, S, H, P, N, chunk, init,
+                                           dfinal, dtype):
+    x, dtA, Bm, Cm, s0, dy, dfin = _scan_operands(dev, dtype, B, S, H, P, N,
+                                                  S + P + N)
+    _, _, states = ssd.ssd_scan(x, dtA, Bm, Cm, chunk=chunk,
+                                initial_state=s0 if init else None,
+                                return_states=True)
+    dfin = dfin if dfinal else None
+    got = ssd.ssd_scan_bwd(x, dtA, Bm, Cm, states, dy, dfin, chunk=chunk)
+    want = ssd.ssd_scan_bwd_ref(x, dtA, Bm, Cm, states, dy, dfin,
+                                chunk=chunk)
+    assert_grads_close(got, want, dtype)
+    assert rops.LAUNCH_COUNTS["ssd_scan_bwd"] == 1
+    # the same bits on a second run: no atomics
+    again = ssd.ssd_scan_bwd(x, dtA, Bm, Cm, states, dy, dfin, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_bwd_kernel_takes_an_unaligned_base(dev, dtype):
+    """x, B_, C_ and dy one element past a 16-byte boundary: the bf16
+    backward leaves the tensor cores for its element-by-element kernels
+    and agrees with the plain version."""
+    B, S, H, P, N, chunk = 1, 256, 2, 64, 64, 128
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def shifted(width, scale=0.5):
+        flat = torch.randn(B * S * H * width + 1, generator=g,
+                           device=dev) * scale
+        return flat.to(dtype)[1:].view(B, S, H, width)
+
+    x, Bm, Cm, dy = shifted(P), shifted(N), shifted(N), shifted(P, 1.0)
+    dtA = -torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=dev)) * 0.3
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    _, _, states = ssd.ssd_scan(x, dtA, Bm, Cm, chunk=chunk,
+                                return_states=True)
+    got = ssd.ssd_scan_bwd(x, dtA, Bm, Cm, states, dy, chunk=chunk)
+    want = ssd.ssd_scan_bwd_ref(x, dtA, Bm, Cm, states, dy, chunk=chunk)
+    assert_grads_close(got, want, dtype)
+
+
+def test_ssd_scan_trains_on_the_card_as_on_the_cpu(dev):
+    """``ops.ssd_scan`` under a gradient on the card (``SSDScan``: the
+    forward and backward kernels) against the same on the CPU (the plain
+    versions), float32, an initial state and a used final state."""
+    from repro_torch.kernels import ops
+    arrays = _scan_operands(dev, torch.float32, 2, 96, 3, 16, 8, 5)
+
+    def run(where):
+        leaves = [a.detach().to(where).requires_grad_()
+                  for a in arrays[:5]]
+        y, fin = ops.ssd_scan(*leaves[:4], chunk=32,
+                              initial_state=leaves[4])
+        ((y * arrays[5].to(where)).sum() +
+         (fin * arrays[6].to(where)).sum()).backward()
+        return [a.grad.cpu() for a in leaves]
+
+    got = run(dev)
+    assert rops.LAUNCH_COUNTS["ssd_scan"] == 1
+    assert rops.LAUNCH_COUNTS["ssd_scan_bwd"] == 1
+    assert_grads_close(got, run("cpu"), torch.float32)
+
+
 def _binding_case(name, dev):
     """A call of a registered op that fails one of the binding's checks
     whose message holds an integer."""
@@ -1086,11 +1210,22 @@ def _binding_case(name, dev):
         kv = torch.ones((1, S, 2, d), **f32)
         return lambda: ops.decode_attention(q, kv, kv, torch.ones(1, **i32),
                                             torch.empty_like(q), 0.1)
-    S, P, chunk = (64, 129, 64) if name == "ssd_dims" else (512, 16, 512)
+    S, P, chunk = (64, 129, 64) if name.endswith("ssd_dims") else \
+        (512, 16, 512) if name.endswith("ssd_chunk") else (64, 16, 32)
     x = torch.ones((1, S, 2, P), **f32)
     b = torch.ones((1, S, 2, 8), **f32)
-    return lambda: ops.ssd_scan(x, -torch.ones((1, S, 2), **f32), b, b,
-                                chunk)
+    dtA = -torch.ones((1, S, 2), **f32)
+    if name == "ssd_initial_state":
+        return lambda: ops.ssd_scan(x, dtA, b, b, chunk,
+                                    torch.zeros((1, 2, P, 7), **f32))
+    if name.startswith("ssd_bwd"):
+        states = torch.zeros((1, 2, max(S // chunk, 1), P, 8), **f32)
+        if name == "ssd_bwd_states":
+            states = torch.zeros((1, 2, 3, P, 8), **f32)
+        dfin = torch.zeros((1, 2, P, 7 if name == "ssd_bwd_dfinal" else 8),
+                           **f32)
+        return lambda: ops.ssd_scan_bwd(x, dtA, b, b, states, x, dfin, chunk)
+    return lambda: ops.ssd_scan(x, dtA, b, b, chunk)
 
 
 @pytest.mark.parametrize("name", [
@@ -1100,6 +1235,8 @@ def _binding_case(name, dev):
     "flash_head_dim", "flash_prefix", "flash_batch", "flash_lse_shape",
     "flash_bwd_lse_shape", "flash_bwd_prefix", "flash_bwd_heads",
     "rmsnorm_bwd_weight", "decode_group", "decode_head_dim", "decode_empty_cache", "ssd_dims", "ssd_chunk",
+    "ssd_initial_state", "ssd_bwd_ssd_dims", "ssd_bwd_ssd_chunk",
+    "ssd_bwd_states", "ssd_bwd_dfinal",
     "ring_write_rowloop_capacity", "ring_gather_rowloop_rows",
     "per_scores_rows", "ring_gather_fields", "ring_gather_no_fields",
     "ring_gather_field_rows"])

@@ -173,17 +173,13 @@ def test_bf16_plain_backward_returns_the_operands_dtype():
     assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
 
 
-def test_decode_attention_and_ssd_scan_refuse_a_gradient():
-    """No backward kernel yet: a call that needs a gradient raises on
-    either device (here the CPU), and passes under no_grad."""
+def test_decode_attention_refuses_a_gradient():
+    """No training path runs it, so it has no backward kernel: a call
+    that needs a gradient raises on either device (here the CPU), and
+    passes under no_grad. (The SSD scan trains: tests/test_torch_ssd_grads.py.)"""
     q = torch.randn((1, 4, 8), requires_grad=True)
     kv = torch.randn((1, 6, 2, 8))
     with pytest.raises(ValueError, match="decode_attention"):
         ops.decode_attention(q, kv, kv, torch.tensor(6))
     with torch.no_grad():
         ops.decode_attention(q, kv, kv, torch.tensor(6))
-    x = torch.randn((1, 8, 2, 4), requires_grad=True)
-    b = torch.randn((1, 8, 2, 4))
-    with pytest.raises(ValueError, match="ssd_scan"):
-        ops.ssd_scan(x, -torch.ones((1, 8, 2)), b, b, chunk=8)
-    ops.ssd_scan(x.detach(), -torch.ones((1, 8, 2)), b, b, chunk=8)

@@ -2,7 +2,9 @@
 the JAX package, on the CPU: the causal depthwise conv, the gated norm,
 ``ssm_block`` with its prefill cache (against both of the reference's
 paths: its jnp ``ssd_chunked`` and its Pallas kernel in interpret mode),
-``ssm_decode_step`` with its in-place cache writes, one SSM layer, the
+``ssm_decode_step`` with its in-place cache writes, the block and the
+training layer (``layer_forward``) started from a given state, one SSM
+layer's prefill and decode, the
 parameter draws and layout, ``cast_params``, the hybrid's layer groups
 and its caches. Parameters and inputs are the reference's or numpy's,
 carried across through ``repro_torch.interop``; the JAX side runs under
@@ -28,6 +30,7 @@ import torch
 
 import repro  # noqa: F401  (sets jax_threefry_partitionable first)
 from repro.configs import get_config as jax_get_config
+from repro.kernels import ref as jref
 from repro.kernels.ops import use_pallas
 from repro.models import factory as jfactory
 from repro.models import layers as jlayers
@@ -216,6 +219,72 @@ def test_ssm_layer_prefill_then_decode_matches_the_reference(case):
         close(got, want)
         for k in wc:
             close(gc[k], wc[k])
+
+
+def _oracle_scan(x, dtA, B_, C_, chunk, initial_state=None):
+    """The reference's oracle ``ref.ssd_ref`` in the place of its
+    ``ssd_chunked``. With an initial state, ``ssd_chunked`` leaves the
+    state's own carry out of the final state (``s_incl[:, -1]`` is the
+    scan of the chunks' contributions alone) and out of every chunk after
+    the first (``states_prev`` shifts that same scan); the oracle, the
+    Pallas kernel's reference, carries it. The port follows the oracle."""
+    return jref.ssd_ref(x, dtA, B_, C_, initial_state)
+
+
+@pytest.mark.parametrize("case", sorted(BLOCKS))
+def test_ssm_block_from_an_initial_state_matches_the_reference(case,
+                                                                monkeypatch):
+    """The block's scan started from a given state, against the
+    reference's block with its scan taken by its oracle: the output and
+    the final state, over two chunks, with and without a gradient (the
+    port's ``SSDScan``)."""
+    monkeypatch.setattr(jssm, "ssd_chunked", _oracle_scan)
+    jcfg, cfg = BLOCKS[case]()
+    p, tp = ssm_params(jcfg)
+    _, H, _, _ = tssm.ssm_dims(cfg)
+    x = rand(9, 2, 64, cfg.d_model, scale=0.5)
+    s0 = rand(10, 2, H, cfg.ssm.head_dim, cfg.ssm.state_dim, scale=0.5)
+    want, wstate = jax.jit(lambda p, x, s: jssm.ssm_block(
+        p, x, jcfg, dtype=jnp.float32, initial_state=s))(
+            p, jnp.asarray(x), jnp.asarray(s0))
+    for grad in (False, True):
+        init = t(s0).requires_grad_(grad)
+        got, state = tssm.ssm_block(tp, t(x), cfg, dtype=torch.float32,
+                                    initial_state=init)
+        close(got, want)
+        close(state, wstate)
+
+
+@pytest.mark.parametrize("case", sorted(BLOCKS))
+def test_ssm_layer_forward_returns_the_reference_final_state(case,
+                                                              monkeypatch):
+    """``layer_forward(kind="ssm", ssm_state=...)``: the layer's output
+    and, as extra, the scan's final state: from zero against the
+    reference's ``layer_forward`` as it is, and from a given state
+    against it with its scan taken by its oracle (``_oracle_scan``)."""
+    jcfg, cfg = BLOCKS[case]()
+    p = jax.tree.map(np.asarray, jtf.init_layer(jax.random.PRNGKey(4), jcfg,
+                                                kind="ssm"))
+    tp = interop.to_tensors(p, "cpu")
+    _, H, _, _ = tssm.ssm_dims(cfg)
+    S = 64
+    x = rand(14, 2, S, cfg.d_model, scale=0.5)
+    s0 = rand(15, 2, H, cfg.ssm.head_dim, cfg.ssm.state_dim, scale=0.5)
+    for state in (None, s0):
+        if state is not None:
+            monkeypatch.setattr(jssm, "ssd_chunked", _oracle_scan)
+        want, waux, wextra = jax.jit(lambda p, x, s: jtf.layer_forward(
+            p, x, jcfg, kind="ssm", positions=jnp.arange(S),
+            dtype=jnp.float32, ssm_state=s))(
+                p, jnp.asarray(x), None if state is None
+                else jnp.asarray(state))
+        got, aux, extra = ttf.layer_forward(
+            tp, t(x), cfg, kind="ssm", positions=torch.arange(S),
+            dtype=torch.float32,
+            ssm_state=None if state is None else t(state))
+        close(got, want)
+        close(extra, wextra)
+        assert float(aux) == float(waux) == 0.0
 
 
 # ---------------------------------------------------------------------------

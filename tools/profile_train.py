@@ -14,11 +14,13 @@ of the wall, device ops a step, the device time of the port's own
 kernels (forward and backward), and the ops that take the most device
 time. ``--src`` names the ``src`` directory whose ``repro_torch`` runs
 (default: this checkout's), so two versions are profiled from one
-checkout. ``--kernel-repeats N`` first times the two backward kernels N
-times over (``chip_smoke.time_backward_kernels``: kernel, plain version,
-the library's backward and the bound at qwen2-0.5b's training shape,
+checkout. ``--kernel-repeats N`` first times the three backward kernels
+N times over (``chip_smoke.time_backward_kernels``: kernel, plain
+version, the library's backward and the bound at qwen2-0.5b's training
+shape; ``chip_smoke.time_ssd_scan_bwd``: the scan's at mamba2-130m's;
 CUDA events), one JSON line a kernel a run, so each time's spread is
-seen within one call. Needs a CUDA device.
+seen within one call. ``--arch mamba2-130m`` or ``zamba2-1.2b`` profiles
+SSM and hybrid training. Needs a CUDA device.
 """
 import argparse
 import json
@@ -30,14 +32,22 @@ from device_profile import card_line, profiled
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, SEQ = 8, 1024
 # the device functions of src/repro_torch/kernels/csrc/{rmsnorm,
-# flash_attention}.cu on the training path: the forward kernels and the
-# backward's (rmsnorm_bwd: rows + dw sum; flash: delta, key tiles, query
-# tiles, on the tensor cores (_tc_) or the CUDA cores)
+# flash_attention,ssd_scan,ssd_scan_bwd}.cu on the training path: the
+# forward kernels and the backward's (rmsnorm_bwd: rows + dw sum; flash:
+# delta, key tiles, query tiles, on the tensor cores (_tc_) or the CUDA
+# cores; the scan: chunk states, state pass, y; its backward: the
+# chunks' own adjoint terms, the reverse state pass, key tiles, query
+# tiles (on the tensor cores or the CUDA cores), ddtA)
 PORT_KERNELS = ("rmsnorm_kernel", "rmsnorm_bwd_rows_kernel",
                 "rmsnorm_bwd_dw_kernel", "flash_tc_kernel", "flash_kernel",
                 "flash_bwd_delta_kernel", "flash_bwd_kv_tc_kernel",
                 "flash_bwd_q_tc_kernel", "flash_bwd_kv_kernel",
-                "flash_bwd_q_kernel")
+                "flash_bwd_q_kernel", "ssd_chunk_state_tc_kernel",
+                "ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                "ssd_y_tc_kernel", "ssd_y_kernel", "ssd_bwd_local_kernel",
+                "ssd_bwd_state_pass_kernel", "ssd_bwd_key_tc_kernel",
+                "ssd_bwd_query_tc_kernel", "ssd_bwd_key_kernel",
+                "ssd_bwd_query_kernel", "ssd_bwd_dtA_kernel")
 
 
 def main():
@@ -63,7 +73,9 @@ def main():
         sys.path.insert(0, ROOT)
         import chip_smoke
         for i in range(args.kernel_repeats):
-            for name, t in chip_smoke.time_backward_kernels(dev).items():
+            timed = {**chip_smoke.time_backward_kernels(dev),
+                     "ssd_scan_bwd": chip_smoke.time_ssd_scan_bwd(dev)}
+            for name, t in timed.items():
                 print(json.dumps({
                     "run": i, "kernel": name, "card": card,
                     **{k: t[k] for k in ("ms", "plain_ms", "library_ms",
