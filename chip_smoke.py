@@ -165,7 +165,25 @@ and prints no result line):
      phase 11, with exact launches (``SSM_TRAIN_LAUNCHES``) and the loss
      falling on a repeated batch; one mamba2 step under the sync debug
      mode "error"; and ``python -m repro_torch.launch.train lm --arch
-     mamba2-130m --steps 3 --batch 2 --seq 256``.
+     mamba2-130m --steps 3 --batch 2 --seq 256``;
+  13. the RL towers on LM backbones (``rl.networks``' arch towers,
+     ``core.model_parallel.make_arch_spreeze_losses``): both losses'
+     gradients (the actor's over the actor, the critics' over the stacked
+     critics) on the card against the CPU for reduced qwen2-0.5b,
+     mixtral-8x7b (the CPU's routing replayed), whisper-medium,
+     paligemma-3b, mamba2-130m and zamba2-1.2b (3 layers) at float32,
+     within ``ARCH_RL_TOL`` of each leaf's largest value; the
+     ``repro_torch.examples.llm_rl`` step on the card against the CPU's
+     from the same towers and draws (3 steps), then its whole run with
+     exact launches (``example_launches``), printing whether its check
+     ``final > reward0 + 0.5`` holds on the card (rounding decides it:
+     ``run_arch_rl_example``); full-width smollm-360m towers (an actor,
+     two critics, their targets; f32 parameters, bf16 compute) at
+     ``lower_spreeze_arch``'s shape (batch 32 x 1024, act_dim 16):
+     ``make_arch_spreeze_update`` once, then 3 timed updates with exact
+     launches (``arch_update_launches``), finite losses, parameters and
+     Adam moments, ms an update, tokens, peak memory and model FLOPs
+     over the wall against 989 TFLOP/s.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -303,6 +321,54 @@ BWD_SCAN_SHAPES = (
     ("one ragged chunk of 80", 2, 80, 4, 32, 32, 256, True),
     ("P 24, N 20, chunks of 32", 2, 96, 4, 24, 20, 32, True),
 )
+# The RL towers on LM backbones (phase 13). Card against CPU: (arch,
+# tokens a sequence, layers of the reduced config), float32, both arch
+# losses' gradients within ARCH_RL_TOL of each leaf's largest value
+# (tests/test_torch_arch_rl.py's limit against the reference); the SSMs
+# over two chunks of 32, zamba2's 3 layers in two groups
+ARCH_RL_CHECKS = (("qwen2-0.5b", 16, 2), ("mixtral-8x7b", 16, 2),
+                  ("whisper-medium", 16, 2), ("paligemma-3b", 16, 2),
+                  ("mamba2-130m", 64, 2), ("zamba2-1.2b", 64, 3))
+ARCH_RL_TOL = 2e-5
+# The full-width update at lower_spreeze_arch's shape
+# (src/repro/launch/dryrun.py:288): smollm-360m, batch 32, 1024 tokens,
+# 16 action dimensions; one warm-up update, then ARCH_RL_UPDATES timed
+ARCH_RL_ARCH, ARCH_RL_B, ARCH_RL_S, ARCH_RL_ACT = "smollm-360m", 32, 1024, 16
+ARCH_RL_UPDATES = 3
+
+
+def arch_update_launches(layers):
+    """Exact launches of one arch update of a dense backbone (remat on):
+    8 backbone forwards (the critic loss's 2 critics, the actor and the 2
+    target critics; the actor loss's actor and the 2 critics' backbones),
+    each 2 norms and a flash attention a layer and ``ln_f``; then the 3
+    differentiated towers' backward, which recomputes each checkpointed
+    layer (its 2 norms and its flash attention) and runs one backward of
+    every norm and attention."""
+    n = 2 * layers + 1
+    return {"rmsnorm": 8 * n + 3 * 2 * layers, "rmsnorm_bwd": 3 * n,
+            "flash_attention": 8 * layers + 3 * layers,
+            "flash_attention_bwd": 3 * layers}
+
+
+def example_launches(layers, steps, warmup, every):
+    """Exact launches of ``repro_torch.examples.llm_rl`` (a dense backbone
+    of ``layers``, remat on). Each step: the actor's forward, the 2
+    critics' forwards and their backward (recompute and backward kernels),
+    and the 2 critics' backbones in the actor loss, without a graph; from
+    step ``warmup`` on also the actor's backward. And one actor forward
+    for the initial reward, each printout and the final reward."""
+    n = 2 * layers + 1
+    actor_steps = steps - warmup
+    evals = 2 + -(-steps // every)
+    return {"rmsnorm": steps * (5 * n + 2 * 2 * layers)
+            + actor_steps * 2 * layers + evals * n,
+            "rmsnorm_bwd": steps * 2 * n + actor_steps * n,
+            "flash_attention": steps * (5 * layers + 2 * layers)
+            + actor_steps * layers + evals * layers,
+            "flash_attention_bwd": steps * 2 * layers + actor_steps * layers}
+
+
 # Decode attention: (label, B, S, H, KV, d, valid slots checked); timed
 # with every slot valid
 NEW_DECODE_SHAPES = (
@@ -2809,6 +2875,256 @@ def time_ssd_scan_bwd(dev):
             "shape": [B, S, H, P, N, L]}
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: the RL towers on LM backbones
+# --------------------------------------------------------------------------- #
+
+def check_arch_rl_device_vs_cpu(dev, arch, seq, layers=2, act_dim=4):
+    """Reduced ``arch`` (``layers`` deep), float32 compute: the gradients
+    of both arch losses (``make_arch_spreeze_losses``; the actor's over
+    the actor, the critics' over the stacked critics) on the card and on
+    the CPU from the same towers and inputs, each leaf within
+    ``ARCH_RL_TOL`` of its largest value, the losses within 1e-5
+    relative. The MoE's routing is the CPU's, replayed (``RouteLog``).
+    Returns {loss: {"loss_rel", "grad_rel"}}."""
+    import torch
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.core import model_parallel as mp
+    from repro_torch.rl import networks as nets
+    cfg = get_config(arch).reduced(num_layers=layers)
+    gen = torch.Generator().manual_seed(7)
+    towers = {"actor": nets.init_arch_policy(gen, cfg, act_dim),
+              "q": nets.init_arch_ensemble_q(gen, cfg, act_dim)}
+    towers["target"] = tree_map(lambda a: a * 0.99, towers["q"])
+    B = 2
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (B, seq),
+                                      generator=gen),
+              "act": torch.tanh(torch.randn((B, act_dim), generator=gen)),
+              "rew": torch.randn((B,), generator=gen),
+              "done": torch.tensor([0.0, 1.0]),
+              "eps": torch.randn((B, act_dim), generator=gen)}
+    actor_loss, critic_loss = mp.make_arch_spreeze_losses(
+        cfg, act_dim, dtype=torch.float32)
+
+    def run(where, log):
+        t = tree_map(lambda a: a.detach().to(where).requires_grad_(),
+                     towers)
+        x = to_device(inputs, where)
+        out = {}
+        with log:
+            al = actor_loss(t["actor"], t["q"], x["tokens"], x["eps"])
+            out["actor"] = (float(al.detach()), [g.cpu() for g in
+                                        mp.tower_grads(al, t["actor"])])
+            cl = critic_loss(t["q"], t["target"], t["actor"], x["tokens"],
+                             x["act"], x["rew"], x["done"])
+            out["critic"] = (float(cl.detach()), [g.cpu() for g in
+                                         mp.tower_grads(cl, t["q"])])
+        return out
+
+    moe = cfg.family == "moe"
+    cpu_log = RouteLog() if moe else contextlib.nullcontext()
+    want = run("cpu", cpu_log)
+    got = run(dev, RouteLog(replay=cpu_log) if moe
+              else contextlib.nullcontext())
+    gaps = {}
+    for name in ("actor", "critic"):
+        (gl, gg), (wl, wg) = got[name], want[name]
+        gaps[name] = {"loss_rel": abs(gl - wl) / abs(wl),
+                      "grad_rel": max(grad_gap(a, b)[1]
+                                      for a, b in zip(gg, wg))}
+        require(gaps[name]["loss_rel"] <= 1e-5 and
+                gaps[name]["grad_rel"] <= ARCH_RL_TOL,
+                f"arch {name} loss card vs cpu ({arch}): {gaps[name]} "
+                f"(limit {ARCH_RL_TOL})")
+    return gaps
+
+
+def check_example_steps_device_vs_cpu(dev, steps=3):
+    """``repro_torch.examples.llm_rl``'s step on the card against the CPU's
+    from the same towers and draws (the example draws them on one CPU
+    generator): ``steps`` steps, the actor held on the first (the critic
+    warm-up) and moving after it. The losses within 1e-4 relative, every
+    parameter within 2 lr a step and all but 0.1% of the elements within
+    1e-6 + 1e-5 |p| + 1e-2 lr (Adam moves an element whose gradient is
+    ~1e-9 by +-lr on either side's sign, and its moments' ratio by both
+    sides' rounding where a gradient element is small):
+    ``tests/test_torch_arch_rl.py``'s limits against the reference.
+    -> the gaps."""
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.examples import llm_rl
+    from repro_torch.train.optimizer import make_optimizer
+    cfg = llm_rl.example_config()
+
+    def run(where):
+        draws = llm_rl.Draws(llm_rl.SEED, where)
+        actor, critics = draws.towers(cfg)
+        tokens, target = draws.task(cfg)
+        opt = make_optimizer("adam", llm_rl.LR)
+        oa, oq = opt.init(actor), opt.init(critics)
+        step, _ = llm_rl.make_step(cfg, tokens, target, opt)
+        losses = [[float(x) for x in step(actor, critics, oa, oq,
+                                          *draws.step(i), do_actor=i >= 1)]
+                  for i in range(steps)]
+        return losses, torch.cat([a.detach().cpu().ravel()
+                                  for a in tree_leaves((actor, critics))])
+
+    (got_l, got_p), (want_l, want_p) = run(dev), run("cpu")
+    d = (got_p - want_p).abs()
+    gaps = {"loss_rel": max(abs(a - b) / abs(b) for g, w in
+                            zip(got_l, want_l) for a, b in zip(g, w)),
+            "param_max": float(d.max()),
+            "param_share_past": float(
+                (d > 1e-6 + 1e-5 * want_p.abs() + 1e-2 * llm_rl.LR)
+                .float().mean())}
+    require(gaps["loss_rel"] <= 1e-4 and
+            gaps["param_max"] <= 2 * steps * llm_rl.LR and
+            gaps["param_share_past"] < 1e-3,
+            f"llm_rl steps card vs cpu: {gaps}")
+    return gaps
+
+
+def run_arch_rl_example(dev):
+    """``repro_torch.examples.llm_rl``'s run (``run``, what ``main`` runs
+    before its check) on the card, with the launches zeroed just before
+    and read just after, exactly ``example_launches``, and every printed
+    loss and reward finite. Its check ``final > reward0 + 0.5`` is
+    evaluated and returned, not asserted: the final reward is where tanh
+    saturates each action component, a sign that float32 rounding decides
+    (PERF.md §6), so the check holds on one platform and fails on
+    another from the same numbers; ``main`` asserts it. -> (its lines,
+    launches, wall s, {"reward0", "final", "holds"})."""
+    from repro_torch.examples import llm_rl
+    from repro_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    lines = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = llm_rl.run(dev, log=lines.append)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCH_COUNTS)
+    expect = example_launches(llm_rl.example_config().num_layers,
+                              llm_rl.STEPS, llm_rl.WARMUP,
+                              llm_rl.PRINT_EVERY)
+    require(launches == expect,
+            f"llm_rl launches {launches} != expected {expect}")
+    values = [out["reward0"], out["final"]] + out["critic_losses"] + \
+        out["actor_losses"]
+    require(all(math.isfinite(v) for v in values), f"llm_rl: {out}")
+    result = {"reward0": out["reward0"], "final": out["final"],
+              "holds": out["final"] > out["reward0"] + 0.5}
+    return [ln.strip() for ln in lines if ln.strip()], launches, wall, result
+
+
+def backbone_flops(cfg, B, S):
+    """Model FLOPs of one forward of a dense backbone at (B, S), no LM head:
+    2 a weight a token for the projections and the SwiGLU MLP, and 4 d a
+    visible (query, key) pair a head for the causal scores and the
+    weighted sum."""
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    weights = d * H * hd + 2 * d * KV * hd + H * hd * d + 3 * d * cfg.d_ff
+    pairs = S * (S + 1) // 2
+    return cfg.num_layers * (2 * weights * B * S + 4 * B * H * hd * pairs)
+
+
+def arch_rl_update_fn(dev, arch=ARCH_RL_ARCH):
+    """Full-width ``arch`` towers (an actor, two critics and their two
+    targets; float32 parameters from seed 0, bf16 compute, remat) and a
+    batch at ``lower_spreeze_arch``'s shape -> (``update()``, one
+    ``make_arch_spreeze_update`` call: the critic loss's gradient over
+    the critics and the actor loss's over the actor, then Adam on each;
+    the trees it updates: the towers and the Adam states)."""
+    import torch
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.core import model_parallel as mp
+    from repro_torch.rl import networks as nets
+    from repro_torch.rl.base import AlgoHP
+    from repro_torch.train.optimizer import make_optimizer
+    cfg = get_config(arch)
+    B, S, A = ARCH_RL_B, ARCH_RL_S, ARCH_RL_ACT
+    gen = torch.Generator(device=dev).manual_seed(0)
+    actor = nets.init_arch_policy(gen, cfg, A)
+    q = nets.init_arch_ensemble_q(gen, cfg, A)
+    q_target = tree_map(lambda a: a.clone(), q)
+    for leaf in tree_leaves((actor, q)):
+        leaf.requires_grad_()
+    opt = make_optimizer("adam", AlgoHP().lr)
+    opt_actor, opt_q = opt.init(actor), opt.init(q)
+    update = mp.make_arch_spreeze_update(cfg, opt, A)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device=dev),
+             "act": torch.tanh(torch.randn((B, A), generator=gen,
+                                           device=dev)),
+             "rew": torch.randn((B,), generator=gen, device=dev),
+             "done": (torch.rand((B,), generator=gen, device=dev)
+                      < 0.1).float(),
+             "eps": torch.randn((B, A), generator=gen, device=dev)}
+
+    def one():
+        return update(actor, q, q_target, opt_actor, opt_q, **batch)
+
+    return one, (actor, q, opt_actor.mu, opt_actor.nu, opt_q.mu, opt_q.nu)
+
+
+def run_arch_rl_update(dev):
+    """``arch_rl_update_fn``'s update: one warm-up, then
+    ``ARCH_RL_UPDATES`` timed ones, each synchronised, with the launches
+    zeroed just before and read just after (``arch_update_launches`` an
+    update). The losses, the parameters and the Adam moments (which sum
+    every gradient) must be finite. Model FLOPs: 8 backbone forwards and
+    the 3 differentiated towers' backward at twice a forward (the
+    recompute not counted). -> (stats, launches)."""
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from repro_torch.models import factory
+    cfg = get_config(ARCH_RL_ARCH)
+    B, S = ARCH_RL_B, ARCH_RL_S
+    torch.cuda.empty_cache()
+    one, trees = arch_rl_update_fn(dev)
+    one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ms, losses = [], []
+    for _ in range(ARCH_RL_UPDATES):
+        t0 = time.perf_counter()
+        cl, al = one()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append((float(cl), float(al)))
+    launches = dict(LAUNCH_COUNTS)
+    per = arch_update_launches(cfg.num_layers)
+    expect = {k: v * ARCH_RL_UPDATES for k, v in per.items()}
+    require(launches == expect,
+            f"arch update launches {launches} != expected {expect}")
+    require(all(math.isfinite(x) for pair in losses for x in pair),
+            f"arch update losses {losses}")
+    require(all(bool(torch.isfinite(a).all()) for a in tree_leaves(trees)),
+            "arch update: a parameter or an Adam moment is not finite")
+    flops = (8 + 2 * 3) * backbone_flops(cfg, B, S)
+    mean_ms = sum(ms) / len(ms)
+    stats = {"arch": ARCH_RL_ARCH, "batch": B, "seq": S,
+             "act_dim": ARCH_RL_ACT,
+             "backbone_params": factory.count_params_analytic(cfg),
+             "towers": 5, "updates": ARCH_RL_UPDATES, "update_ms": ms,
+             "mean_update_ms": mean_ms, "tokens_an_update": B * S,
+             "backbone_forwards_an_update": 8,
+             "tokens_per_s": B * S / (mean_ms / 1e3),
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "model_tflop_an_update": flops / 1e12,
+             "bound_ms": flops / BF16_FLOP_PER_S * 1e3,
+             "model_flops_share_of_989_tflops":
+                 flops / (mean_ms / 1e3) / BF16_FLOP_PER_S,
+             "losses": losses, "launches": launches,
+             "launches_an_update": per}
+    del one, trees
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
 def run_lm_launcher(arch="qwen2-0.5b", seq=128):
     """``python -m repro_torch.launch.train lm --arch ARCH --steps 3
     --batch 2 --seq SEQ`` in this process, as a user calls it (full
@@ -3255,6 +3571,39 @@ def main():
     print("launcher (lm --arch mamba2-130m --steps 3 --batch 2 --seq 256): "
           + " | ".join(lines), flush=True)
     print(f"SSM training: {time.perf_counter() - t_ssm:.1f} s", flush=True)
+
+    # the RL towers on LM backbones
+    t_arch = time.perf_counter()
+    torch.cuda.empty_cache()
+    for arch, seq, layers in ARCH_RL_CHECKS:
+        gaps = check_arch_rl_device_vs_cpu(dev, arch, seq, layers)
+        print(f"arch RL checks (reduced {arch}, {layers} layers, float32, "
+              f"{seq} tokens): both losses' gradients on cuda vs cpu within "
+              f"{ARCH_RL_TOL} of each leaf's largest: " + json.dumps(gaps),
+              flush=True)
+    gaps = check_example_steps_device_vs_cpu(dev)
+    print("arch RL example steps on cuda vs cpu (llm_rl, 3 steps from the "
+          "same towers and draws): " + json.dumps(gaps), flush=True)
+    lines, counts, wall, result = run_arch_rl_example(dev)
+    add_launches(counts)
+    print(f"arch RL example (llm_rl, {wall:.1f} s): " + " | ".join(lines) +
+          "; " + json.dumps({**result, "launches": counts, "card": card}),
+          flush=True)
+    print(f"arch RL example: its check final > reward0 + 0.5 "
+          f"{'holds' if result['holds'] else 'does NOT hold'} on the card "
+          f"(final - reward0 = {result['final'] - result['reward0']:.4f}; "
+          f"a float32 rounding decides where tanh saturates: PERF.md)",
+          flush=True)
+    stats, counts = run_arch_rl_update(dev)
+    add_launches(counts)
+    print(f"arch RL update ({ARCH_RL_ARCH} full width, batch {ARCH_RL_B}, "
+          f"seq {ARCH_RL_S}, act_dim {ARCH_RL_ACT}): " +
+          json.dumps({**stats, "card": card}), flush=True)
+    for k in ("mean_update_ms", "tokens_an_update", "tokens_per_s",
+              "peak_mem_gb", "model_flops_share_of_989_tflops"):
+        print(f"arch RL update {ARCH_RL_ARCH} {k} {stats[k]} ({card})",
+              flush=True)
+    print(f"arch RL: {time.perf_counter() - t_arch:.1f} s", flush=True)
 
     sources = {"ring_write": ("ring_ops.cu", "replay_ops.py:188"),
                "ring_gather": ("ring_ops.cu", "replay_ops.py:302"),

@@ -1,6 +1,7 @@
 """Actor-critic model parallelism over the trainer's mesh (paper §3.2.2,
-Fig. 2b) and its data-parallel baseline (Fig. 2a). Counterpart of the
-trainer half of ``repro/core/model_parallel.py``.
+Fig. 2b) and its data-parallel baseline (Fig. 2a), and the losses of the
+arch-backbone towers (``make_arch_spreeze_losses``, at the end).
+Counterpart of ``repro/core/model_parallel.py``.
 
 The mesh is an ("ac", "batch") grid of devices (``launch.mesh``). Its G
 batch groups (``launch.mesh.ring_shard_groups``: the batch axis under
@@ -30,19 +31,22 @@ primary device, the form checkpoints, tests and the eval consumers read.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch._tree import tree_map
+from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (Mesh, check_on_group,
                                               group_devices, to_group,
                                               trainer_rules)
 from repro_torch.replay.buffer import ReplayState
 from repro_torch.replay.prioritized import PrioritizedState
-from repro_torch.rl.base import AlgoState, UpdateStep, drive_replicas
+from repro_torch.rl import networks as nets
+from repro_torch.rl.base import AlgoHP, AlgoState, UpdateStep, drive_replicas
 from repro_torch.rl.networks import PlacedEnsemble
-from repro_torch.train.optimizer import OptState
+from repro_torch.train.optimizer import Optimizer, OptState
 
 
 class MeshLayout:
@@ -243,3 +247,111 @@ class MeshUpdate:
         metrics["td_abs"] = torch.cat([to_group(m["td_abs"], layout.primary)
                                        for _, m in results])
         return state, metrics
+
+
+# --------------------------------------------------------------------------- #
+# arch-backbone Spreeze towers (RLHF-scale): an actor LM and two critic LMs
+# --------------------------------------------------------------------------- #
+
+class _TanhLogDet(torch.autograd.Function):
+    """``log(clamp(1 - tanh(pre)^2, 1e-6))``, the reference's value, with
+    its exact derivative ``-2 tanh(pre)`` (0 where the clamp holds). The
+    chain rule through ``1 / (1 - a^2)`` and tanh's ``1 - a^2`` divides
+    two roundings of a small difference where |a| is near 1 (~1e-4
+    relative at a = 0.9996), enough to move a float32 actor gradient by
+    2e-5 of its largest value."""
+
+    @staticmethod
+    def forward(ctx, pre):
+        a = torch.tanh(pre)
+        u = 1 - a ** 2
+        ctx.save_for_backward(a, u)
+        return torch.log(torch.clamp(u, min=1e-6))
+
+    @staticmethod
+    def backward(ctx, g):
+        a, u = ctx.saved_tensors
+        return g * (-2 * a) * (u > 1e-6)
+
+
+def make_arch_spreeze_losses(cfg: ModelConfig, act_dim: int = 16,
+                             dtype=torch.bfloat16,
+                             hp: Optional[AlgoHP] = None):
+    """-> (actor_loss, critic_loss), whose towers are ``cfg`` backbones
+    (``rl.networks``' arch towers; the critics a stacked pair).
+
+    ``actor_loss(actor, q, tokens, eps)``: the tanh-Gaussian action from
+    the standard-normal draw ``eps`` (B, act_dim), its log-prob with the
+    ``log(clamp(1 - a^2, 1e-6))`` correction, and ``mean(0.2 * logp -
+    min_i Q_i(s, a))`` at the fixed temperature 0.2. It is differentiated
+    with respect to the actor: the critics enter as constants, their
+    backbones without a graph (``arch_min_q_of_action``).
+
+    ``critic_loss(q, q_target, actor, tokens, act, rew, done)``: both
+    critics' Q(s, act) regressed onto ``rew + hp.gamma * (1 - done) *
+    min_i Q_target_i(s, tanh(mean))``. The target (the actor's forward and
+    the target critics) is built without a graph, the reference's
+    ``stop_gradient``: no gradient reaches the target critics or the
+    actor. The reference's key is unused here, so the loss takes no draw.
+    """
+    hp = hp or AlgoHP()
+    half_log_2pi = 0.5 * math.log(2 * math.pi)
+
+    def actor_loss(actor_params, q_params, tokens, eps):
+        mean, log_std = nets.arch_policy_dist(actor_params, tokens, cfg,
+                                              dtype=dtype)
+        pre = mean + torch.exp(log_std) * eps
+        a = torch.tanh(pre)
+        logp = (-0.5 * eps ** 2 - log_std - half_log_2pi).sum(-1)
+        logp = logp - _TanhLogDet.apply(pre).sum(-1)
+        q = nets.arch_min_q_of_action(q_params, tokens, a, cfg, dtype=dtype)
+        return torch.mean(0.2 * logp - q)
+
+    def critic_loss(q_params, q_target_params, actor_params, tokens, act,
+                    rew, done):
+        q_pred = nets.arch_ensemble_q_values(q_params, tokens, act, cfg,
+                                             dtype=dtype)
+        with torch.no_grad():
+            mean, _ = nets.arch_policy_dist(actor_params, tokens, cfg,
+                                            dtype=dtype)
+            q_next = nets.arch_ensemble_q_values(
+                q_target_params, tokens, torch.tanh(mean), cfg,
+                dtype=dtype).min(dim=0).values
+            target = rew + hp.gamma * (1 - done) * q_next
+        return torch.mean((q_pred - target[None]) ** 2)
+
+    return actor_loss, critic_loss
+
+
+def make_arch_spreeze_update(cfg: ModelConfig, opt: Optimizer,
+                             act_dim: int = 16, dtype=torch.bfloat16):
+    """One update of the arch towers -> ``update(actor, q, q_target,
+    opt_actor, opt_q, tokens, act, rew, done, eps) -> (critic_loss,
+    actor_loss)``: the critic loss's gradient over the critics and the
+    actor loss's over the actor, both at the current parameters (the
+    reference's ``lower_spreeze_arch`` update), then one step of ``opt``
+    (whose ``init`` made ``opt_actor`` and ``opt_q``) on each, in place.
+    The actor's and critics' leaves must require grad. The losses stay
+    device scalars."""
+    actor_loss, critic_loss = make_arch_spreeze_losses(cfg, act_dim, dtype)
+
+    def update(actor, q, q_target, opt_actor: OptState, opt_q: OptState,
+               tokens, act, rew, done, eps):
+        cl = critic_loss(q, q_target, actor, tokens, act, rew, done)
+        gq = tower_grads(cl, q)
+        al = actor_loss(actor, q, tokens, eps)
+        ga = tower_grads(al, actor)
+        opt.update(gq, opt_q, q)
+        opt.update(ga, opt_actor, actor)
+        return cl.detach(), al.detach()
+
+    return update
+
+
+def tower_grads(loss: torch.Tensor, params) -> List[torch.Tensor]:
+    """Gradients in the order of ``tree_leaves(params)``; zeros for a leaf
+    the loss does not reach, as JAX gives."""
+    leaves = tree_leaves(params)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)]

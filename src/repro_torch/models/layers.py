@@ -18,14 +18,15 @@ from repro_torch.kernels import ops as kops
 
 
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
-               dtype=torch.float32, device=None) -> torch.Tensor:
-    """Normal(0, 1 / fan_in), the fan-in the size of axis ``in_axis``
-    (axis 0 of an ``(in, out)`` matrix; axis 1 of the stacked ``(E, in,
-    out)`` expert weights). Drawn in float32 and scaled in place, then
-    cast: a ``dtype`` of bfloat16 gives the float32 draw rounded once,
-    with one float32 copy of the leaf alive at a time."""
+               dtype=torch.float32, device=None, scale: float = 1.0
+               ) -> torch.Tensor:
+    """Normal(0, scale / sqrt(fan_in)), the fan-in the size of axis
+    ``in_axis`` (axis 0 of an ``(in, out)`` matrix; axis 1 of the stacked
+    ``(E, in, out)`` expert weights). Drawn in float32 and scaled in
+    place, then cast: a ``dtype`` of bfloat16 gives the float32 draw
+    rounded once, with one float32 copy of the leaf alive at a time."""
     w = torch.randn(shape, generator=gen, device=device or gen.device)
-    return w.mul_(1.0 / (shape[in_axis] ** 0.5)).to(dtype)
+    return w.mul_(scale / (shape[in_axis] ** 0.5)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int,

@@ -1,5 +1,6 @@
-"""Actor / critic MLP towers. Counterpart of the MLP half of
-``repro/rl/networks.py``.
+"""Actor / critic towers. Counterpart of ``repro/rl/networks.py``: the
+MLP towers of the paper's own setting, and (at the end) the ``arch``
+towers, an LM backbone of any family read at its final position.
 
 Weights keep the JAX layout: ``{"l<i>": {"w": (in, out), "b": (out,)}}``
 with ``x @ w + b``. The double-Q ensemble stacks its two towers on a
@@ -23,8 +24,13 @@ from typing import Sequence, Tuple
 
 import torch
 
-from repro_torch._tree import tree_leaves, tree_map
+from repro_torch._tree import stack_trees, tree_leaves, tree_map, \
+    unstack_tree
+from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import to_group
+from repro_torch.models import factory
+from repro_torch.models import layers
+from repro_torch.models import transformer as tf
 
 LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
 _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
@@ -150,3 +156,154 @@ def tower_q_values(stacked, i: int, obs, act) -> torch.Tensor:
 def min_q(stacked, obs, act) -> torch.Tensor:
     """Elementwise min over the ensemble -> (B,)."""
     return ensemble_q_values(stacked, obs, act).min(dim=0).values
+
+
+# ---------------------------------------------------------------------------
+# arch-backbone towers (an assigned architecture as the policy / value net)
+# ---------------------------------------------------------------------------
+#
+# The parameters keep the reference's layout: ``{"backbone":
+# factory.init_params(...), "head": ...}`` for the policy, plus
+# ``"act_in"`` and ``"mix"`` for a Q tower. The double-Q ensemble stacks
+# its towers' trees on a leading axis, as the reference's ``vmap``-built
+# one; each tower is evaluated from its slice (``unstack_tree``), since
+# the kernels take no ensemble axis. Every product runs in ``dtype``
+# (bf16 by default) from the stored (float32) weights, as the
+# reference's ``.astype(dtype)`` at each use.
+
+def init_arch_policy(gen: torch.Generator, cfg: ModelConfig, act_dim: int,
+                     dtype=torch.float32):
+    """LM backbone + Gaussian head reading the final position's hidden, on
+    the generator's device."""
+    return {
+        "backbone": factory.init_params(cfg, gen, dtype=dtype),
+        "head": {"w": layers.dense_init(gen, (cfg.d_model, 2 * act_dim),
+                                        dtype=dtype),
+                 "b": torch.zeros((2 * act_dim,), dtype=dtype,
+                                  device=gen.device)},
+    }
+
+
+def arch_policy_dist(p, tokens: torch.Tensor, cfg: ModelConfig,
+                     dtype=torch.bfloat16, remat: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (mean, log_std), each (B, act_dim) float32: the head in
+    ``dtype``, then the cast, the split and the clip."""
+    h = _backbone_hidden(p["backbone"], tokens, cfg, dtype, remat)
+    out = h @ p["head"]["w"].to(dtype) + p["head"]["b"].to(dtype)
+    mean, log_std = out.float().chunk(2, dim=-1)
+    return mean, torch.clamp(log_std, LOG_STD_MIN, LOG_STD_MAX)
+
+
+def init_arch_q(gen: torch.Generator, cfg: ModelConfig, act_dim: int,
+                dtype=torch.float32):
+    """Backbone + nonlinear (state, action) head: the action must interact
+    with the state nonlinearly or Q degenerates to f(s) + w.a."""
+    d = cfg.d_model
+    return {
+        "backbone": factory.init_params(cfg, gen, dtype=dtype),
+        "act_in": {"w": layers.dense_init(gen, (act_dim, d), dtype=dtype,
+                                          scale=3.0)},
+        "mix": {"w": layers.dense_init(gen, (d, d), dtype=dtype),
+                "b": torch.zeros((d,), dtype=dtype, device=gen.device)},
+        "head": {"w": layers.dense_init(gen, (d, 1), dtype=dtype),
+                 "b": torch.zeros((1,), dtype=dtype, device=gen.device)},
+    }
+
+
+def init_arch_ensemble_q(gen: torch.Generator, cfg: ModelConfig,
+                         act_dim: int, n: int = 2, dtype=torch.float32):
+    """``n`` arch Q towers stacked on a leading axis (the reference's
+    ``vmap`` of ``init_arch_q``)."""
+    return stack_trees([init_arch_q(gen, cfg, act_dim, dtype=dtype)
+                        for _ in range(n)])
+
+
+def _arch_q_head(p, h: torch.Tensor, act: torch.Tensor, dtype
+                 ) -> torch.Tensor:
+    """Q from the backbone's hidden ``h`` (B, D) and the action: the action
+    enters after the backbone, then ``tanh`` of the mix, then the head,
+    all in ``dtype``; -> (B,) float32."""
+    h = h + act.to(dtype) @ p["act_in"]["w"].to(dtype)
+    h = torch.tanh(h @ p["mix"]["w"].to(dtype) + p["mix"]["b"].to(dtype))
+    q = h @ p["head"]["w"].to(dtype) + p["head"]["b"].to(dtype)
+    return q.float()[..., 0]
+
+
+def arch_q_value(p, tokens: torch.Tensor, act: torch.Tensor,
+                 cfg: ModelConfig, dtype=torch.bfloat16,
+                 remat: bool = True) -> torch.Tensor:
+    return _arch_q_head(p, _backbone_hidden(p["backbone"], tokens, cfg,
+                                            dtype, remat), act, dtype)
+
+
+def _towers(stacked):
+    """The towers of a stacked ensemble, each a tree of views."""
+    return unstack_tree(stacked, tree_leaves(stacked)[0].shape[0])
+
+
+def arch_ensemble_q_values(stacked, tokens: torch.Tensor,
+                           act: torch.Tensor, cfg: ModelConfig,
+                           dtype=torch.bfloat16, remat: bool = True
+                           ) -> torch.Tensor:
+    """-> (n, B) Q values of every tower of a stacked ensemble."""
+    return torch.stack([arch_q_value(tower, tokens, act, cfg, dtype, remat)
+                        for tower in _towers(stacked)])
+
+
+def arch_min_q_of_action(stacked, tokens: torch.Tensor, act: torch.Tensor,
+                         cfg: ModelConfig, dtype=torch.bfloat16,
+                         remat: bool = True) -> torch.Tensor:
+    """min over the ensemble of Q(tokens, act) -> (B,), differentiable in
+    ``act`` only: the towers are held constant. The action enters after
+    the backbone, so each backbone runs without a graph, and only the
+    heads keep one (to carry the gradient to ``act``). The value is the
+    ensemble's min as ``arch_ensemble_q_values`` gives it."""
+    qs = []
+    for tower in _towers(stacked):
+        with torch.no_grad():
+            h = _backbone_hidden(tower["backbone"], tokens, cfg, dtype,
+                                 remat)
+        qs.append(_arch_q_head(tree_map(torch.Tensor.detach, tower), h,
+                               act, dtype))
+    return torch.stack(qs).min(dim=0).values
+
+
+def _backbone_hidden(params, tokens: torch.Tensor, cfg: ModelConfig, dtype,
+                     remat: bool) -> torch.Tensor:
+    """Final-position hidden state of the arch backbone (no LM head), as
+    the reference's: enc-dec reads ``encoder_seq`` zero frames and the
+    VLM prepends ``num_patch_tokens`` zero patches; no ``prefix_len`` is
+    passed, so the VLM runs causal over its patches (unlike
+    ``factory.forward``); the MoE aux loss is dropped. ``ln_f`` is applied
+    to the last position alone: a row-wise norm, so the same numbers as
+    the reference's norm of every position read at the last."""
+    B = tokens.shape[0]
+    x = factory._embed(params, tokens, cfg, dtype)
+    if cfg.family == "vlm":
+        patches = torch.zeros((B, cfg.num_patch_tokens, cfg.d_model),
+                              dtype=dtype, device=x.device)
+        x = torch.cat([patches, x], dim=1)
+    pos = torch.arange(x.shape[1], device=x.device)
+    if cfg.family == "encdec":
+        frames = torch.zeros((B, cfg.encoder_seq, cfg.d_model), dtype=dtype,
+                             device=x.device)
+        memory = factory._encode(params, frames, cfg, dtype, remat)
+        x = x + params["dec_pos"][:tokens.shape[1]].to(dtype)
+        x, _ = tf.stack_forward(params["layers"], x, cfg, kind="dec",
+                                positions=pos, memory=memory, dtype=dtype,
+                                remat=remat)
+    elif cfg.family == "hybrid":
+        for s, e in factory._hybrid_groups(cfg):
+            x, _, _ = tf.layer_forward(params["shared_attn"], x, cfg,
+                                       kind="dense", positions=pos,
+                                       dtype=dtype)
+            x, _ = tf.stack_forward(factory._slice_layers(params["layers"],
+                                                          s, e),
+                                    x, cfg, kind="ssm", positions=pos,
+                                    dtype=dtype, remat=remat)
+    else:
+        x, _ = tf.stack_forward(params["layers"], x, cfg,
+                                kind=factory._layer_kind(cfg),
+                                positions=pos, dtype=dtype, remat=remat)
+    return tf.apply_norm(params["ln_f"], x[:, -1].contiguous(), cfg)

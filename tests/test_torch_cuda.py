@@ -1395,3 +1395,64 @@ def test_new_families_serving_on_the_card_matches_the_cpu(dev, arch, P):
         expect = {"rmsnorm": (2 * L + 1) * 7, "flash_attention": L,
                   "decode_attention": L * 6}
     assert dict(rops.LAUNCH_COUNTS) == expect
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` (at the repository's root) as a module: it
+    imports no JAX."""
+    import importlib
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.mark.parametrize("arch,seq,layers", [
+    ("qwen2-0.5b", 16, 2), ("mixtral-8x7b", 16, 2),
+    ("whisper-medium", 16, 2), ("paligemma-3b", 16, 2),
+    ("mamba2-130m", 64, 2), ("zamba2-1.2b", 64, 3)])
+def test_arch_rl_losses_on_the_card_match_the_cpu(dev, arch, seq, layers):
+    """Both arch losses' gradients (``make_arch_spreeze_losses``, float32)
+    on the card, through the kernels and their backward kernels, within
+    chip_smoke's ``ARCH_RL_TOL`` of each leaf's largest value from the
+    CPU's plain versions (the MoE with the CPU's routing replayed): the
+    smoke's "arch RL checks" (``check_arch_rl_device_vs_cpu`` raises past
+    the limit)."""
+    cs = _chip_smoke()
+    gaps = cs.check_arch_rl_device_vs_cpu(dev, arch, seq, layers)
+    assert all(g["grad_rel"] <= cs.ARCH_RL_TOL for g in gaps.values())
+
+
+def test_arch_update_launches_on_the_card(dev):
+    """One ``make_arch_spreeze_update`` of reduced qwen2-0.5b towers on the
+    card: finite losses, and exactly chip_smoke's
+    ``arch_update_launches`` for its 2 layers."""
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.core import model_parallel as mp
+    from repro_torch.rl import networks as nets
+    from repro_torch.train.optimizer import make_optimizer
+    cs = _chip_smoke()
+    cfg = get_config("qwen2-0.5b").reduced()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    actor = nets.init_arch_policy(gen, cfg, 4)
+    q = nets.init_arch_ensemble_q(gen, cfg, 4)
+    q_target = tree_map(lambda a: a.clone(), q)
+    for leaf in tree_leaves((actor, q)):
+        leaf.requires_grad_()
+    opt = make_optimizer("adam", 3e-4)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen,
+                           device=dev)
+    act = torch.tanh(torch.randn((2, 4), generator=gen, device=dev))
+    rew = torch.randn((2,), generator=gen, device=dev)
+    done = torch.tensor([0.0, 1.0], device=dev)
+    eps = torch.randn((2, 4), generator=gen, device=dev)
+    rops.reset_launch_counts()
+    cl, al = mp.make_arch_spreeze_update(cfg, opt, 4)(
+        actor, q, q_target, opt.init(actor), opt.init(q), tokens, act, rew,
+        done, eps)
+    assert torch.isfinite(cl) and torch.isfinite(al)
+    assert dict(rops.LAUNCH_COUNTS) == cs.arch_update_launches(
+        cfg.num_layers)

@@ -20,7 +20,12 @@ version, the library's backward and the bound at qwen2-0.5b's training
 shape; ``chip_smoke.time_ssd_scan_bwd``: the scan's at mamba2-130m's;
 CUDA events), one JSON line a kernel a run, so each time's spread is
 seen within one call. ``--arch mamba2-130m`` or ``zamba2-1.2b`` profiles
-SSM and hybrid training. Needs a CUDA device.
+SSM and hybrid training. ``--arch-rl smollm-360m`` profiles instead one
+update of the RL towers on that backbone at full width
+(``chip_smoke.arch_rl_update_fn``: an actor, two critics and their
+targets, batch 32 x 1024 tokens, 16 action dimensions; the critic loss's
+gradient over the critics, the actor loss's over the actor, Adam on
+each), after one warm-up update. Needs a CUDA device.
 """
 import argparse
 import json
@@ -56,6 +61,7 @@ def main():
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--kernel-repeats", type=int, default=0)
+    ap.add_argument("--arch-rl", default=None)
     args = ap.parse_args()
     import torch
 
@@ -81,22 +87,35 @@ def main():
                     **{k: t[k] for k in ("ms", "plain_ms", "library_ms",
                                          "bound_ms")}}), flush=True)
             torch.cuda.empty_cache()
-    cfg = get_config(args.arch)
-    rc = RunConfig(model=cfg, shape=InputShape("train", SEQ, B, "train"))
-    params, state, opt = init_train_state(
-        rc, torch.Generator(device=dev).manual_seed(0))
-    step = make_train_step(rc, opt)
-    batches = batch_iterator(cfg, rc.shape, device=dev)
-    batch = next(batches)
-    for _ in range(2):                       # warm-up
-        step(params, state, batch)
+    if args.arch_rl:
+        sys.path.insert(0, ROOT)
+        import chip_smoke
+        fn, _ = chip_smoke.arch_rl_update_fn(dev, args.arch_rl)
+        fn()                                 # warm-up
+        label = {"arch_rl": args.arch_rl, "batch": chip_smoke.ARCH_RL_B,
+                 "seq": chip_smoke.ARCH_RL_S,
+                 "act_dim": chip_smoke.ARCH_RL_ACT}
+    else:
+        cfg = get_config(args.arch)
+        rc = RunConfig(model=cfg, shape=InputShape("train", SEQ, B,
+                                                   "train"))
+        params, state, opt = init_train_state(
+            rc, torch.Generator(device=dev).manual_seed(0))
+        step = make_train_step(rc, opt)
+        batch = next(batch_iterator(cfg, rc.shape, device=dev))
+
+        def fn():
+            step(params, state, batch)
+
+        for _ in range(2):                   # warm-up
+            fn()
+        label = {"arch": args.arch, "batch": B, "seq": SEQ}
     torch.cuda.synchronize()
-    wall, busy, ops, per_op = profiled(
-        lambda: step(params, state, batch), args.steps)
+    wall, busy, ops, per_op = profiled(fn, args.steps)
     port = {k: sum(v for n, v in per_op.items() if k in n) / 1e3
             for k in PORT_KERNELS}
     print(json.dumps({
-        "card": card, "arch": args.arch, "batch": B, "seq": SEQ,
+        "card": card, **label,
         "steps": args.steps, "src": os.path.abspath(args.src),
         "wall_ms": wall, "device_busy_ms": busy,
         "device_idle_share": 1 - busy / wall, "device_ops": ops,
