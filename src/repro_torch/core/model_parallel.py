@@ -28,6 +28,12 @@ primary device ``(0, 0)``, with replica 0's actor.
 ``ReplayState`` or ``PrioritizedState`` out on the mesh (copies), and
 ``gather_state`` / ``gather_replay`` give the whole form back on the
 primary device, the form checkpoints, tests and the eval consumers read.
+
+The dry run's entry (``make_spreeze_update``, ``standard_rules_for_rl``,
+``_state_shardings_from_shapes``) builds the RL update of the reference's
+production mesh on the port's grid: ac = pod, batch = data, the towers
+replicated over ``model`` as the reference replicates them, so each
+device's share is the reference's.
 """
 from __future__ import annotations
 
@@ -38,13 +44,15 @@ import torch
 
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import (Mesh, check_on_group,
-                                              group_devices, to_group,
+from repro_torch.distributed.sharding import (AxisMesh, Mesh, MeshRules,
+                                              check_on_group, group_devices,
+                                              spreeze_rules, to_group,
                                               trainer_rules)
 from repro_torch.replay.buffer import ReplayState
 from repro_torch.replay.prioritized import PrioritizedState
 from repro_torch.rl import networks as nets
-from repro_torch.rl.base import AlgoHP, AlgoState, UpdateStep, drive_replicas
+from repro_torch.rl.base import (AlgoHP, AlgoState, UpdateStep,
+                                 drive_replicas, get_algo)
 from repro_torch.rl.networks import PlacedEnsemble
 from repro_torch.train.optimizer import Optimizer, OptState
 
@@ -247,6 +255,101 @@ class MeshUpdate:
         metrics["td_abs"] = torch.cat([to_group(m["td_abs"], layout.primary)
                                        for _, m in results])
         return state, metrics
+
+
+# --------------------------------------------------------------------------- #
+# the dry run's entry: the Spreeze update of the production mesh
+# --------------------------------------------------------------------------- #
+
+def standard_rules_for_rl(mesh: AxisMesh) -> MeshRules:
+    """Fig. 2a data parallelism: no ac axis, the batch over every data-ish
+    axis, the parameters replicated (MLP towers are tiny: splitting them
+    would only add gathers)."""
+    batch = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return MeshRules(mesh=mesh, batch=batch or ("data",))
+
+
+def _spreeze_rules(mesh: AxisMesh, placement: str) -> MeshRules:
+    """The reference's rules of ``make_spreeze_update``: ``dp`` the data
+    parallel ones; ``ac`` the Spreeze rules, a single pod borrowing its
+    data axis for the ensemble."""
+    if placement == "dp":
+        return standard_rules_for_rl(mesh)
+    rules = spreeze_rules(mesh)
+    if rules.ac is None:
+        rules = MeshRules(mesh=mesh, batch=("data",), seq=rules.seq,
+                          fsdp=rules.fsdp, tp=rules.tp, ac="data")
+    return rules
+
+
+def spreeze_grid(mesh: AxisMesh) -> Mesh:
+    """The port's ("ac", "batch") grid for the production ``mesh``: ac =
+    pod (1 for a single pod), batch = data; every position names the meta
+    device (a distinct device object a position, which a census tells
+    apart)."""
+    ac, batch = mesh.shape.get("pod", 1), mesh.shape["data"]
+    return Mesh([[torch.device("meta") for _ in range(batch)]
+                 for _ in range(ac)])
+
+
+def make_spreeze_update(mesh: AxisMesh, *, algo: str = "sac",
+                        obs_dim: int = 26, act_dim: int = 6,
+                        batch_size: int = 8192,
+                        hp: Optional[AlgoHP] = None,
+                        placement: str = "ac", grid: Optional[Mesh] = None):
+    """The reference's RL update on the production ``mesh``, as the port
+    runs it on the meta device: on ``grid`` (``spreeze_grid(mesh)`` unless
+    given),
+    under the trainer's ``placement``. ``ac`` (Fig. 2b): each ac row (pod)
+    holds one Q tower of every batch group, no gradient crosses the rows.
+    ``dp`` (Fig. 2a): every group a replica of everything, the rows over
+    all the groups, the gradients summed over them.
+
+    -> (update_fn, state, batch, noises, in_shardings): ``update_fn(state,
+    batch, *noises)`` a ``MeshUpdate``, ``state`` placed on the grid
+    (``PlacedState``), ``batch`` each field's G row shards, ``noises``
+    the update's (batch_size, act_dim) standard-normal draws on the
+    primary device, and ``in_shardings`` the reference's splits of the
+    whole state, the batch and the key under its rules."""
+    hp = hp or AlgoHP(algo=algo)
+    rules = _spreeze_rules(mesh, placement)
+    mod = get_algo(algo)
+    grid = grid or spreeze_grid(mesh)
+    layout = MeshLayout(grid, placement)
+    dev = layout.primary
+    gen = torch.Generator().manual_seed(0)
+    whole = mod.init_state(gen, obs_dim, act_dim, hp, device=dev)
+    state = place_state(whole, layout)
+    widths = {"obs": obs_dim, "act": act_dim, "rew": 0, "next_obs": obs_dim,
+              "done": 0}
+    rows = {k: torch.zeros((batch_size, w) if w else (batch_size,),
+                           device=dev) for k, w in widths.items()}
+    batch = {k: _split(v, layout) for k, v in rows.items()}
+    noises = [torch.zeros((batch_size, act_dim), device=dev)
+              for _ in range(mod.UPDATE_NOISES)]
+    in_shardings = (_state_shardings_from_shapes(whole, rules),
+                    {k: (rules.batch,) + (None,) * (v.dim() - 1)
+                     for k, v in rows.items()},
+                    ())
+    update = MeshUpdate(mod.make_update_step(hp, obs_dim, act_dim), layout)
+    return update, state, batch, noises, in_shardings
+
+
+def _state_shardings_from_shapes(state: AlgoState, rules: MeshRules):
+    """The reference's splits of a whole ``AlgoState`` under ``rules``:
+    the Q side (the ensemble, its target and its Adam moments) with its
+    leading dim over ``ac``, everything else (the actor, the
+    temperature, the step counters) replicated. One entry a dim."""
+    def ens(leaf):
+        if leaf.dim() == 0 or rules.ac is None:
+            return (None,) * leaf.dim()
+        return (rules.ac,) + (None,) * (leaf.dim() - 1)
+
+    def rep(leaf):
+        return (None,) * leaf.dim()
+
+    return _map_q_side(state, lambda q: tree_map(ens, q),
+                       lambda x: tree_map(rep, x))
 
 
 # --------------------------------------------------------------------------- #

@@ -4,8 +4,14 @@
 package: each wrapper bumps it right where it launches its kernel and
 nowhere else, so a run can prove that its path went through the kernels
 (the role ``TRACE_COUNTS`` plays in the JAX package).
+
+``route`` and ``pick`` choose a call's version by its operand's device
+alone: the plain PyTorch version on the CPU, the kernel on a CUDA
+device, the shape-and-work route (``kernels.meta``) on the meta device;
+any other device raises.
 """
 import collections
+import importlib
 
 import torch
 
@@ -31,3 +37,27 @@ def check_cuda_operand(t: torch.Tensor, name: str, dtype=None):
                         "bfloat16")
     if dtype is not None and t.dtype != dtype:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+
+
+ROUTES = ("cpu", "cuda", "meta")
+
+
+def route(t: torch.Tensor) -> str:
+    """The version a kernel call on ``t`` takes: ``"cpu"`` (the plain
+    version), ``"cuda"`` (the kernel) or ``"meta"`` (shapes and work)."""
+    kind = t.device.type
+    if kind not in ROUTES:
+        raise ValueError(f"no kernel route for a tensor on {t.device}: the "
+                         f"port's kernels take {', '.join(ROUTES)} tensors")
+    return kind
+
+
+def pick(t: torch.Tensor, plain, kernel, name: str):
+    """``plain`` for a CPU ``t``, ``kernel`` for a CUDA one, and
+    ``kernels.meta``'s ``name`` for a meta one."""
+    kind = route(t)
+    if kind == "cpu":
+        return plain
+    if kind == "cuda":
+        return kernel
+    return getattr(importlib.import_module("repro_torch.kernels.meta"), name)

@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCH_COUNTS, check_cuda_operand
+from repro_torch.kernels import LAUNCH_COUNTS, check_cuda_operand, pick
 from repro_torch.kernels._build import load_kernels
 
 NEG_INF = -1e30
@@ -174,13 +174,14 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """``flash_attention`` with its backward: the kernels on a CUDA
-    tensor, the plain versions on a CPU one. The forward writes the LSE
-    that the backward recomputes P from."""
+    tensor, the plain versions on a CPU one, the meta routes on a meta
+    one. The forward writes the LSE that the backward recomputes P
+    from."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, prefix_len):
         kw = dict(causal=causal, window=window, prefix_len=prefix_len)
-        fwd = attention_ref if q.device.type == "cpu" else flash_attention
+        fwd = pick(q, attention_ref, flash_attention, "flash_attention")
         out, lse = fwd(q, k, v, return_lse=True, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
@@ -189,7 +190,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_ref if q.device.type == "cpu" \
-            else flash_attention_bwd
+        bwd = pick(q, flash_attention_bwd_ref, flash_attention_bwd,
+                   "flash_attention_bwd")
         dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(), **ctx.kw)
         return dq, dk, dv, None, None, None

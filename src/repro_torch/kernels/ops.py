@@ -12,9 +12,12 @@ model ops (``rmsnorm`` / ``flash_attention`` / ``decode_attention`` /
 ``shard_map`` wrappers.
 
 Which version runs is decided by the operand's device, never by what the
-machine has: a CUDA tensor goes to the hand-written kernel (which raises
-on anything it does not take), a CPU tensor to the plain PyTorch
-version. There is no switch and no fallback between the two: where the
+machine has (``kernels.pick``): a CUDA tensor goes to the hand-written
+kernel (which raises on anything it does not take), a CPU tensor to the
+plain PyTorch version, a meta tensor to its shape-and-work route
+(``kernels.meta``: empty outputs, the call and its work told to the
+census of ``launch.analysis``), and a tensor on any other device is
+refused. There is no switch and no fallback between them: where the
 reference chose between its jnp path and its Pallas kernels with
 ``use_pallas``, the port's model code always calls these.
 
@@ -25,7 +28,7 @@ through their ``autograd.Function``s (``_rms.RMSNorm``,
 on the card; elsewhere (serving) they call the forward alone, flash
 writes no LSE and the scan hands back no chunk states.
 ``decode_attention`` has no backward (no training path runs it), so it
-refuses such a call with a ``ValueError`` on either device: the CPU
+refuses such a call with a ``ValueError`` on every device: the CPU
 trains no path the card cannot.
 """
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 from repro_torch.distributed.sharding import (MeshRules, check_on_group,
                                               group_devices, group_windows,
                                               sum_on, to_group)
+from repro_torch.kernels import pick
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import replay_ops as _replay
@@ -47,9 +51,8 @@ from repro_torch.kernels import ssd_scan as _ssd
 def ring_write(data: torch.Tensor, batch: torch.Tensor, ptr: torch.Tensor,
                **kw) -> torch.Tensor:
     """In-place ring write of (n, ...) rows at ``(ptr + i) % capacity``."""
-    if data.device.type == "cpu":
-        return _replay.ring_write_ref(data, batch, ptr, **kw)
-    return _replay.ring_write(data, batch, ptr, **kw)
+    return pick(data, _replay.ring_write_ref, _replay.ring_write,
+                "ring_write")(data, batch, ptr, **kw)
 
 
 def ring_write_fields(datas: Sequence[torch.Tensor],
@@ -57,66 +60,61 @@ def ring_write_fields(datas: Sequence[torch.Tensor],
                       **kw):
     """In-place ring write of several fields' (n, ...) rows at the same
     slots ``(ptr + i) % capacity``: one kernel launch for all of them."""
-    if datas[0].device.type == "cpu":
-        return _replay.ring_write_fields_ref(datas, batches, ptr, **kw)
-    return _replay.ring_write_fields(datas, batches, ptr, **kw)
+    return pick(datas[0], _replay.ring_write_fields_ref,
+                _replay.ring_write_fields, "ring_write_fields")(
+                    datas, batches, ptr, **kw)
 
 
 def ring_gather(data: torch.Tensor, idx: torch.Tensor, **kw
                 ) -> torch.Tensor:
     """Batched random row gather from the replay ring."""
-    if data.device.type == "cpu":
-        return _replay.ring_gather_ref(data, idx, **kw)
-    return _replay.ring_gather(data, idx, **kw)
+    return pick(data, _replay.ring_gather_ref, _replay.ring_gather,
+                "ring_gather")(data, idx, **kw)
 
 
 def ring_gather_fields(datas: Sequence[torch.Tensor], idx: torch.Tensor,
                        **kw):
     """Batched random row gather of several fields at the same indices:
     one kernel launch for all of them."""
-    if datas[0].device.type == "cpu":
-        return _replay.ring_gather_fields_ref(datas, idx, **kw)
-    return _replay.ring_gather_fields(datas, idx, **kw)
+    return pick(datas[0], _replay.ring_gather_fields_ref,
+                _replay.ring_gather_fields, "ring_gather_fields")(
+                    datas, idx, **kw)
 
 
 def per_topk(priorities: torch.Tensor, gumbel: torch.Tensor, alpha: float,
              k: int, **kw):
     """Fused PER Gumbel score + top-k -> (scores desc, global idx)."""
-    if priorities.device.type == "cpu":
-        return _replay.per_topk_ref(priorities, gumbel, alpha, k, **kw)
-    return _replay.per_topk(priorities, gumbel, alpha, k, **kw)
+    return pick(priorities, _replay.per_topk_ref, _replay.per_topk,
+                "per_topk")(priorities, gumbel, alpha, k, **kw)
 
 
 def priority_scatter(priorities: torch.Tensor, idx: torch.Tensor,
                      values: torch.Tensor, **kw) -> torch.Tensor:
     """In-place ``priorities[idx] = values``, the last draw winning."""
-    if priorities.device.type == "cpu":
-        return _replay.priority_scatter_ref(priorities, idx, values, **kw)
-    return _replay.priority_scatter(priorities, idx, values, **kw)
+    return pick(priorities, _replay.priority_scatter_ref,
+                _replay.priority_scatter, "priority_scatter")(
+                    priorities, idx, values, **kw)
 
 
 def per_scores(priorities: torch.Tensor, gumbel: torch.Tensor,
                alpha: float) -> torch.Tensor:
     """Gumbel-top-k scores of every row of the priority vector."""
-    if priorities.device.type == "cpu":
-        return _replay.per_scores_ref(priorities, gumbel, alpha)
-    return _replay.per_scores(priorities, gumbel, alpha)
+    return pick(priorities, _replay.per_scores_ref, _replay.per_scores,
+                "per_scores")(priorities, gumbel, alpha)
 
 
 def ring_write_rowloop(data: torch.Tensor, batch: torch.Tensor,
                        ptr: torch.Tensor) -> torch.Tensor:
     """The row-at-a-time in-place ring write (no window)."""
-    if data.device.type == "cpu":
-        return _replay.ring_write_ref(data, batch, ptr)
-    return _replay.ring_write_rowloop(data, batch, ptr)
+    return pick(data, _replay.ring_write_ref, _replay.ring_write_rowloop,
+                "ring_write_rowloop")(data, batch, ptr)
 
 
 def ring_gather_rowloop(data: torch.Tensor, idx: torch.Tensor
                         ) -> torch.Tensor:
     """The row-at-a-time gather (no window, indices wrapped and clamped)."""
-    if data.device.type == "cpu":
-        return _replay.ring_gather_rowloop_ref(data, idx)
-    return _replay.ring_gather_rowloop(data, idx)
+    return pick(data, _replay.ring_gather_rowloop_ref,
+                _replay.ring_gather_rowloop, "ring_gather_rowloop")(data, idx)
 
 
 def _needs_grad(*operands: torch.Tensor) -> bool:
@@ -138,9 +136,8 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6
     """Row-wise RMSNorm of (..., D) in float32, cast back to x's dtype."""
     if _needs_grad(x, weight):
         return _rms.RMSNorm.apply(x, weight, eps)
-    if x.device.type == "cpu":
-        return _rms.rmsnorm_ref(x, weight, eps=eps)
-    return _rms.rmsnorm(x, weight, eps=eps)
+    return pick(x, _rms.rmsnorm_ref, _rms.rmsnorm, "rmsnorm")(x, weight,
+                                                              eps=eps)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -149,10 +146,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """(B,Sq,H,d) x (B,Sk,KV,d)^2 -> (B,Sq,H,d)."""
     if _needs_grad(q, k, v):
         return _fa.FlashAttention.apply(q, k, v, causal, window, prefix_len)
-    kw = dict(causal=causal, window=window, prefix_len=prefix_len)
-    if q.device.type == "cpu":
-        return _fa.attention_ref(q, k, v, **kw)
-    return _fa.flash_attention(q, k, v, **kw)
+    return pick(q, _fa.attention_ref, _fa.flash_attention,
+                "flash_attention")(q, k, v, causal=causal, window=window,
+                                   prefix_len=prefix_len)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -162,9 +158,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Refuses a call that needs a gradient (no backward kernel: no
     training path runs it)."""
     _refuse_grad("decode_attention", q, k_cache, v_cache)
-    if q.device.type == "cpu":
-        return _dec.decode_attention_ref(q, k_cache, v_cache, valid_len)
-    return _dec.decode_attention(q, k_cache, v_cache, valid_len)
+    return pick(q, _dec.decode_attention_ref, _dec.decode_attention,
+                "decode_attention")(q, k_cache, v_cache, valid_len)
 
 
 def ssd_scan(x: torch.Tensor, dtA: torch.Tensor, B_: torch.Tensor,
@@ -178,8 +173,8 @@ def ssd_scan(x: torch.Tensor, dtA: torch.Tensor, B_: torch.Tensor,
                                    else (initial_state,))
     if _needs_grad(*operands):
         return _ssd.SSDScan.apply(x, dtA, B_, C_, initial_state, chunk)
-    fn = _ssd.ssd_scan_ref if x.device.type == "cpu" else _ssd.ssd_scan
-    return fn(x, dtA, B_, C_, chunk=chunk, initial_state=initial_state)
+    return pick(x, _ssd.ssd_scan_ref, _ssd.ssd_scan, "ssd_scan")(
+        x, dtA, B_, C_, chunk=chunk, initial_state=initial_state)
 
 
 # --------------------------------------------------------------------------- #

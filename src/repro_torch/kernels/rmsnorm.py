@@ -20,7 +20,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCH_COUNTS, check_cuda_operand
+from repro_torch.kernels import LAUNCH_COUNTS, check_cuda_operand, pick
 from repro_torch.kernels._build import load_kernels
 
 
@@ -85,18 +85,17 @@ def rmsnorm_bwd_ref(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
 
 class RMSNorm(torch.autograd.Function):
     """``rmsnorm`` with its backward: the kernels on a CUDA tensor, the
-    plain versions on a CPU one."""
+    plain versions on a CPU one, the meta routes on a meta one."""
 
     @staticmethod
     def forward(ctx, x, weight, eps):
         ctx.save_for_backward(x, weight)
         ctx.eps = eps
-        fwd = rmsnorm_ref if x.device.type == "cpu" else rmsnorm
-        return fwd(x, weight, eps=eps)
+        return pick(x, rmsnorm_ref, rmsnorm, "rmsnorm")(x, weight, eps=eps)
 
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
-        bwd = rmsnorm_bwd_ref if x.device.type == "cpu" else rmsnorm_bwd
+        bwd = pick(x, rmsnorm_bwd_ref, rmsnorm_bwd, "rmsnorm_bwd")
         dx, dw = bwd(x, weight, dy.contiguous(), eps=ctx.eps)
         return dx, dw, None

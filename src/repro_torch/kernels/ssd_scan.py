@@ -36,7 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCH_COUNTS, check_cuda_operand
+from repro_torch.kernels import LAUNCH_COUNTS, check_cuda_operand, pick
 from repro_torch.kernels._build import load_kernels
 
 
@@ -226,7 +226,7 @@ def ssd_scan_bwd_ref(x: torch.Tensor, dtA: torch.Tensor, B_: torch.Tensor,
 
 class SSDScan(torch.autograd.Function):
     """``ssd_scan`` with its backward: the kernels on a CUDA tensor, the
-    plain versions on a CPU one. The forward keeps the float32 chunk-start
+    plain versions on a CPU one, the meta routes on a meta one. The forward keeps the float32 chunk-start
     states that the backward's state terms read. Gradients are not
     materialised: an unused final state (training discards it) costs no
     zeros, and a given one is honoured."""
@@ -234,7 +234,7 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dtA, B_, C_, initial_state, chunk):
         ctx.set_materialize_grads(False)
-        fwd = ssd_scan_ref if x.device.type == "cpu" else ssd_scan
+        fwd = pick(x, ssd_scan_ref, ssd_scan, "ssd_scan")
         y, final, states = fwd(x, dtA, B_, C_, chunk=chunk,
                                initial_state=initial_state,
                                return_states=True)
@@ -248,7 +248,7 @@ class SSDScan(torch.autograd.Function):
     def backward(ctx, dy, dfinal):
         x, dtA, B_, C_, states = ctx.saved_tensors
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()
-        bwd = ssd_scan_bwd_ref if x.device.type == "cpu" else ssd_scan_bwd
+        bwd = pick(x, ssd_scan_bwd_ref, ssd_scan_bwd, "ssd_scan_bwd")
         dx, ddtA, dB, dC, dinit = bwd(x, dtA, B_, C_, states, dy, dfinal,
                                       chunk=ctx.chunk)
         dinit = None if ctx.init_dtype is None else dinit.to(ctx.init_dtype)

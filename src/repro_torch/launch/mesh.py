@@ -1,5 +1,10 @@
-"""The trainer's ("ac", "batch") mesh. Counterpart of the trainer half of
-``repro/launch/mesh.py``.
+"""The trainer's ("ac", "batch") mesh, and the reference's production
+meshes as axis sizes. Counterpart of ``repro/launch/mesh.py``.
+
+``make_production_mesh`` and ``make_debug_mesh`` give ``AxisMesh``es:
+named axis sizes with no devices, which the sharding rules read
+(``distributed.sharding.standard_rules``); the dry run reads from them
+what each device would hold. Nothing runs on them.
 
 ``make_ac_mesh`` takes the visible CUDA devices by default and raises
 when there are too few: a mesh never falls back to fewer devices than it
@@ -14,7 +19,25 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import Mesh, trainer_rules
+from repro_torch.distributed.sharding import AxisMesh, Mesh, trainer_rules
+
+
+def make_production_mesh(*, multi_pod: bool = False, data: int = 16,
+                         model: int = 16) -> AxisMesh:
+    """The reference's production mesh: 16x16 = 256 chips a pod
+    ("data", "model"); ``multi_pod`` adds the ``pod`` axis, (2, 16, 16).
+    The ``pod`` axis doubles as the Spreeze actor/critic axis under
+    ``spreeze_rules``. ``data`` and ``model`` reshape the pod
+    (``data * model`` stays 256)."""
+    if data * model != 256:
+        raise ValueError(f"a pod is 256 chips: data {data} x model {model}")
+    axes = {"data": data, "model": model}
+    return AxisMesh({"pod": 2, **axes} if multi_pod else axes)
+
+
+def make_debug_mesh(data: int = 1, model: int = 1) -> AxisMesh:
+    """A small ("data", "model") mesh (tests)."""
+    return AxisMesh({"data": data, "model": model})
 
 
 def make_ac_mesh(ac: int = 2, batch: int = 0,

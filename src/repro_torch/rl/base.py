@@ -114,8 +114,8 @@ def _sum_over_replicas(requests: List[List[torch.Tensor]]
     on replica 0's copy's device, then moved to each replica's copy's
     device (within an ac row only: a replica's tower grads and their sum
     stay on that row). Out of place, so no replica's own tensor changes."""
-    totals = [sum_on(ts, ts[0].device) for ts in zip(*requests)]
-    return [[to_group(t, own.device) for t, own in zip(totals, req)]
+    totals = [sum_on(ts, ts[0]) for ts in zip(*requests)]
+    return [[to_group(t, own) for t, own in zip(totals, req)]
             for req in requests]
 
 

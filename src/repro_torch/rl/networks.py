@@ -122,14 +122,15 @@ class PlacedEnsemble(list):
     polyak averaging) walk it part by part."""
 
 
-def part_device(part) -> torch.device:
-    return tree_leaves(part)[0].device
+def part_leaf(part) -> torch.Tensor:
+    """A part's first leaf: where (device and group) the part sits."""
+    return tree_leaves(part)[0]
 
 
 def _placed_q_values(towers, x: torch.Tensor, dev, home) -> torch.Tensor:
-    """Q values of ``towers`` (a stack or one tower) on their device
-    ``dev``: the rows go out to ``dev``, only the values come back to
-    ``home``."""
+    """Q values of ``towers`` (a stack or one tower) where ``dev`` sits
+    (a device or a tensor, as ``to_group`` takes it): the rows go out
+    there, only the values come back to ``home``."""
     return to_group(mlp_tower(towers, to_group(x, dev))[..., 0], home)
 
 
@@ -137,8 +138,8 @@ def ensemble_q_values(stacked, obs, act) -> torch.Tensor:
     """-> (n, B) Q values of every ensemble member, on ``obs``'s device."""
     x = torch.cat([obs, act], dim=-1)
     if isinstance(stacked, PlacedEnsemble):
-        return torch.cat([_placed_q_values(part, x, part_device(part),
-                                           obs.device) for part in stacked])
+        return torch.cat([_placed_q_values(part, x, part_leaf(part), obs)
+                          for part in stacked])
     return mlp_tower(stacked, x)[..., 0]
 
 
@@ -149,7 +150,7 @@ def tower_q_values(stacked, i: int, obs, act) -> torch.Tensor:
         m = tree_leaves(stacked[0])[0].shape[0]
         part = stacked[i // m]
         return _placed_q_values(tree_map(lambda w: w[i % m], part), x,
-                                part_device(part), obs.device)
+                                part_leaf(part), obs)
     return mlp_tower(tree_map(lambda w: w[i], stacked), x)[..., 0]
 
 
@@ -172,15 +173,18 @@ def min_q(stacked, obs, act) -> torch.Tensor:
 # reference's ``.astype(dtype)`` at each use.
 
 def init_arch_policy(gen: torch.Generator, cfg: ModelConfig, act_dim: int,
-                     dtype=torch.float32):
+                     dtype=torch.float32, device=None):
     """LM backbone + Gaussian head reading the final position's hidden, on
-    the generator's device."""
+    ``device`` (the generator's unless given; ``meta`` builds the shapes
+    only)."""
+    device = device or gen.device
     return {
-        "backbone": factory.init_params(cfg, gen, dtype=dtype),
+        "backbone": factory.init_params(cfg, gen, dtype=dtype,
+                                        device=device),
         "head": {"w": layers.dense_init(gen, (cfg.d_model, 2 * act_dim),
-                                        dtype=dtype),
+                                        dtype=dtype, device=device),
                  "b": torch.zeros((2 * act_dim,), dtype=dtype,
-                                  device=gen.device)},
+                                  device=device)},
     }
 
 
@@ -196,27 +200,31 @@ def arch_policy_dist(p, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def init_arch_q(gen: torch.Generator, cfg: ModelConfig, act_dim: int,
-                dtype=torch.float32):
+                dtype=torch.float32, device=None):
     """Backbone + nonlinear (state, action) head: the action must interact
     with the state nonlinearly or Q degenerates to f(s) + w.a."""
-    d = cfg.d_model
+    d, device = cfg.d_model, device or gen.device
     return {
-        "backbone": factory.init_params(cfg, gen, dtype=dtype),
+        "backbone": factory.init_params(cfg, gen, dtype=dtype,
+                                        device=device),
         "act_in": {"w": layers.dense_init(gen, (act_dim, d), dtype=dtype,
-                                          scale=3.0)},
-        "mix": {"w": layers.dense_init(gen, (d, d), dtype=dtype),
-                "b": torch.zeros((d,), dtype=dtype, device=gen.device)},
-        "head": {"w": layers.dense_init(gen, (d, 1), dtype=dtype),
-                 "b": torch.zeros((1,), dtype=dtype, device=gen.device)},
+                                          device=device, scale=3.0)},
+        "mix": {"w": layers.dense_init(gen, (d, d), dtype=dtype,
+                                       device=device),
+                "b": torch.zeros((d,), dtype=dtype, device=device)},
+        "head": {"w": layers.dense_init(gen, (d, 1), dtype=dtype,
+                                        device=device),
+                 "b": torch.zeros((1,), dtype=dtype, device=device)},
     }
 
 
 def init_arch_ensemble_q(gen: torch.Generator, cfg: ModelConfig,
-                         act_dim: int, n: int = 2, dtype=torch.float32):
+                         act_dim: int, n: int = 2, dtype=torch.float32,
+                         device=None):
     """``n`` arch Q towers stacked on a leading axis (the reference's
     ``vmap`` of ``init_arch_q``)."""
-    return stack_trees([init_arch_q(gen, cfg, act_dim, dtype=dtype)
-                        for _ in range(n)])
+    return stack_trees([init_arch_q(gen, cfg, act_dim, dtype=dtype,
+                                    device=device) for _ in range(n)])
 
 
 def _arch_q_head(p, h: torch.Tensor, act: torch.Tensor, dtype

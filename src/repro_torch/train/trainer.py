@@ -70,13 +70,15 @@ def make_train_step(rc: RunConfig, opt: Optional[Optimizer] = None
 
 
 def init_train_state(rc: RunConfig, gen: torch.Generator,
-                     opt: Optional[Optimizer] = None):
-    """Random parameters from ``gen`` (on its device) in
-    ``rc.param_dtype``, each leaf requiring grad, and the optimizer's
-    zeroed state. -> (params, opt_state, opt)."""
+                     opt: Optional[Optimizer] = None, device=None):
+    """Random parameters from ``gen`` (on ``device``, the generator's
+    unless given; ``meta`` builds the shapes only) in ``rc.param_dtype``,
+    each leaf requiring grad, and the optimizer's zeroed state. ->
+    (params, opt_state, opt)."""
     opt = opt or _optimizer(rc)
     params = factory.init_params(rc.model, gen,
-                                 dtype=dtype_of(rc.param_dtype))
+                                 dtype=dtype_of(rc.param_dtype),
+                                 device=device)
     params = tree_map(lambda p: p.requires_grad_(), params)
     return params, opt.init(params), opt
 
