@@ -195,7 +195,20 @@ and prints no result line):
      temporaries within ``DRY_MEM_TOL`` of ``max_memory_allocated()``
      above what was allocated before the step; each step's roofline bound
      (``kernels/work.py``'s work and the aten ops' bytes and FLOPs over
-     the card's data-sheet rates) printed beside its measured wall.
+     the card's data-sheet rates) printed beside its measured wall;
+  15. the port's two linters on the card (``run_linters``): every hlolint
+     contract (``repro_torch.analysis.hlolint``: the trainer's megasteps,
+     one device and the 2 x 4 stand-in grid, uniform and PER, the sampler
+     chunk, the update round, the ring write, the sharded gather and
+     top-k, the finite guard, the LM train and decode steps) built at its
+     probe size on the card and driven under the sync debug mode "error":
+     no finding (in place, moves, dtypes, host reads, launches), each
+     kernel's ``LAUNCH_COUNTS`` per dispatch equal to the contract's
+     expression and to the meta census's count, one line a contract;
+     the coverage scan of ``src/repro_torch`` clean; the fixture corpus's
+     host-read entry caught on the card; ``python -m
+     repro_torch.analysis.tracelint`` over ``src/repro_torch`` exiting 0;
+     the sync debug mode as it was before the phase.
 Every bound is ``kernels/work.py``'s work over the rates of
 ``launch/analysis.py`` (``analysis.bound_ms``).
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -3250,18 +3263,96 @@ def run_launcher():
     return report
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: the linters on the card
+# --------------------------------------------------------------------------- #
+
+HLOLINT_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests", "torch_hlolint_fixtures",
+                                "fixtures.py")
+
+
+def run_linters(dev):
+    """Every hlolint contract on ``dev`` under the sync debug mode "error"
+    (``checks.run_contract``), the coverage scan, the fixture corpus's
+    host-read entry, and tracelint over ``src/repro_torch``. Raises on any
+    finding, on launches per dispatch that differ from the contract's or
+    the meta census's, on a host read the card side lets through, and on
+    a sync debug mode left changed. -> (one row a contract, the phase's
+    launches: every count from a reset before each contract to its
+    end, its build and warm-up included)."""
+    import torch
+    from repro_torch.analysis.hlolint import checks, cli as hcli, coverage
+    from repro_torch.analysis.hlolint import entrypoints
+    from repro_torch.analysis.tracelint import cli as tcli
+    from repro_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    root = os.path.dirname(os.path.abspath(__file__))
+    mode = torch.cuda.get_sync_debug_mode()
+    rows, launches = [], {}
+    contracts = entrypoints.collect_contracts()
+    for c in contracts:
+        reset_launch_counts()
+        t = time.perf_counter()
+        found, report = checks.run_contract(c, entrypoints.BUILDERS[c.name],
+                                            dev)
+        secs = time.perf_counter() - t
+        require(not found, f"hlolint {c.name} on the card: " +
+                "; ".join(f.format() for f in found))
+        require(report.card_launches == report.expected
+                == report.meta_calls,
+                f"hlolint {c.name}: LAUNCH_COUNTS {report.card_launches}, "
+                f"contract {report.expected}, meta {report.meta_calls}")
+        for k, v in LAUNCH_COUNTS.items():
+            launches[k] = launches.get(k, 0) + v
+        rows.append({"contract": c.name, "findings": 0,
+                     "launch_counts_per_dispatch": report.card_launches,
+                     "contract_per_dispatch": {
+                         k: f"{c.launches[k]}={v}"
+                         for k, v in report.expected.items()},
+                     "meta_census_per_dispatch": report.meta_calls,
+                     "aten_ops_per_dispatch": report.ops,
+                     "dispatches": report.dispatches,
+                     "moves_between_groups": report.moves,
+                     "seconds": round(secs, 2)})
+    cov = coverage.scan_tree(os.path.join(root, "src", "repro_torch"),
+                             [c.name for c in contracts])
+    require(not cov, "hlolint coverage: " + "; ".join(
+        f.format() for f in cov))
+    # the card side of the host-read family fires
+    fixtures = hcli._load_fixture_module(HLOLINT_FIXTURES)
+    bad = next(c for c in fixtures.HLOLINT_CONTRACTS
+               if c.name == "bad_host_read")
+    found, _ = checks.run_contract(bad, fixtures.BUILDERS[bad.name], dev)
+    caught = [f.msg for f in found if f.rule == "host-read"]
+    require(caught and any("sync debug mode" in m for m in caught),
+            f"the host-read fixture was not caught on the card: {found}")
+    rows.append({"fixture": "bad_host_read", "caught": caught})
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = tcli.main([os.path.join(root, "src", "repro_torch"),
+                        "--baseline", os.path.join(
+                            root, "tracelint-torch-baseline.txt")])
+    require(rc == 0, f"tracelint on src/repro_torch: rc {rc}\n"
+            + out.getvalue())
+    rows.append({"tracelint": out.getvalue().strip().splitlines()[-1]})
+    require(torch.cuda.get_sync_debug_mode() == mode,
+            f"sync debug mode {torch.cuda.get_sync_debug_mode()} after "
+            f"the phase, {mode} before")
+    return rows, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
+    import repro_torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import replay_ops as rops
 
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    repro_torch.exact_float32(dev)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
@@ -3705,6 +3796,16 @@ def main():
               f"({got['bound_by']}) against {got['wall_ms']:.3f} ms "
               f"measured ({card}); " + json.dumps(got), flush=True)
     print(f"dry run: {time.perf_counter() - t_dry:.1f} s", flush=True)
+
+    # the linters: every hlolint contract on the card under the sync
+    # debug mode "error", the host-read fixture, tracelint
+    t_lint = time.perf_counter()
+    rows, counts = run_linters(dev)
+    add_launches(counts)
+    for row in rows:
+        print("linters: " + json.dumps({**row, "card": card}), flush=True)
+    print(f"linters: {time.perf_counter() - t_lint:.1f} s ({card})",
+          flush=True)
 
     sources = {"ring_write": ("ring_ops.cu", "replay_ops.py:188"),
                "ring_gather": ("ring_ops.cu", "replay_ops.py:302"),

@@ -23,6 +23,16 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def exact_float32(device) -> None:
+    """Turn TF32 off for float32 products on ``device`` when it is a CUDA
+    device (the reference is float32 end to end). The backends' switches
+    are process-wide, so this module is their one owner; a no-op
+    elsewhere."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def card_line(device) -> str:
     """The card's name and power limit as nvidia-smi gives them, or
     ``device: cpu`` for a CPU run."""

@@ -1,0 +1,6 @@
+import sys
+
+from repro_torch.analysis.hlolint.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

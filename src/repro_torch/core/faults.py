@@ -33,7 +33,14 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.analysis.hlolint.contract import EntrypointContract
 from repro_torch.distributed.sharding import to_group
+
+#: the finite guard: a device reduction, nothing updated in place, nothing
+#: moved between groups on one device, no kernel of the port's own
+HLOLINT_CONTRACTS = (
+    EntrypointContract(name="finite_guard", module=__name__),
+)
 
 
 class Preempted(RuntimeError):
@@ -128,6 +135,7 @@ class FaultClock:
 # device-side finite guard
 # --------------------------------------------------------------------------- #
 
+# hlolint: entrypoint[finite_guard]
 def tree_finite(tree) -> torch.Tensor:
     """Bool scalar on the first leaf's device: every floating tensor leaf
     of ``tree`` is finite. Three launches for the leaves of one device
@@ -152,7 +160,7 @@ def finite_guard(tree) -> bool:
     """Host verdict of :func:`tree_finite`, for vetting a snapshot bundle
     at write, resume and rollback time (never on the hot loop: it
     waits for the device)."""
-    return bool(tree_finite(tree))
+    return bool(tree_finite(tree))  # tracelint: allow[host-transfer] -- the host verdict at resume and rollback, off the hot loop
 
 
 def poison_actor(actor):

@@ -93,19 +93,81 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device, sync_debug_mode
+from repro_torch import exact_float32, resolve_device, sync_debug_mode
 from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.analysis.hlolint.contract import (MOVE, CollectiveContract,
+                                                   CollectiveRule,
+                                                   EntrypointContract)
 from repro_torch.core import faults
 from repro_torch.core import model_parallel as mp
 from repro_torch.core import runtime as rt
 from repro_torch.core.transfer import make_transfer
 from repro_torch.envs import base as env_base
+from repro_torch.kernels import ops as kops
 from repro_torch.replay import buffer as rb
 from repro_torch.replay import prioritized as per
 from repro_torch.replay.nstep import nstep_chunk
 from repro_torch.rl.base import AlgoHP, get_algo
 from repro_torch.train import checkpoint
 from repro_torch.train import resume as resume_lib
+
+# --------------------------------------------------------------------------- #
+# hlolint contracts (checked by `python -m repro_torch.analysis.hlolint`)
+# --------------------------------------------------------------------------- #
+# What a megastep, a sampler chunk and an update round may do when they
+# run; the builders live in repro_torch.analysis.hlolint.entrypoints.
+# Dims are expressions over the probe's symbols (capacity, batch, groups,
+# k == batch for PER, rows a round, rounds, updates a round, hidden).
+
+#: the sharded megastep's moves between groups, uniform replay: the ring
+#: write's and the gather's (kernels.ops), and the gradient sums over the
+#: groups. Every move stays below the replay capacity but a hidden x
+#: hidden gradient's, which is as large as the towers, not the pool.
+MEGASTEP_COLLECTIVE_CONTRACT = CollectiveContract(
+    allow=kops.RING_WRITE_MOVES + kops.RING_GATHER_MOVES + (
+        CollectiveRule(MOVE, ("*", "hidden", "hidden"), cap_exempt=True),
+        CollectiveRule(MOVE, ("hidden", "hidden"), cap_exempt=True),
+        # the other parameter-shaped sums, (B/G,) Q values and actions
+        CollectiveRule(MOVE, ("*", "...")),
+    ),
+    max_elems="capacity")
+
+#: PER adds the group-local selection's moves
+PER_MEGASTEP_COLLECTIVE_CONTRACT = CollectiveContract(
+    allow=MEGASTEP_COLLECTIVE_CONTRACT.allow + kops.PER_TOPK_MOVES,
+    max_elems="capacity")
+
+#: one ring write a round and one gather an update, each once a group
+MEGASTEP_LAUNCHES = {"ring_write": "rounds*groups",
+                     "ring_gather": "rounds*updates*groups"}
+#: PER adds one selection and one scatter an update, each once a group
+PER_MEGASTEP_LAUNCHES = dict(MEGASTEP_LAUNCHES,
+                             per_topk="rounds*updates*groups",
+                             priority_scatter="rounds*updates*groups")
+
+_STATE = ("state", "replay")
+HLOLINT_CONTRACTS = (
+    # the state, its Adam moments and the ring updated in place, nothing
+    # moved between groups on one device, float32 end to end
+    EntrypointContract(name="megastep", module=__name__, inplace=True,
+                       state=_STATE, launches=MEGASTEP_LAUNCHES),
+    EntrypointContract(name="megastep_per", module=__name__, inplace=True,
+                       state=_STATE, launches=PER_MEGASTEP_LAUNCHES),
+    EntrypointContract(name="megastep_sharded", module=__name__,
+                       inplace=True, state=_STATE,
+                       collectives=MEGASTEP_COLLECTIVE_CONTRACT,
+                       launches=MEGASTEP_LAUNCHES),
+    EntrypointContract(name="megastep_sharded_per", module=__name__,
+                       inplace=True, state=_STATE,
+                       collectives=PER_MEGASTEP_COLLECTIVE_CONTRACT,
+                       launches=PER_MEGASTEP_LAUNCHES),
+    # the env states are made anew at every step (the envs are pure
+    # functions of them), so the sampler updates nothing in place
+    EntrypointContract(name="sampler_chunk", module=__name__),
+    EntrypointContract(name="update_round", module=__name__, inplace=True,
+                       state=_STATE,
+                       launches={"ring_gather": "updates"}),
+)
 
 #: held by a sanitized dispatch for its whole scope and by a worker of a
 #: sanitized trainer for its whole body: the sync debug mode is
@@ -240,6 +302,7 @@ def _round_generator(seed: int, round_i: int, device) -> torch.Generator:
     ``seed``: safe to make on any thread, and the same numbers whichever
     rounds came before."""
     s = np.random.SeedSequence((seed, round_i)).generate_state(1, np.uint64)
+    # tracelint: allow[host-transfer] -- a numpy seed, not a tensor
     return torch.Generator(device=device).manual_seed(int(s[0]))
 
 
@@ -336,10 +399,7 @@ class SpreezeTrainer:
                     f"not a {self.device.type!r} device (device="
                     f"{cfg.device!r})")
             self.device = self.layout.primary
-        if self.device.type == "cuda":
-            # the reference is float32 end to end: no TF32 products
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        exact_float32(self.device)
         self.env = env_base.make(cfg.env_name)
         spec = self.env.spec
         self.algo = get_algo(cfg.algo)
@@ -374,6 +434,7 @@ class SpreezeTrainer:
         self.use_async_eval = ((not cfg.sync_mode) if cfg.async_eval is None
                                else bool(cfg.async_eval))
         init_seed, train_seed, eval_seed, viz_seed = (
+            # tracelint: allow[host-transfer] -- numpy seeds, not tensors
             int(s) for s in np.random.SeedSequence(cfg.seed).generate_state(4))
         gen = torch.Generator(device=self.device).manual_seed(init_seed)
         self.draws = draws if draws is not None else Draws(
@@ -452,6 +513,7 @@ class SpreezeTrainer:
     # ------------------------------------------------------------------ #
     # the "processes" of one round
     # ------------------------------------------------------------------ #
+    # hlolint: entrypoint[sampler_chunk]
     @torch.no_grad()
     def sampler_chunk(self, actor, states):
         """``chunk_len`` vectorized env steps under the live policy.
@@ -476,6 +538,7 @@ class SpreezeTrainer:
                 for k, v in exps.items()}
         return states, flat, mrew
 
+    # hlolint: entrypoint[update_round]
     def update_round(self, state, replay):
         """K updates on freshly sampled batches; returns (state, mean
         critic loss). Under PER each update samples, takes the weighted
@@ -504,6 +567,7 @@ class SpreezeTrainer:
             losses.append(metrics["critic_loss"])
         return state, torch.stack(losses).mean()
 
+    # hlolint: entrypoint[megastep, megastep_per, megastep_sharded, megastep_sharded_per]
     def megastep(self, rounds: Optional[int] = None
                  ) -> Dict[str, torch.Tensor]:
         """``rounds`` (default ``rounds_per_dispatch``) iterations of
@@ -570,6 +634,7 @@ class SpreezeTrainer:
             s, _, r, _ = env.step(s, self._act_det(actor, env.observe(s),
                                                    None))
             total = total + r
+        # tracelint: allow[host-transfer] -- eval's one read, on the eval worker's own stream
         return float(total.mean())
 
     @torch.no_grad()
@@ -595,16 +660,17 @@ class SpreezeTrainer:
         obs, act, rew = self.viz_episode(actor, round_i)
         if self.cfg.viz_dir:
             os.makedirs(self.cfg.viz_dir, exist_ok=True)
+            # tracelint: allow[host-transfer] -- the viz worker writes its rollout to disk
+            arrays = {k: v.cpu().numpy() for k, v in zip(("obs", "act", "rew"), (obs, act, rew))}
             np.savez(os.path.join(self.cfg.viz_dir,
-                                  f"traj_{round_i:06d}.npz"),
-                     obs=obs.cpu().numpy(), act=act.cpu().numpy(),
-                     rew=rew.cpu().numpy())
+                                  f"traj_{round_i:06d}.npz"), **arrays)
 
     def _sync(self):
         if self.device.type == "cuda":
             devices = ([self.device] if self.layout is None
                        else self.layout.mesh.distinct_devices)
             for dev in devices:
+                # tracelint: allow[host-transfer] -- sync_mode's handoff waits and the run's barriers, by design
                 torch.cuda.synchronize(dev)
 
     # ------------------------------------------------------------------ #
@@ -808,8 +874,10 @@ class SpreezeTrainer:
             if ready is not None and not ready.query():
                 if not blocking:
                     return None
+                # tracelint: allow[host-transfer] -- the end-of-run drain, outside the timed loop
                 ready.synchronize()
             q.popleft()
+            # tracelint: allow[host-transfer] -- a pinned host copy whose event has completed: no wait
             if not bool(flag):
                 return round_i
         return None
@@ -849,7 +917,7 @@ class SpreezeTrainer:
             f"back to snapshot round {meta['round_i']} with lr backed "
             f"off to {self.hp.lr:g} (rollback {self._rollbacks}/"
             f"{cfg.max_rollbacks})")
-        return int(meta["round_i"])
+        return int(meta["round_i"])  # tracelint: allow[host-transfer] -- a JSON field of the snapshot's meta
 
     def train(self, *, max_seconds: float = 60.0, max_frames: int = 10**9,
               target_return: Optional[float] = None,
@@ -874,7 +942,7 @@ class SpreezeTrainer:
         start_round = 0
         if resume_from is not None:
             meta = resume_lib.restore_trainer(self, resume_from)
-            start_round = int(meta["round_i"])
+            start_round = int(meta["round_i"])  # tracelint: allow[host-transfer] -- a JSON field of the snapshot's meta
             resume_lib.hist_restore(hist, meta.get("hist") or {})
         pre_warmup = self.total_frames
         self._warmup()

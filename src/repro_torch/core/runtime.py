@@ -366,7 +366,7 @@ class HostRuntime:
 
     def _drained_locked(self) -> bool:
         return (all(b.empty for b in self._boxes) and self._active == 0
-                ) or bool(self._errors)
+                ) or bool(self._errors)  # tracelint: allow[host-transfer] -- a list of worker errors
 
     def _budget_left(self, consumer: str) -> int:
         if consumer not in self._restarts_left:
@@ -512,6 +512,7 @@ class HostRuntime:
             self.state_done += 1
 
     def _handle_eval(self, snap: Snapshot) -> None:
+        # tracelint: allow[host-transfer] -- the eval worker's result, on its own thread and stream
         ret = float(self._eval_fn(snap.actor, snap.eval_key))
         with self._cond:
             if self._claim_abandoned_locked():

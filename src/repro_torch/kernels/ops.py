@@ -37,6 +37,9 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.analysis.hlolint.contract import (MOVE, CollectiveContract,
+                                                   CollectiveRule,
+                                                   EntrypointContract)
 from repro_torch.distributed.sharding import (MeshRules, check_on_group,
                                               group_devices, group_windows,
                                               sum_on, to_group)
@@ -190,6 +193,41 @@ def ssd_scan(x: torch.Tensor, dtA: torch.Tensor, B_: torch.Tensor,
 # onto the same device returns the very tensor, so every combine writes
 # into fresh outputs.
 
+# hlolint move budgets: what each sharded op moves between groups, declared
+# next to the ops that move it (dims over the probe's symbols: capacity,
+# batch, groups, k, rows). The megastep contracts in core/pipeline.py
+# compose them; none is as large as the replay capacity.
+RING_WRITE_MOVES = (
+    # every group receives the round's whole rows
+    CollectiveRule(MOVE, ("rows", "...")),
+)
+RING_GATHER_MOVES = (
+    # the (batch,) indices to every group, then each group's
+    # (batch//groups) slice of every other group's partial gather
+    CollectiveRule(MOVE, ("batch",)),
+    CollectiveRule(MOVE, ("batch//groups", "...")),
+)
+PER_TOPK_MOVES = (
+    # each group's slice of the (capacity,) Gumbel field, then its k
+    # candidates (scores, indices) to the first group's device
+    CollectiveRule(MOVE, ("capacity//groups",)),
+    CollectiveRule(MOVE, ("k",)),
+)
+
+HLOLINT_CONTRACTS = (
+    EntrypointContract(
+        name="per_topk_sharded", module=__name__,
+        collectives=CollectiveContract(allow=PER_TOPK_MOVES,
+                                       max_elems="capacity"),
+        launches={"per_topk": "groups"}),
+    EntrypointContract(
+        name="ring_gather_sharded", module=__name__,
+        collectives=CollectiveContract(allow=RING_GATHER_MOVES,
+                                       max_elems="capacity"),
+        launches={"ring_gather": "groups"}),
+)
+
+
 def _group_devices_of(rules: MeshRules, shards, name: str):
     """The groups' devices, each group's operands checked against its
     own."""
@@ -253,6 +291,7 @@ def ring_gather_fields_sharded(shards: Sequence[Sequence[torch.Tensor]],
              for f in range(len(parts[0]))] for g, dev in enumerate(devs)]
 
 
+# hlolint: entrypoint[ring_gather_sharded]
 def ring_gather_sharded(data: Sequence[torch.Tensor], idx: torch.Tensor,
                         rules: MeshRules) -> List[torch.Tensor]:
     """One-field ``ring_gather_fields_sharded``: group g's rows, one
@@ -280,6 +319,7 @@ def per_scores_sharded(priorities: Sequence[torch.Tensor],
             for g, (p, dev) in enumerate(zip(priorities, devs))]
 
 
+# hlolint: entrypoint[per_topk_sharded]
 def per_topk_sharded(priorities: Sequence[torch.Tensor],
                      gumbel: torch.Tensor, alpha: float, k: int,
                      rules: MeshRules):

@@ -260,6 +260,7 @@ def per_scores(priorities: torch.Tensor, gumbel: torch.Tensor,
         raise ValueError(f"priorities {tuple(shape)} and gumbel "
                          f"{tuple(gumbel.shape)} must be one (rows,) shape")
     load_kernels()
+    # tracelint: allow[host-transfer] -- alpha is a Python number
     out = torch.ops.repro_torch.per_scores(priorities, gumbel, float(alpha))
     if shape[0]:
         LAUNCH_COUNTS["per_scores"] += 1
@@ -303,9 +304,10 @@ def per_topk(priorities: torch.Tensor, gumbel: torch.Tensor, alpha: float,
         raise ValueError(f"gumbel {tuple(gumbel.shape)} does not match "
                          f"priorities {tuple(priorities.shape)}")
     load_kernels()
+    alpha = float(alpha)  # tracelint: allow[host-transfer] -- a Python number
     scores, idx = torch.ops.repro_torch.per_topk(
         priorities, gumbel, _window_tensor(window_start, priorities.device),
-        float(alpha), k)
+        alpha, k)
     if k:
         LAUNCH_COUNTS["per_topk"] += 1
     return scores, idx

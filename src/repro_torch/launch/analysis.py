@@ -168,7 +168,9 @@ class OpCensus:
     """Counts what a block of code does, op by op, while it runs under
     ``with OpCensus(args) as c:`` (on the meta device: nothing computes).
 
-    - ``aten_flops``: ``FlopCounterMode``'s count (a kernel's wrapper is
+    - ``aten_flops``: ``FlopCounterMode``'s count (0 under
+      ``flops=False``, which skips the formulas at half the cost; a
+      kernel's wrapper is
       not an aten op: its plain version never runs here, and on the card
       its op has no formula); ``aten_flops_f32`` the share whose first
       operand is float32 (the CUDA cores' rate), the rest bf16's;
@@ -191,7 +193,8 @@ class OpCensus:
       ``bytes_by_group``).
     """
 
-    def __init__(self, args: Any = ()):
+    def __init__(self, args: Any = (), *, flops: bool = True):
+        self.count_flops = flops
         self.aten_flops = 0
         self.aten_flops_f32 = 0
         self.aten_bytes = 0
@@ -219,8 +222,9 @@ class OpCensus:
     # ----- entering and leaving -----------------------------------------
     def __enter__(self) -> "OpCensus":
         self._stack = contextlib.ExitStack()
-        self._flops = self._stack.enter_context(FlopCounterMode(
-            display=False))
+        if self.count_flops:
+            self._flops = self._stack.enter_context(FlopCounterMode(
+                display=False))
         self._stack.enter_context(kwork.recording(self))
         self._stack.enter_context(sharding.moves(self._move))
         self._stack.enter_context(_Mode(self))
@@ -333,6 +337,8 @@ class OpCensus:
         k["bytes"] += w.bytes
 
     def _flop_total(self) -> int:
+        if not self.count_flops:
+            return 0
         return sum(self._flops.flop_counts["Global"].values())
 
     def _alive(self, key: int) -> bool:

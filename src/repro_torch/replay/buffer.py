@@ -24,7 +24,17 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.analysis.hlolint.contract import EntrypointContract
 from repro_torch.kernels import ops as kops
+
+#: hlolint contract of the ring write: the pool is the paper's shared
+#: memory, written in place (a rebuilt pool would copy the whole ring at
+#: every add) with one ring-write launch
+HLOLINT_CONTRACTS = (
+    EntrypointContract(name="replay_add_batch", module=__name__,
+                       inplace=True, state=("state",),
+                       launches={"ring_write": "1"}),
+)
 
 
 class ReplayState(NamedTuple):
@@ -77,6 +87,7 @@ def _capacity(state: ReplayState) -> int:
     return first.shape[0]
 
 
+# hlolint: entrypoint[replay_add_batch]
 def add_batch(state: ReplayState, batch: Dict[str, torch.Tensor],
               extra: Sequence[Tuple[object, torch.Tensor]] = (), *,
               rules=None) -> ReplayState:

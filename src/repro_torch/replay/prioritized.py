@@ -114,6 +114,7 @@ def sample(state: PrioritizedState, gumbel: torch.Tensor, batch_size: int,
     return rb.by_field(list(data), [out[:-1] for out in outs]), idx, w
 
 
+# hlolint: exempt -- runs inside megastep_per and megastep_sharded_per, whose contracts hold its scatter
 def update_priorities(state: PrioritizedState, idx: torch.Tensor,
                       td_errors: torch.Tensor, eps: float = 1e-3, *,
                       rules=None) -> PrioritizedState:

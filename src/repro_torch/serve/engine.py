@@ -28,10 +28,22 @@ from typing import Callable, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.hlolint.contract import EntrypointContract
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import factory
 from repro_torch.models.attention import cache_len_for
 from repro_torch.train.trainer import dtype_of
+
+
+# hlolint contract of a decode step at the probe's reduced dense arch: the
+# KV cache written in place (a rebuilt cache would copy it every token), a
+# rmsnorm a norm and one decode attention a layer
+HLOLINT_CONTRACTS = (
+    EntrypointContract(
+        name="serve_decode_step", module=__name__, inplace=True,
+        state=("cache",), float_dtypes=("float32", "bfloat16"),
+        launches={"rmsnorm": "2*layers+1", "decode_attention": "layers"}),
+)
 
 
 def make_prefill_step(rc: RunConfig, seq_len: int) -> Callable:
@@ -44,6 +56,7 @@ def make_prefill_step(rc: RunConfig, seq_len: int) -> Callable:
     return prefill_step
 
 
+# hlolint: entrypoint[serve_decode_step]
 def make_decode_step(rc: RunConfig) -> Callable:
     """enc-dec: the memory's valid length is made on the device once, at
     the first step, and reused by every later one."""

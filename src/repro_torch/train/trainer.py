@@ -20,9 +20,25 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.analysis.hlolint.contract import EntrypointContract
 from repro_torch.configs.base import RunConfig
 from repro_torch.models import factory
 from repro_torch.train.optimizer import OptState, Optimizer, make_optimizer
+
+
+# hlolint contract of the LM train step at the probe's reduced dense arch
+# (float32 parameters, bf16 compute, remat): the parameters and the Adam
+# moments updated in place, and a rmsnorm forward a norm (each layer's two
+# run again under remat, and the final one), a backward a norm, a flash
+# forward a layer (again under remat) and a backward a layer
+HLOLINT_CONTRACTS = (
+    EntrypointContract(
+        name="lm_train_step", module=__name__, inplace=True,
+        state=("params", "opt_state"), float_dtypes=("float32", "bfloat16"),
+        launches={"rmsnorm": "4*layers+1", "rmsnorm_bwd": "2*layers+1",
+                  "flash_attention": "2*layers",
+                  "flash_attention_bwd": "layers"}),
+)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -54,6 +70,7 @@ def value_and_grad(rc: RunConfig, params, batch: Dict[str, torch.Tensor]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+# hlolint: entrypoint[lm_train_step]
 def make_train_step(rc: RunConfig, opt: Optional[Optimizer] = None
                     ) -> Callable:
     """-> ``train_step(params, opt_state, batch) -> (params, opt_state,
@@ -116,10 +133,12 @@ def train_loop(rc: RunConfig, batches, *, steps: int,
     _synchronize(dev)
     dt = time.perf_counter() - (t0 or time.perf_counter())
     rate = (len(losses) - 1) / dt if dt > 0 and len(losses) > 1 else 0.0
+    # tracelint: allow[host-transfer] -- once, after the timed loop
     losses = torch.stack(losses).tolist() if losses else []
     return TrainResult(losses=losses, steps_per_sec=rate)
 
 
 def _synchronize(dev: torch.device) -> None:
     if dev.type == "cuda":
+        # tracelint: allow[host-transfer] -- the timed window's two barriers
         torch.cuda.synchronize(dev)
