@@ -1,0 +1,8 @@
+"""The least time of the traced priority_scatter calls
+(bench/work/kernel_work, bench/work/peaks) over the device time launched
+under them, in %."""
+from bench.lib.readers import roofline
+
+
+def read(ctx):
+    return roofline(ctx, "priority_scatter")
