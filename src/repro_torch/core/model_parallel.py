@@ -42,6 +42,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (AxisMesh, Mesh, MeshRules,
@@ -440,12 +441,20 @@ def make_arch_spreeze_update(cfg: ModelConfig, opt: Optimizer,
 
     def update(actor, q, q_target, opt_actor: OptState, opt_q: OptState,
                tokens, act, rew, done, eps):
-        cl = critic_loss(q, q_target, actor, tokens, act, rew, done)
-        gq = tower_grads(cl, q)
-        al = actor_loss(actor, q, tokens, eps)
-        ga = tower_grads(al, actor)
-        opt.update(gq, opt_q, q)
-        opt.update(ga, opt_actor, actor)
+        trace.count("arch.updates")
+        with trace.first("arch.update"):
+            with trace.span("arch.critic_loss"):
+                cl = critic_loss(q, q_target, actor, tokens, act, rew, done)
+            with trace.span("arch.critic_grad"):
+                gq = tower_grads(cl, q)
+            with trace.span("arch.actor_loss"):
+                al = actor_loss(actor, q, tokens, eps)
+            with trace.span("arch.actor_grad"):
+                ga = tower_grads(al, actor)
+            with trace.span("arch.adam"):
+                opt.update(gq, opt_q, q)
+            with trace.span("arch.adam"):
+                opt.update(ga, opt_actor, actor)
         return cl.detach(), al.detach()
 
     return update

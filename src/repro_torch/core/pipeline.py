@@ -93,7 +93,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import exact_float32, resolve_device, sync_debug_mode
+from repro_torch import exact_float32, resolve_device, sync_debug_mode, trace
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.analysis.hlolint.contract import (MOVE, CollectiveContract,
                                                    CollectiveRule,
@@ -514,6 +514,7 @@ class SpreezeTrainer:
     # the "processes" of one round
     # ------------------------------------------------------------------ #
     # hlolint: entrypoint[sampler_chunk]
+    @trace.spanned("sampler_chunk")
     @torch.no_grad()
     def sampler_chunk(self, actor, states):
         """``chunk_len`` vectorized env steps under the live policy.
@@ -539,6 +540,7 @@ class SpreezeTrainer:
         return states, flat, mrew
 
     # hlolint: entrypoint[update_round]
+    @trace.spanned("update_round")
     def update_round(self, state, replay):
         """K updates on freshly sampled batches; returns (state, mean
         critic loss). Under PER each update samples, takes the weighted
@@ -577,22 +579,23 @@ class SpreezeTrainer:
         and the metrics are finite), left on the device; under
         ``overlap_eval`` also ``actor_snapshot``, a copy of the actor made
         at its end."""
-        rews, closs = [], []
-        for _ in range(rounds or self.cfg.rounds_per_dispatch):
-            self.env_states, flat, mrew = self.sampler_chunk(
-                self.state.actor, self.env_states)
-            self.replay = self.transfer.push(self.replay, flat)
-            self.state, cl = self.update_round(self.state, self.replay)
-            rews.append(mrew)
-            closs.append(cl)
-        self.last_metrics = {"mean_rew": torch.stack(rews),
-                             "critic_loss": torch.stack(closs)}
-        # the finite guard: a NaN anywhere in the Q / env path reaches the
-        # round metrics within the megastep
-        self.last_metrics["carry_finite"] = faults.tree_finite(
-            (self.state.actor, self.last_metrics))
-        if self.cfg.overlap_eval:
-            self.last_metrics["actor_snapshot"] = self._clone_actor()
+        with trace.first("megastep"):
+            rews, closs = [], []
+            for _ in range(rounds or self.cfg.rounds_per_dispatch):
+                self.env_states, flat, mrew = self.sampler_chunk(
+                    self.state.actor, self.env_states)
+                self.replay = self.transfer.push(self.replay, flat)
+                self.state, cl = self.update_round(self.state, self.replay)
+                rews.append(mrew)
+                closs.append(cl)
+            self.last_metrics = {"mean_rew": torch.stack(rews),
+                                 "critic_loss": torch.stack(closs)}
+            # the finite guard: a NaN anywhere in the Q / env path reaches
+            # the round metrics within the megastep
+            self.last_metrics["carry_finite"] = faults.tree_finite(
+                (self.state.actor, self.last_metrics))
+            if self.cfg.overlap_eval:
+                self.last_metrics["actor_snapshot"] = self._clone_actor()
         return self.last_metrics
 
     def eager_round(self):

@@ -15,6 +15,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import trace
 from repro_torch.replay import buffer as rb
 from repro_torch.replay.host_queue import HostQueue
 
@@ -31,6 +32,7 @@ class SharedTransfer:
         self.write_time = 0.0    # stays 0: writes are launched async
         self._add = add_fn or rb.add_batch
 
+    @trace.spanned("transfer.push")
     def push(self, replay, exp: Dict[str, torch.Tensor]):
         return self._add(replay, exp)
 
@@ -58,6 +60,7 @@ class QueueTransfer:
         self.drain_min = queue_size // 2
         self._add = add_fn or rb.add_batch
 
+    @trace.spanned("transfer.push")
     def push(self, replay, exp: Dict[str, torch.Tensor]):
         self.q.put(exp)          # copy to the host; may drop on overflow
         return replay

@@ -12,10 +12,14 @@ per source run in parallel by ninja, into
 ``build/repro_torch_kernels/`` at the repository root, and loads the
 library, which registers ``torch.ops.repro_torch.*``. A second call in
 the same process reuses the loaded library; a second process reuses the
-build if the sources are unchanged.
+build if the sources are unchanged. The uncached call is the set-up
+span ``kernels.load`` (``repro_torch.trace``): the build in a
+checkout's first run, the rebuild check and the library's load after.
 """
 import functools
 import os
+
+from repro_torch import trace
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 REPO_ROOT = os.path.abspath(os.path.join(CSRC, *[os.pardir] * 4))
@@ -31,11 +35,12 @@ def load_kernels() -> str:
     """Compile (if needed) and load the kernel library; returns its path."""
     from torch.utils.cpp_extension import load
 
-    os.makedirs(BUILD_DIR, exist_ok=True)     # load() does not create it
-    return load(name="repro_torch_kernels",
-                sources=[os.path.join(CSRC, s) for s in SOURCES],
-                build_directory=BUILD_DIR,
-                extra_cflags=["-O3"],
-                extra_cuda_cflags=list(CUDA_FLAGS),
-                is_python_module=False,
-                verbose=False)
+    with trace.first("kernels.load"):
+        os.makedirs(BUILD_DIR, exist_ok=True)  # load() does not create it
+        return load(name="repro_torch_kernels",
+                    sources=[os.path.join(CSRC, s) for s in SOURCES],
+                    build_directory=BUILD_DIR,
+                    extra_cflags=["-O3"],
+                    extra_cuda_cflags=list(CUDA_FLAGS),
+                    is_python_module=False,
+                    verbose=False)

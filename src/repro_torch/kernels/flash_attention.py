@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import LAUNCH_COUNTS, check_cuda_operand, pick
 from repro_torch.kernels._build import load_kernels
 
@@ -192,5 +193,7 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         bwd = pick(q, flash_attention_bwd_ref, flash_attention_bwd,
                    "flash_attention_bwd")
-        dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(), **ctx.kw)
+        dout = dout.contiguous()
+        with trace.span("op.flash_attention_bwd"):
+            dq, dk, dv = bwd(q, k, v, out, lse, dout, **ctx.kw)
         return dq, dk, dv, None, None, None

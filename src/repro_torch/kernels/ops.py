@@ -37,6 +37,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.analysis.hlolint.contract import (MOVE, CollectiveContract,
                                                    CollectiveRule,
                                                    EntrypointContract)
@@ -51,6 +52,7 @@ from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import ssd_scan as _ssd
 
 
+@trace.spanned("op.ring_write")
 def ring_write(data: torch.Tensor, batch: torch.Tensor, ptr: torch.Tensor,
                **kw) -> torch.Tensor:
     """In-place ring write of (n, ...) rows at ``(ptr + i) % capacity``."""
@@ -58,6 +60,7 @@ def ring_write(data: torch.Tensor, batch: torch.Tensor, ptr: torch.Tensor,
                 "ring_write")(data, batch, ptr, **kw)
 
 
+@trace.spanned("op.ring_write")
 def ring_write_fields(datas: Sequence[torch.Tensor],
                       batches: Sequence[torch.Tensor], ptr: torch.Tensor,
                       **kw):
@@ -68,6 +71,7 @@ def ring_write_fields(datas: Sequence[torch.Tensor],
                     datas, batches, ptr, **kw)
 
 
+@trace.spanned("op.ring_gather")
 def ring_gather(data: torch.Tensor, idx: torch.Tensor, **kw
                 ) -> torch.Tensor:
     """Batched random row gather from the replay ring."""
@@ -75,6 +79,7 @@ def ring_gather(data: torch.Tensor, idx: torch.Tensor, **kw
                 "ring_gather")(data, idx, **kw)
 
 
+@trace.spanned("op.ring_gather")
 def ring_gather_fields(datas: Sequence[torch.Tensor], idx: torch.Tensor,
                        **kw):
     """Batched random row gather of several fields at the same indices:
@@ -84,6 +89,7 @@ def ring_gather_fields(datas: Sequence[torch.Tensor], idx: torch.Tensor,
                     datas, idx, **kw)
 
 
+@trace.spanned("op.per_topk")
 def per_topk(priorities: torch.Tensor, gumbel: torch.Tensor, alpha: float,
              k: int, **kw):
     """Fused PER Gumbel score + top-k -> (scores desc, global idx)."""
@@ -91,6 +97,7 @@ def per_topk(priorities: torch.Tensor, gumbel: torch.Tensor, alpha: float,
                 "per_topk")(priorities, gumbel, alpha, k, **kw)
 
 
+@trace.spanned("op.priority_scatter")
 def priority_scatter(priorities: torch.Tensor, idx: torch.Tensor,
                      values: torch.Tensor, **kw) -> torch.Tensor:
     """In-place ``priorities[idx] = values``, the last draw winning."""
@@ -99,6 +106,7 @@ def priority_scatter(priorities: torch.Tensor, idx: torch.Tensor,
                     priorities, idx, values, **kw)
 
 
+@trace.spanned("op.per_scores")
 def per_scores(priorities: torch.Tensor, gumbel: torch.Tensor,
                alpha: float) -> torch.Tensor:
     """Gumbel-top-k scores of every row of the priority vector."""
@@ -106,6 +114,7 @@ def per_scores(priorities: torch.Tensor, gumbel: torch.Tensor,
                 "per_scores")(priorities, gumbel, alpha)
 
 
+@trace.spanned("op.ring_write_rowloop")
 def ring_write_rowloop(data: torch.Tensor, batch: torch.Tensor,
                        ptr: torch.Tensor) -> torch.Tensor:
     """The row-at-a-time in-place ring write (no window)."""
@@ -113,6 +122,7 @@ def ring_write_rowloop(data: torch.Tensor, batch: torch.Tensor,
                 "ring_write_rowloop")(data, batch, ptr)
 
 
+@trace.spanned("op.ring_gather_rowloop")
 def ring_gather_rowloop(data: torch.Tensor, idx: torch.Tensor
                         ) -> torch.Tensor:
     """The row-at-a-time gather (no window, indices wrapped and clamped)."""
@@ -134,6 +144,7 @@ def _refuse_grad(name: str, *operands: torch.Tensor) -> None:
             "operands that do not require grad)")
 
 
+@trace.spanned("op.rmsnorm")
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6
             ) -> torch.Tensor:
     """Row-wise RMSNorm of (..., D) in float32, cast back to x's dtype."""
@@ -143,6 +154,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6
                                                               eps=eps)
 
 
+@trace.spanned("op.flash_attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     prefix_len: Optional[int] = None) -> torch.Tensor:
@@ -154,6 +166,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    prefix_len=prefix_len)
 
 
+@trace.spanned("op.decode_attention")
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, valid_len: torch.Tensor
                      ) -> torch.Tensor:
@@ -165,6 +178,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                 "decode_attention")(q, k_cache, v_cache, valid_len)
 
 
+@trace.spanned("op.ssd_scan")
 def ssd_scan(x: torch.Tensor, dtA: torch.Tensor, B_: torch.Tensor,
              C_: torch.Tensor, *, chunk: int,
              initial_state: Optional[torch.Tensor] = None

@@ -20,6 +20,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import LAUNCH_COUNTS, check_cuda_operand, pick
 from repro_torch.kernels._build import load_kernels
 
@@ -97,5 +98,7 @@ class RMSNorm(torch.autograd.Function):
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
         bwd = pick(x, rmsnorm_bwd_ref, rmsnorm_bwd, "rmsnorm_bwd")
-        dx, dw = bwd(x, weight, dy.contiguous(), eps=ctx.eps)
+        dy = dy.contiguous()
+        with trace.span("op.rmsnorm_bwd"):
+            dx, dw = bwd(x, weight, dy, eps=ctx.eps)
         return dx, dw, None

@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import LAUNCH_COUNTS, check_cuda_operand, pick
 from repro_torch.kernels._build import load_kernels
 
@@ -249,7 +250,8 @@ class SSDScan(torch.autograd.Function):
         x, dtA, B_, C_, states = ctx.saved_tensors
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()
         bwd = pick(x, ssd_scan_bwd_ref, ssd_scan_bwd, "ssd_scan_bwd")
-        dx, ddtA, dB, dC, dinit = bwd(x, dtA, B_, C_, states, dy, dfinal,
-                                      chunk=ctx.chunk)
+        with trace.span("op.ssd_scan_bwd"):
+            dx, ddtA, dB, dC, dinit = bwd(x, dtA, B_, C_, states, dy,
+                                          dfinal, chunk=ctx.chunk)
         dinit = None if ctx.init_dtype is None else dinit.to(ctx.init_dtype)
         return dx, ddtA, dB, dC, dinit, None

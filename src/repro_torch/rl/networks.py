@@ -24,6 +24,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch._tree import stack_trees, tree_leaves, tree_map, \
     unstack_tree
 from repro_torch.configs.base import ModelConfig
@@ -285,7 +286,9 @@ def _backbone_hidden(params, tokens: torch.Tensor, cfg: ModelConfig, dtype,
     passed, so the VLM runs causal over its patches (unlike
     ``factory.forward``); the MoE aux loss is dropped. ``ln_f`` is applied
     to the last position alone: a row-wise norm, so the same numbers as
-    the reference's norm of every position read at the last."""
+    the reference's norm of every position read at the last. Each call is
+    one tower forward (``model.backbone_forwards``)."""
+    trace.count("model.backbone_forwards")
     B = tokens.shape[0]
     x = factory._embed(params, tokens, cfg, dtype)
     if cfg.family == "vlm":
