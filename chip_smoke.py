@@ -248,27 +248,29 @@ SCAN_SHAPES = {"mamba2-130m": (SERVE_B, SERVE_PROMPT, 24, 64, 128, 256),
                "zamba2-1.2b": (SERVE_B, SERVE_PROMPT, 64, 64, 64, 256)}
 # Exact launches of one greedy_generate at the serving shape (64 new
 # tokens: 65 forwards). dense: 2L + 1 norms a forward, L flash (prefill),
-# L decode attentions a step. ssm: L pre-norms, L gated norms and ln_f a
-# forward, L scans (prefill). hybrid: its 38 core layers as ssm, plus 7
-# shared-block calls, each with 2 norms and a flash (prefill) or a decode
-# attention (a step): 91 norms a forward.
+# L decode attentions a step, a rope (q and k) before each attention. ssm:
+# L pre-norms, L gated norms and ln_f a forward, L scans (prefill).
+# hybrid: its 38 core layers as ssm, plus 7 shared-block calls, each with
+# 2 norms, a rope and a flash (prefill) or a decode attention (a step): 91
+# norms a forward.
 SERVE_LAUNCHES = {
-    "qwen2-0.5b": {"rmsnorm": 3185, "flash_attention": 24,
-                   "decode_attention": 1536},
+    "qwen2-0.5b": {"rmsnorm": 3185, "rope": 24 + 1536,
+                   "flash_attention": 24, "decode_attention": 1536},
     "mamba2-130m": {"rmsnorm": 3185, "ssd_scan": 24},
-    "zamba2-1.2b": {"rmsnorm": 5915, "flash_attention": 7,
+    "zamba2-1.2b": {"rmsnorm": 5915, "rope": 7 + 448, "flash_attention": 7,
                     "decode_attention": 448, "ssd_scan": 38},
     # moe / vlm / dense as qwen2 at their depths; whisper: LayerNorms (no
-    # rmsnorm), 24 encoder + 24 self + 24 cross flash attentions in the
-    # prefill, 24 self + 24 cross decode attentions a step
-    "mixtral-8x7b": {"rmsnorm": 585, "flash_attention": 4,
+    # rmsnorm) and no rope, 24 encoder + 24 self + 24 cross flash
+    # attentions in the prefill, 24 self + 24 cross decode attentions a
+    # step
+    "mixtral-8x7b": {"rmsnorm": 585, "rope": 4 + 256, "flash_attention": 4,
                      "decode_attention": 256},
-    "kimi-k2-1t-a32b": {"rmsnorm": 195, "flash_attention": 1,
-                        "decode_attention": 64},
+    "kimi-k2-1t-a32b": {"rmsnorm": 195, "rope": 1 + 64,
+                        "flash_attention": 1, "decode_attention": 64},
     "whisper-medium": {"flash_attention": 72, "decode_attention": 3072},
-    "paligemma-3b": {"rmsnorm": 2405, "flash_attention": 18,
-                     "decode_attention": 1152},
-    "qwen2.5-32b": {"rmsnorm": 1105, "flash_attention": 8,
+    "paligemma-3b": {"rmsnorm": 2405, "rope": 18 + 1152,
+                     "flash_attention": 18, "decode_attention": 1152},
+    "qwen2.5-32b": {"rmsnorm": 1105, "rope": 8 + 512, "flash_attention": 8,
                     "decode_attention": 512},
 }
 # The new families' full-width serving runs: (layers kept, or None for
@@ -293,11 +295,12 @@ NEW_FLASH_SHAPES = (
 # LM training: qwen2-0.5b, 8 x 1024 tokens a step, 8 steps
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen2-0.5b", 8, 1024, 8
 # Exact launches of one qwen2-0.5b train step (24 layers, remat on): the
-# forward's 2 norms and 1 flash attention a layer and the final norm,
-# the backward's recompute of each checkpointed layer (its 2 norms and
-# its flash attention once more), and one backward launch of each norm
-# and attention the loss reaches
+# forward's 2 norms, 1 rope and 1 flash attention a layer and the final
+# norm, the backward's recompute of each checkpointed layer (its 2 norms,
+# its rope and its flash attention once more), and one backward launch of
+# each norm, rope and attention the loss reaches
 TRAIN_STEP_LAUNCHES = {"rmsnorm": 2 * 24 + 1 + 2 * 24, "rmsnorm_bwd": 49,
+                       "rope": 48, "rope_bwd": 24,
                        "flash_attention": 48, "flash_attention_bwd": 24}
 # The backward kernels' checks: (label, B, Sq, Sk, H, KV, d, causal,
 # window, prefix_len); the first is qwen2-0.5b's training shape
@@ -335,13 +338,14 @@ TRAIN_CHECKS = (("qwen2-0.5b", 32, 2), ("h2o-danube-1.8b", 80, 2),
 # backward's recompute, plus the final norm; one backward launch of each
 # norm and scan. zamba2-1.2b adds, before each of its 7 groups of core
 # layers (38 in all), the shared attention block, not checkpointed: 2
-# norms and a flash attention, each with its backward.
+# norms, a rope and a flash attention, each with its backward.
 SSM_TRAIN_RUNS = (("mamba2-130m", 8), ("zamba2-1.2b", 4))
 SSM_TRAIN_LAUNCHES = {
     "mamba2-130m": {"rmsnorm": 2 * (2 * 24) + 1, "rmsnorm_bwd": 2 * 24 + 1,
                     "ssd_scan": 2 * 24, "ssd_scan_bwd": 24},
     "zamba2-1.2b": {"rmsnorm": 2 * (2 * 38) + 2 * 7 + 1,
                     "rmsnorm_bwd": 2 * 38 + 2 * 7 + 1,
+                    "rope": 7, "rope_bwd": 7,
                     "flash_attention": 7, "flash_attention_bwd": 7,
                     "ssd_scan": 2 * 38, "ssd_scan_bwd": 38},
 }
@@ -367,18 +371,30 @@ ARCH_RL_TOL = 2e-5
 # 16 action dimensions; one warm-up update, then ARCH_RL_UPDATES timed
 ARCH_RL_ARCH, ARCH_RL_B, ARCH_RL_S, ARCH_RL_ACT = "smollm-360m", 32, 1024, 16
 ARCH_RL_UPDATES = 3
+# rope on the card, bit-equal to its plain version, forward and backward:
+# (label, B, S, heads, kv heads, head_dim, theta, position dtype, first
+# position): smollm-360m's training rows (timed too), qwen2-0.5b's serving
+# prefill (an int64 arange) and its decode step (the int32 cache position,
+# q alone too, as under cross attention)
+ROPE_SHAPES = (
+    ("smollm train", ARCH_RL_B, ARCH_RL_S, 15, 5, HEAD_DIM, 1e4, "int64", 0),
+    ("qwen2 prefill", SERVE_B, SERVE_PROMPT, HEADS, KV_HEADS, HEAD_DIM,
+     1e6, "int64", 0),
+    ("qwen2 decode", SERVE_B, 1, HEADS, KV_HEADS, HEAD_DIM, 1e6, "int32",
+     SERVE_PROMPT + 7))
 
 
 def arch_update_launches(layers):
     """Exact launches of one arch update of a dense backbone (remat on):
     8 backbone forwards (the critic loss's 2 critics, the actor and the 2
     target critics; the actor loss's actor and the 2 critics' backbones),
-    each 2 norms and a flash attention a layer and ``ln_f``; then the 3
-    differentiated towers' backward, which recomputes each checkpointed
-    layer (its 2 norms and its flash attention) and runs one backward of
-    every norm and attention."""
+    each 2 norms, a rope and a flash attention a layer and ``ln_f``; then
+    the 3 differentiated towers' backward, which recomputes each
+    checkpointed layer (its 2 norms, its rope and its flash attention) and
+    runs one backward of every norm, rope and attention."""
     n = 2 * layers + 1
     return {"rmsnorm": 8 * n + 3 * 2 * layers, "rmsnorm_bwd": 3 * n,
+            "rope": 8 * layers + 3 * layers, "rope_bwd": 3 * layers,
             "flash_attention": 8 * layers + 3 * layers,
             "flash_attention_bwd": 3 * layers}
 
@@ -389,16 +405,20 @@ def example_launches(layers, steps, warmup, every):
     critics' forwards and their backward (recompute and backward kernels),
     and the 2 critics' backbones in the actor loss, without a graph; from
     step ``warmup`` on also the actor's backward. And one actor forward
-    for the initial reward, each printout and the final reward."""
+    for the initial reward, each printout and the final reward. A rope
+    runs before every flash attention, and its backward with every flash
+    backward."""
     n = 2 * layers + 1
     actor_steps = steps - warmup
     evals = 2 + -(-steps // every)
+    flash = steps * (5 * layers + 2 * layers) + actor_steps * layers \
+        + evals * layers
+    flash_bwd = steps * 2 * layers + actor_steps * layers
     return {"rmsnorm": steps * (5 * n + 2 * 2 * layers)
             + actor_steps * 2 * layers + evals * n,
             "rmsnorm_bwd": steps * 2 * n + actor_steps * n,
-            "flash_attention": steps * (5 * layers + 2 * layers)
-            + actor_steps * layers + evals * layers,
-            "flash_attention_bwd": steps * 2 * layers + actor_steps * layers}
+            "rope": flash, "rope_bwd": flash_bwd,
+            "flash_attention": flash, "flash_attention_bwd": flash_bwd}
 
 
 # Decode attention: (label, B, S, H, KV, d, valid slots checked); timed
@@ -1884,15 +1904,33 @@ def model_inputs(dev, seed, dtype, *shapes):
 
 def check_model_kernels(dev):
     """Each LM kernel against its plain version at the serving path's
-    shapes and around them, bf16 and f32. Returns the max abs error of
-    each kernel over its cases."""
+    shapes and around them, bf16 and f32 (``kops.rope`` at
+    ``ROPE_SHAPES``, ``torch.equal``). Returns the max abs error of each
+    kernel over its cases."""
     import torch
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import rope as R
     worst = {"rmsnorm": 0.0, "flash_attention": 0.0,
-             "decode_attention": 0.0}
+             "decode_attention": 0.0, "rope": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
+        for label, B, S, H, KV, d, theta, pdt, at in ROPE_SHAPES:
+            q, k = model_inputs(dev, S + H, dtype, (B, S, H, d),
+                                (B, S, KV, d))
+            pos = torch.arange(at, at + S, dtype=getattr(torch, pdt),
+                               device=dev)
+            pairs = [(kops.rope(q, k, pos, pos, theta),
+                      R.rope_ref(q, k, pos, pos, theta))]
+            if S == 1:
+                pairs.append((kops.rope(q, None, pos, None, theta)[:1],
+                              R.rope_ref(q, None, pos, None, theta)[:1]))
+            for got, want in pairs:
+                for a, b in zip(got, want):
+                    worst["rope"] = max(worst["rope"], kernel_close(a, b))
+                    require(torch.equal(a, b), f"rope ({label}, {dtype}) "
+                            "not bit-equal to its plain version")
         # the prefill's rows (8 prompts x 1024) and a decode step's (8)
         for rows in (SERVE_B * SERVE_PROMPT, SERVE_B):
             x, = model_inputs(dev, rows, dtype, (rows, D_MODEL))
@@ -1949,7 +1987,8 @@ def time_model_kernels(dev):
     Bounds: ``kernels/work.py``'s bytes (each input read once, each
     output written once) over 3.35 TB/s or FLOPs over their type's peak
     (decode attention: its float32 FLOPs over the float32 peak), the
-    larger of the two (``analysis.bound_ms``)."""
+    larger of the two (``analysis.bound_ms``). Then ``rope`` at
+    smollm-360m's training shape (``time_rope``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1999,7 +2038,31 @@ def time_model_kernels(dev):
             (serving, HEADS, KV_HEADS, "decode_attention_serving"),
             (serving, ZAMBA_HEADS, ZAMBA_HEADS, "decode_attention_zamba2")):
         out[key] = time_decode_attention(dev, B, S, H, KV)
+    out["rope"] = time_rope(dev, "rope")
     return out
+
+
+def time_rope(dev, name):
+    """``rope`` or ``rope_bwd`` (``name``) at ``ROPE_SHAPES``' first row,
+    smollm-360m's training q and k, bf16, beside its plain version (the
+    formula the model layer ran before the kernel) and its byte bound
+    (``kwork.rope``: q and k read once and written once). No PyTorch
+    call does the rotation."""
+    import torch
+    from repro_torch.kernels import rope as R
+    _, B, S, H, KV, d, theta, pdt, at = ROPE_SHAPES[0]
+    q, k = model_inputs(dev, 15, torch.bfloat16, (B, S, H, d),
+                        (B, S, KV, d))
+    pos = torch.arange(at, at + S, dtype=getattr(torch, pdt), device=dev)
+    kernel, plain = ((R.rope, R.rope_ref) if name == "rope" else
+                     (R.rope_bwd, R.rope_bwd_ref))
+    b, by = bound_ms(getattr(kwork, name)(B, S, S, H, KV, d,
+                                          torch.bfloat16))
+    return {"ms": event_ms(lambda: kernel(q, k, pos, pos, theta)),
+            "plain_ms": event_ms(lambda: plain(q, k, pos, pos, theta),
+                                 iters=20, warmup=3),
+            "library_ms": None, "library": "none (no PyTorch call)",
+            "bound_ms": b, "bound_by": by, "shape": [B, S, H, KV, d]}
 
 
 def time_decode_attention(dev, B, S, H, KV, iters=200):
@@ -2477,14 +2540,20 @@ def check_backward_kernels(dev):
     their plain versions on the same inputs, each gradient within
     ``GRAD_TOL`` of its largest value; the forward's LSE is held against
     ``attention_ref``'s within ``LSE_TOL`` where finite, and the rows that
-    see no key have a -inf LSE and zero gradients. Returns ({kernel: max
-    abs error}, {kernel: {dtype: largest relative gap}, "lse": {dtype:
-    largest LSE gap}}, rows)."""
+    see no key have a -inf LSE and zero gradients. ``Rope``'s backward
+    (autograd through ``kops.rope``) at ``ROPE_SHAPES``, ``torch.equal``
+    to ``rope_bwd_ref``. Returns ({kernel: max abs error}, {kernel:
+    {dtype: largest relative gap}, "lse": {dtype: largest LSE gap}},
+    rows)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import rmsnorm as rms
-    errs = {"rmsnorm_bwd": 0.0, "flash_attention_bwd": 0.0}
-    rel = {"rmsnorm_bwd": {}, "flash_attention_bwd": {}, "lse": {}}
+    from repro_torch.kernels import rope as R
+    errs = {"rmsnorm_bwd": 0.0, "flash_attention_bwd": 0.0,
+            "rope_bwd": 0.0}
+    rel = {"rmsnorm_bwd": {}, "flash_attention_bwd": {}, "rope_bwd": {},
+           "lse": {}}
     rows = []
 
     def hold(name, dtype, label, got, want):
@@ -2506,6 +2575,22 @@ def check_backward_kernels(dev):
         w, = model_inputs(dev, 32, torch.float32, (D_MODEL,))
         hold("rmsnorm_bwd", dtype, "8192 x 896", rms.rmsnorm_bwd(x, w, dy),
              rms.rmsnorm_bwd_ref(x, w, dy))
+        for label, B, S, H, KV, d, theta, pdt, at in ROPE_SHAPES:
+            q, k, dq, dk = model_inputs(dev, S + H + 1, dtype, (B, S, H, d),
+                                        (B, S, KV, d), (B, S, H, d),
+                                        (B, S, KV, d))
+            q.requires_grad_()
+            k.requires_grad_()
+            pos = torch.arange(at, at + S, dtype=getattr(torch, pdt),
+                               device=dev)
+            got = torch.autograd.grad(kops.rope(q, k, pos, pos, theta),
+                                      (q, k), (dq, dk))
+            want = R.rope_bwd_ref(dq, dk, pos, pos, theta)
+            hold("rope_bwd", dtype, label, got, want)
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"rope_bwd ({label}, {dtype}) not bit-equal to its "
+                    "plain version")
+            del q, k, dq, dk, got, want
         for label, B, Sq, Sk, H, KV, d, causal, window, prefix in \
                 BWD_FLASH_SHAPES:
             kw = dict(causal=causal, window=window, prefix_len=prefix)
@@ -2545,7 +2630,8 @@ def time_backward_kernels(dev):
     retained graph). Bounds (``kernels/work.py``): the bytes (each input
     read once, each output written once) over 3.35 TB/s, or the FLOPs over
     their type's peak (flash: 2.5 times the forward's, five products
-    against two, over the causal mask's visible pairs), the larger."""
+    against two, over the causal mask's visible pairs), the larger. Then
+    ``rope_bwd`` at smollm-360m's training shape (``time_rope``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -2595,6 +2681,7 @@ def time_backward_kernels(dev):
             q, k, v, return_lse=True), iters=20, warmup=3),
         "forward_ms": event_ms(lambda: fa.flash_attention(q, k, v),
                                iters=20, warmup=3)}
+    out["rope_bwd"] = time_rope(dev, "rope_bwd")
     return out
 
 
@@ -3824,10 +3911,13 @@ def main():
                "rmsnorm_bwd": ("rmsnorm.cu", "rmsnorm.py:29"),
                "flash_attention_bwd": ("flash_attention.cu",
                                        "flash_attention.py:77"),
-               "ssd_scan_bwd": ("ssd_scan_bwd.cu", "ssd_scan.py:76")}
+               "ssd_scan_bwd": ("ssd_scan_bwd.cu", "ssd_scan.py:76"),
+               # no TPU kernel: the JAX package's jnp rotation
+               "rope": ("rope.cu", "../models/layers.py:63 apply_rope"),
+               "rope_bwd": ("rope.cu", "../models/layers.py:63 apply_rope")}
     kernels = [{"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/" + src,
-                "replaces": "src/repro/kernels/" + tpu,
+                "replaces": os.path.normpath("src/repro/kernels/" + tpu),
                 "launches": launches[name],
                 "max_abs_err": errs[name], "ms": timing[name]["ms"],
                 "plain_ms": timing[name]["plain_ms"],

@@ -15,6 +15,8 @@ Parameters come from the port's own ``init_params`` / ``init_state``.
 - ``replay_add_batch``: 8 rows into a 256-row ring.
 - ``ring_gather_sharded`` / ``per_topk_sharded``: capacity 1024, batch /
   k 64, on the same 2 x 4 grid.
+- ``rope``: a layer's q (2, 32, 4, 64) and k (2, 32, 2, 64), bf16, at
+  positions ``arange(32)``.
 - ``finite_guard``: ``faults.tree_finite`` over a probe trainer's bundle.
 - ``lm_train_step`` / ``serve_decode_step``: the first dense architecture
   in sorted order (h2o-danube-1.8b), reduced, at seq 32 and batch 2.
@@ -279,6 +281,21 @@ def _ring_gather_sharded(device, census) -> Dict:
             "params": {"capacity": cap, "batch": batch, "groups": groups}}
 
 
+def _rope(device, census) -> Dict:
+    from repro_torch.kernels import ops as kops
+    B, S, H, KV, d = 2, 32, 4, 2, 64
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn((B, S, H, d), generator=gen).to(torch.bfloat16)
+    k = torch.randn((B, S, KV, d), generator=gen).to(torch.bfloat16)
+    q, k, pos = q.to(device), k.to(device), torch.arange(S).to(device)
+
+    def dispatch() -> None:
+        kops.rope(q, k, pos, pos, 1e4)
+
+    return {"dispatch": dispatch, "state": lambda: {},
+            "params": {"batch": B, "seq": S}}
+
+
 # --------------------------------------------------------------------------- #
 # the resilience layer
 # --------------------------------------------------------------------------- #
@@ -383,6 +400,7 @@ BUILDERS: Dict[str, Callable[..., Dict]] = {
     "replay_add_batch": _replay_add_batch,
     "per_topk_sharded": _per_topk_sharded,
     "ring_gather_sharded": _ring_gather_sharded,
+    "rope": _rope,
     "finite_guard": _finite_guard,
     "lm_train_step": _lm_train_step,
     "serve_decode_step": _serve_decode_step,

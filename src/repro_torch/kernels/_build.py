@@ -25,8 +25,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 REPO_ROOT = os.path.abspath(os.path.join(CSRC, *[os.pardir] * 4))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "repro_torch_kernels")
 SOURCES = ("binding.cpp", "ring_ops.cu", "per_ops.cu", "rmsnorm.cu",
-           "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu",
-           "ssd_scan_bwd.cu")
+           "rope.cu", "flash_attention.cu", "decode_attention.cu",
+           "ssd_scan.cu", "ssd_scan_bwd.cu")
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 
 

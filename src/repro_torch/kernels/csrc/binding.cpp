@@ -2,12 +2,13 @@
 // torch.ops.repro_torch.ring_write / ring_gather / per_topk /
 // priority_scatter / per_scores and the bench baselines
 // ring_write_rowloop / ring_gather_rowloop (replay) and rmsnorm /
-// rmsnorm_bwd / flash_attention / flash_attention_bwd /
+// rmsnorm_bwd / rope / flash_attention / flash_attention_bwd /
 // decode_attention / ssd_scan / ssd_scan_bwd (the LM model) for CUDA
 // tensors. The only source that includes PyTorch's headers, and only the
 // light ones (torch/library.h, not torch/extension.h), to keep the build
 // short.
 
+#include <cstdint>
 #include <map>
 #include <mutex>
 #include <optional>
@@ -357,6 +358,57 @@ std::vector<at::Tensor> rmsnorm_bwd(const at::Tensor& x,
   return {dx, dw};
 }
 
+// (B, S, heads, d) rows for rope: a contiguous float32 or bf16 tensor of
+// 16-byte aligned rows and S integer positions (S,) of pos_dtype.
+void check_rope_rows(const at::Tensor& x, const char* name,
+                     c10::ScalarType dtype, const at::Tensor& pos,
+                     c10::ScalarType pos_dtype) {
+  check_operand(x, name, dtype);
+  TORCH_CHECK(x.dim() == 4, name, " must be (B, S, heads, head_dim)");
+  const int64_t d = x.size(3);
+  TORCH_CHECK(d >= 16 && d <= kMaxHeadDim && d % 16 == 0, "rope takes a "
+              "head_dim that is a multiple of 16 in [16, ", num(kMaxHeadDim),
+              "], got ", num(d));
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(x.data_ptr()) % 16 == 0, name,
+              " must be 16-byte aligned");
+  TORCH_CHECK(x.size(2) < (int64_t{1} << 31), name, " has too many heads");
+  check_operand(pos, "positions", pos_dtype);
+  TORCH_CHECK(pos.dim() == 1 && pos.size(0) == x.size(1), "the positions of ",
+              name, " must be (S,) = (", num(x.size(1)), ")");
+}
+
+// q' (and k' when k is given), allocated here (model_ops.h).
+std::vector<at::Tensor> rope(const at::Tensor& q,
+                             const std::optional<at::Tensor>& k,
+                             const at::Tensor& pos_q,
+                             const std::optional<at::Tensor>& pos_k,
+                             double theta, bool inverse) {
+  const bool bf16 = check_activation(q, "q");
+  const auto pos_dtype = pos_q.scalar_type();
+  TORCH_CHECK(pos_dtype == at::kLong || pos_dtype == at::kInt,
+              "positions have dtype ", pos_dtype, ", expected int64 or int32");
+  check_rope_rows(q, "q", q.scalar_type(), pos_q, pos_dtype);
+  TORCH_CHECK(k.has_value() == pos_k.has_value(),
+              "k and pos_k go together");
+  if (k.has_value()) {
+    check_rope_rows(*k, "k", q.scalar_type(), *pos_k, pos_dtype);
+    TORCH_CHECK(k->size(0) == q.size(0) && k->size(3) == q.size(3),
+                "k must be (B, Sk, KV, head_dim) with q's B and head_dim");
+  }
+  const c10::cuda::CUDAGuard guard(q.device());
+  at::Tensor qo = q.new_empty(q.sizes());
+  at::Tensor ko = k.has_value() ? k->new_empty(k->sizes()) : at::Tensor();
+  C10_CUDA_CHECK(launch_rope(
+      qo.data_ptr(), k.has_value() ? ko.data_ptr() : nullptr, q.data_ptr(),
+      k.has_value() ? k->data_ptr() : nullptr, pos_q.data_ptr(),
+      k.has_value() ? pos_k->data_ptr() : nullptr, pos_dtype == at::kLong,
+      q.size(0), q.size(1), k.has_value() ? k->size(1) : 0, q.size(2),
+      k.has_value() ? k->size(2) : 0, q.size(3), static_cast<float>(theta),
+      inverse, bf16, c10::cuda::getCurrentCUDAStream()));
+  if (k.has_value()) return {qo, ko};
+  return {qo};
+}
+
 void check_attention_dims(int64_t H, int64_t KV, int64_t d) {
   TORCH_CHECK(KV > 0 && H % KV == 0, "query heads ", num(H),
               " are not a multiple of KV heads ", num(KV));
@@ -619,6 +671,8 @@ TORCH_LIBRARY(repro_torch, m) {
   m.def("rmsnorm(Tensor x, Tensor weight, Tensor(a!) out, float eps) -> ()");
   m.def("rmsnorm_bwd(Tensor x, Tensor weight, Tensor dy, float eps) "
         "-> Tensor[]");
+  m.def("rope(Tensor q, Tensor? k, Tensor pos_q, Tensor? pos_k, "
+        "float theta, bool inverse) -> Tensor[]");
   m.def("flash_attention(Tensor q, Tensor k, Tensor v, Tensor(a!) out, "
         "bool causal, int? window, int? prefix_len, float scale, "
         "Tensor(b!)? lse=None) -> ()");
@@ -643,6 +697,7 @@ TORCH_LIBRARY_IMPL(repro_torch, CUDA, m) {
   m.impl("ring_gather_rowloop", &ring_gather_rowloop);
   m.impl("rmsnorm", &rmsnorm);
   m.impl("rmsnorm_bwd", &rmsnorm_bwd);
+  m.impl("rope", &rope);
   m.impl("flash_attention", &flash_attention);
   m.impl("flash_attention_bwd", &flash_attention_bwd);
   m.impl("decode_attention", &decode_attention);

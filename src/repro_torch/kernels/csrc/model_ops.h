@@ -1,5 +1,6 @@
-// Launchers for the LM model kernels in rmsnorm.cu, flash_attention.cu,
-// decode_attention.cu, ssd_scan.cu and ssd_scan_bwd.cu. Plain C++ types
+// Launchers for the LM model kernels in rmsnorm.cu, rope.cu,
+// flash_attention.cu, decode_attention.cu, ssd_scan.cu and
+// ssd_scan_bwd.cu. Plain C++ types
 // only, like ring_ops.h, so that binding.cpp and the .cu files compile
 // independently.
 // Tensors are float32 or bfloat16 (`bf16` says which); every launcher
@@ -31,6 +32,18 @@ cudaError_t launch_rmsnorm_bwd(void* dx, float* dw, float* dw_part,
                                const void* x, const void* dy, const float* w,
                                int64_t rows, int64_t dim, float eps,
                                bool bf16, cudaStream_t stream);
+
+// Rotary position embedding, the half-split layout: q (B, Sq, H, d) at
+// the positions pos_q (Sq,) into qo, and, when k is not null, k (B, Sk, KV,
+// d) at pos_k (Sk,) into ko; float32 math, each product, sum and
+// difference rounded on its own, then once to the input's type. inverse
+// negates the sines (the backward). Positions are int64 (pos64) or int32.
+// Requires d % 16 == 0 and 16-byte aligned rows.
+cudaError_t launch_rope(void* qo, void* ko, const void* q, const void* k,
+                        const void* pos_q, const void* pos_k, bool pos64,
+                        int64_t B, int64_t Sq, int64_t Sk, int64_t H,
+                        int64_t KV, int64_t d, float theta, bool inverse,
+                        bool bf16, cudaStream_t stream);
 
 // Online-softmax GQA attention: q (B, Sq, H, d), k and v (B, Sk, KV, d),
 // out like q. Query row i sits at position Sk - Sq + i; key j attends if

@@ -1,6 +1,6 @@
 """The kernels' routes on the ``meta`` device: shapes and work, no values.
 
-``kernels.ops`` (and the ``autograd.Function``s of ``rmsnorm``,
+``kernels.ops`` (and the ``autograd.Function``s of ``rmsnorm``, ``rope``,
 ``flash_attention`` and ``ssd_scan``, forward and backward) send an
 operand on the meta device here, as they send a CPU operand to the plain
 version and a CUDA operand to the kernel: only the operand's device
@@ -27,6 +27,7 @@ import torch
 from repro_torch.kernels import work
 from repro_torch.kernels.decode_attention import _dims as _decode_dims
 from repro_torch.kernels.flash_attention import _dims as _flash_dims
+from repro_torch.kernels.rope import _dims as _rope_dims
 from repro_torch.kernels.ssd_scan import _check_bwd, _check_state
 from repro_torch.kernels.ssd_scan import _dims as _scan_dims
 
@@ -166,6 +167,23 @@ def rmsnorm_bwd(x, weight, dy, *, eps: float = 1e-6):
     _scratch((-(-rows // _RMSNORM_BWD_ROWS), dim), like=x)
     work.record("rmsnorm_bwd", work.rmsnorm_bwd(rows, dim, x.dtype))
     return dx, dw
+
+
+def _rope_work(name, q, k, pos_q, pos_k):
+    _rope_dims(q, k, pos_q, pos_k)
+    B, Sq, H, d = q.shape
+    Sk, KV = (0, 0) if k is None else k.shape[1:3]
+    work.record(name, work.rope(B, Sq, Sk, H, KV, d, q.dtype,
+                                pos_q.itemsize))
+    return torch.empty_like(q), None if k is None else torch.empty_like(k)
+
+
+def rope(q, k, pos_q, pos_k, theta):
+    return _rope_work("rope", q, k, pos_q, pos_k)
+
+
+def rope_bwd(dq, dk, pos_q, pos_k, theta):
+    return _rope_work("rope_bwd", dq, dk, pos_q, pos_k)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

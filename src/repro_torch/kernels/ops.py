@@ -3,8 +3,8 @@ replay ops (``ring_write`` and ``ring_write_fields`` / ``ring_gather``
 and ``ring_gather_fields`` / ``per_topk`` / ``priority_scatter``), the
 bench baselines
 (``per_scores`` / ``ring_write_rowloop`` / ``ring_gather_rowloop``) and
-model ops (``rmsnorm`` / ``flash_attention`` / ``decode_attention`` /
-``ssd_scan``), and the mesh forms of the replay ops
+model ops (``rmsnorm`` / ``rope`` / ``flash_attention`` /
+``decode_attention`` / ``ssd_scan``), and the mesh forms of the replay ops
 (``ring_write_fields_sharded`` / ``ring_gather_fields_sharded`` /
 ``per_scores_sharded`` / ``per_topk_sharded`` /
 ``priority_scatter_sharded``, and the one-field ``ring_write_sharded`` /
@@ -22,11 +22,12 @@ reference chose between its jnp path and its Pallas kernels with
 ``use_pallas``, the port's model code always calls these.
 
 Gradients: where an operand needs one (grad mode on and an operand that
-requires grad), ``rmsnorm``, ``flash_attention`` and ``ssd_scan`` go
-through their ``autograd.Function``s (``_rms.RMSNorm``,
-``_fa.FlashAttention``, ``_ssd.SSDScan``), whose backward is a kernel too
-on the card; elsewhere (serving) they call the forward alone, flash
-writes no LSE and the scan hands back no chunk states.
+requires grad), ``rmsnorm``, ``rope``, ``flash_attention`` and
+``ssd_scan`` go through their ``autograd.Function``s (``_rms.RMSNorm``,
+``_rope.Rope``, ``_fa.FlashAttention``, ``_ssd.SSDScan``), whose
+backward is a kernel too on the card; elsewhere (serving) they call the
+forward alone, flash writes no LSE and the scan hands back no chunk
+states.
 ``decode_attention`` has no backward (no training path runs it), so it
 refuses such a call with a ``ValueError`` on every device: the CPU
 trains no path the card cannot.
@@ -49,6 +50,7 @@ from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import replay_ops as _replay
 from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import rope as _rope
 from repro_torch.kernels import ssd_scan as _ssd
 
 
@@ -154,6 +156,21 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6
                                                               eps=eps)
 
 
+# hlolint: entrypoint[rope]
+@trace.spanned("op.rope")
+def rope(q: torch.Tensor, k: Optional[torch.Tensor], pos_q: torch.Tensor,
+         pos_k: Optional[torch.Tensor], theta: float
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Rotary embedding of a layer's q (B,Sq,H,d) at ``pos_q`` (Sq,) and k
+    (B,Sk,KV,d) at ``pos_k`` (Sk,) -> (q', k'); without k (decode's
+    cross attention) k' is None. One launch for both."""
+    operands = (q,) if k is None else (q, k)
+    if _needs_grad(*operands):
+        return _rope.Rope.apply(q, k, pos_q, pos_k, theta)
+    return pick(q, _rope.rope_ref, _rope.rope, "rope")(q, k, pos_q, pos_k,
+                                                       theta)
+
+
 @trace.spanned("op.flash_attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
@@ -229,6 +246,12 @@ PER_TOPK_MOVES = (
 )
 
 HLOLINT_CONTRACTS = (
+    # a layer's rotary embedding: q and k in one launch, no host read, the
+    # float32 math kept inside the kernel (its plain version's float32
+    # passes on the CPU)
+    EntrypointContract(
+        name="rope", module=__name__,
+        float_dtypes=("float32", "bfloat16"), launches={"rope": "1"}),
     EntrypointContract(
         name="per_topk_sharded", module=__name__,
         collectives=CollectiveContract(allow=PER_TOPK_MOVES,

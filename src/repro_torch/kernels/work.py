@@ -1,7 +1,7 @@
 """The work of each hand-written kernel: the bytes it must move and the
 operations it does, as plain functions of the shapes and dtypes.
 
-One function a kernel, named as ``LAUNCH_COUNTS`` names it (rows 1-14 of
+One function a kernel, named as ``LAUNCH_COUNTS`` names it (rows 1-15 of
 PERF.md §6). Each returns a ``Work``: the bytes (each input read once,
 each output written once; no scratch), the FLOPs, the peak those FLOPs
 run at (``"bf16"``: the tensor cores, for a kernel whose products take
@@ -18,6 +18,9 @@ the default is the most a call could need. Counting rules:
 - replay kernels: 4 bytes an index and a float, the pointer 4 bytes;
 - ``rmsnorm``: x read and y written in x's dtype, the float32 weight
   read; 4 FLOPs an element (its backward: 10, x and dy read, dx written);
+- ``rope``: q and k read and written in their dtype, the positions read;
+  the 4 products and 2 sums a pair of elements (the angles' cosines and
+  sines, a few a token and vector, are left out); its backward the same;
 - ``flash_attention``: q read and the output written, k and v read; 4 d
   FLOPs a head for each (query, key) pair the mask lets through
   (``visible_pairs``), the backward 2.5 times that (five products
@@ -102,7 +105,7 @@ ring_gather_rowloop = ring_gather
 
 
 # --------------------------------------------------------------------------- #
-# the model kernels (rows 8-14)
+# the model kernels (rows 8-15)
 # --------------------------------------------------------------------------- #
 
 def rmsnorm(rows: int, dim: int, dtype) -> Work:
@@ -114,6 +117,19 @@ def rmsnorm_bwd(rows: int, dim: int, dtype) -> Work:
     """Two launches: dx with each block's partial dw, then their sum."""
     return Work(bytes=3 * rows * dim * _size(dtype) + 2 * dim * 4,
                 flops=10 * rows * dim, launches=2)
+
+
+def rope(B: int, Sq: int, Sk: int, H: int, KV: int, d: int, dtype,
+         pos_size: int = 8) -> Work:
+    """q (B, Sq, H, d) and k (B, Sk, KV, d) (Sk = KV = 0: no k), read
+    once and written once, the positions (Sq,) and (Sk,) of ``pos_size``
+    bytes read once; 3 FLOPs an element."""
+    elems = B * Sq * H * d + B * Sk * KV * d
+    return Work(bytes=2 * elems * _size(dtype) + (Sq + Sk) * pos_size,
+                flops=3 * elems)
+
+
+rope_bwd = rope
 
 
 def visible_pairs(Sq: int, Sk: int, causal: bool = True,
@@ -208,7 +224,8 @@ def ssd_scan_bwd(B: int, S: int, H: int, P: int, N: int, chunk: int,
 KERNELS = ("ring_write", "ring_gather", "per_scores", "per_topk",
            "priority_scatter", "ring_write_rowloop", "ring_gather_rowloop",
            "rmsnorm", "flash_attention", "decode_attention", "ssd_scan",
-           "rmsnorm_bwd", "flash_attention_bwd", "ssd_scan_bwd")
+           "rmsnorm_bwd", "flash_attention_bwd", "ssd_scan_bwd", "rope",
+           "rope_bwd")
 
 
 # --------------------------------------------------------------------------- #

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import dense_init
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
@@ -79,9 +79,9 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     q = _project_q(p, x, cfg, dtype)
     k, v = project_kv(p, x if x_kv is None else x_kv, cfg, dtype)
     if rope and cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, torch.arange(k.shape[1], device=k.device),
-                       cfg.rope_theta)
+        q, k = kops.rope(q, k, positions,
+                         torch.arange(k.shape[1], device=k.device),
+                         cfg.rope_theta)
     out = kops.flash_attention(q, k, v, causal=causal, window=window,
                                prefix_len=prefix_len)
     out = out.reshape(out.shape[:2] + (-1,)) @ p["wo"].to(dtype)
@@ -122,15 +122,16 @@ def decode_attention(p, x: torch.Tensor, cache_k: torch.Tensor,
     S_cache = cache_k.shape[1]
     q = _project_q(p, x, cfg, dtype)
     pos = cache_pos.reshape(1)
+    k = v = None
+    if not cross:
+        k, v = project_kv(p, x, cfg, dtype)
     if rope and cfg.use_rope:
-        q = apply_rope(q, pos, cfg.rope_theta)
+        q, k = kops.rope(q, k, pos, None if k is None else pos,
+                         cfg.rope_theta)
     if cross:
         valid_len = memory_len if memory_len is not None else torch.full(
             (), S_cache, dtype=torch.int32, device=x.device)
     else:
-        k, v = project_kv(p, x, cfg, dtype)
-        if rope and cfg.use_rope:
-            k = apply_rope(k, pos, cfg.rope_theta)
         slot = cache_pos % S_cache if window is not None else cache_pos
         slot = slot.reshape(1).long()
         cache_k.index_copy_(1, slot, k)

@@ -1,13 +1,13 @@
 """Shared layer primitives: init helpers, RMSNorm (plain and gated),
-LayerNorm, rotary, SwiGLU and GELU MLPs, and the training loss's
-cross-entropy.
+LayerNorm, SwiGLU and GELU MLPs, and the training loss's cross-entropy.
 
 Counterpart of ``repro/models/layers.py``. Params are plain nested dicts
 of tensors (the JAX package's layout: ``(in, out)`` matrices); compute
-runs in a caller-selected dtype (bf16 by default) with norms and rotary
-in float32. Initialisers draw from an explicit ``torch.Generator``; their
-numbers differ from JAX's threefry, so parity tests carry the reference's
-parameters across (``repro_torch.interop``) instead.
+runs in a caller-selected dtype (bf16 by default) with norms in float32;
+the rotary embedding is a kernel (``kernels.ops.rope``). Initialisers
+draw from an explicit ``torch.Generator``; their numbers differ from
+JAX's threefry, so parity tests carry the reference's parameters across
+(``repro_torch.interop``) instead.
 """
 from __future__ import annotations
 
@@ -57,31 +57,6 @@ def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
     """Mamba-2 output norm: rms_norm(x * silu(z)), silu in float32 and the
     product in x's dtype, as the reference."""
     return rms_norm(x * F.silu(z.float()).to(x.dtype), weight, eps)
-
-
-# ---------------------------------------------------------------------------
-# rotary position embeddings
-# ---------------------------------------------------------------------------
-
-def rope_frequencies(head_dim: int, theta: float, device=None
-                     ) -> torch.Tensor:
-    half = head_dim // 2
-    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
-                                         device=device) / half))
-
-
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-               ) -> torch.Tensor:
-    """x: (..., S, H, hd); positions: broadcastable to (..., S). The
-    half-split layout, in float32, cast back to x's dtype."""
-    hd = x.shape[-1]
-    freqs = rope_frequencies(hd, theta, x.device)              # (hd/2,)
-    angles = positions[..., None].float() * freqs              # (..., S, hd/2)
-    cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, hd/2)
-    sin = torch.sin(angles)[..., None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -37,12 +37,13 @@ from repro_torch.train.trainer import dtype_of
 
 # hlolint contract of a decode step at the probe's reduced dense arch: the
 # KV cache written in place (a rebuilt cache would copy it every token), a
-# rmsnorm a norm and one decode attention a layer
+# rmsnorm a norm, and one rope and one decode attention a layer
 HLOLINT_CONTRACTS = (
     EntrypointContract(
         name="serve_decode_step", module=__name__, inplace=True,
         state=("cache",), float_dtypes=("float32", "bfloat16"),
-        launches={"rmsnorm": "2*layers+1", "decode_attention": "layers"}),
+        launches={"rmsnorm": "2*layers+1", "rope": "layers",
+                  "decode_attention": "layers"}),
 )
 
 

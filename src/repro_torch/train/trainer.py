@@ -29,13 +29,15 @@ from repro_torch.train.optimizer import OptState, Optimizer, make_optimizer
 # hlolint contract of the LM train step at the probe's reduced dense arch
 # (float32 parameters, bf16 compute, remat): the parameters and the Adam
 # moments updated in place, and a rmsnorm forward a norm (each layer's two
-# run again under remat, and the final one), a backward a norm, a flash
-# forward a layer (again under remat) and a backward a layer
+# run again under remat, and the final one), a backward a norm, a rope and
+# a flash forward a layer (again under remat) and a backward of each a
+# layer
 HLOLINT_CONTRACTS = (
     EntrypointContract(
         name="lm_train_step", module=__name__, inplace=True,
         state=("params", "opt_state"), float_dtypes=("float32", "bfloat16"),
         launches={"rmsnorm": "4*layers+1", "rmsnorm_bwd": "2*layers+1",
+                  "rope": "2*layers", "rope_bwd": "layers",
                   "flash_attention": "2*layers",
                   "flash_attention_bwd": "layers"}),
 )

@@ -903,6 +903,7 @@ def test_serving_on_the_card_matches_the_cpu(dev):
     assert torch.equal(got.cpu(), want)
     L = cfg.num_layers
     assert dict(rops.LAUNCH_COUNTS) == {"rmsnorm": (2 * L + 1) * 7,
+                                        "rope": L * 7,
                                         "flash_attention": L,
                                         "decode_attention": L * 6}
 
@@ -1210,6 +1211,11 @@ def _binding_case(name, dev):
         kv = torch.ones((1, S, 2, d), **f32)
         return lambda: ops.decode_attention(q, kv, kv, torch.ones(1, **i32),
                                             torch.empty_like(q), 0.1)
+    if name in ("rope_head_dim", "rope_positions"):
+        d = 24 if name == "rope_head_dim" else 64
+        q = torch.ones((1, 4, 2, d), **f32)
+        pos = torch.zeros(3 if name == "rope_positions" else 4, **i32)
+        return lambda: ops.rope(q, None, pos, None, 1e4, False)
     S, P, chunk = (64, 129, 64) if name.endswith("ssd_dims") else \
         (512, 16, 512) if name.endswith("ssd_chunk") else (64, 16, 32)
     x = torch.ones((1, S, 2, P), **f32)
@@ -1239,7 +1245,7 @@ def _binding_case(name, dev):
     "ssd_bwd_states", "ssd_bwd_dfinal",
     "ring_write_rowloop_capacity", "ring_gather_rowloop_rows",
     "per_scores_rows", "ring_gather_fields", "ring_gather_no_fields",
-    "ring_gather_field_rows"])
+    "ring_gather_field_rows", "rope_head_dim", "rope_positions"])
 def test_binding_checks_with_numbers_raise(dev, name):
     """Every check in binding.cpp whose message holds an integer raises a
     RuntimeError naming the number: streamed into the message as an
@@ -1280,7 +1286,8 @@ def test_ssm_serving_on_the_card_matches_the_cpu(dev, arch, layers):
         else 0
     expect = {"rmsnorm": (2 * L + 1 + 2 * n_inv) * 7, "ssd_scan": L}
     if n_inv:
-        expect.update(flash_attention=n_inv, decode_attention=n_inv * 6)
+        expect.update(rope=n_inv * 7, flash_attention=n_inv,
+                      decode_attention=n_inv * 6)
     assert dict(rops.LAUNCH_COUNTS) == expect
 
 
@@ -1370,7 +1377,8 @@ def test_new_families_serving_on_the_card_matches_the_cpu(dev, arch, P):
     the kernels. Launches a run (7 forwards): L + 1 + L norms a forward
     (none for whisper's LayerNorms), a flash attention a layer in the
     prefill (whisper: encoder, self and cross), one decode attention a
-    layer a step (whisper: self and cross)."""
+    layer a step (whisper: self and cross), and a rope before each
+    attention but whisper's."""
     from repro_torch._tree import tree_map
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape, RunConfig
@@ -1392,8 +1400,8 @@ def test_new_families_serving_on_the_card_matches_the_cpu(dev, arch, P):
     if cfg.family == "encdec":
         expect = {"flash_attention": 3 * L, "decode_attention": 2 * L * 6}
     else:
-        expect = {"rmsnorm": (2 * L + 1) * 7, "flash_attention": L,
-                  "decode_attention": L * 6}
+        expect = {"rmsnorm": (2 * L + 1) * 7, "rope": L * 7,
+                  "flash_attention": L, "decode_attention": L * 6}
     assert dict(rops.LAUNCH_COUNTS) == expect
 
 

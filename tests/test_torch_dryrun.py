@@ -65,6 +65,7 @@ def test_census_flops_equal_flop_counter_on_the_cpu(monkeypatch):
     L = cfg.num_layers
     assert census.kernel_calls == {"rmsnorm": 4 * L + 1,
                                    "rmsnorm_bwd": 2 * L + 1,
+                                   "rope": 2 * L, "rope_bwd": L,
                                    "flash_attention": 2 * L,
                                    "flash_attention_bwd": L}
 

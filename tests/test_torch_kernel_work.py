@@ -1,7 +1,8 @@
 """The kernels' shape-and-work routes (``kernels.meta``) and their work
 (``kernels.work``).
 
-- Every one of the 14 kernels (rows 1-14 of PERF.md §6), called through
+- Every one of the 16 kernels (rows 1-15 of PERF.md §6 and rope's
+  backward), called through
   its public wrapper (``kernels.ops``) or its ``autograd.Function``'s
   backward with meta operands, gives its plain version's output shapes
   and dtypes on the same small CPU inputs, computes nothing, launches
@@ -23,6 +24,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import meta
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as rms
+from repro_torch.kernels import rope
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch.analysis import OpCensus, bound_ms
 
@@ -76,6 +78,9 @@ FORWARD = {
                             lambda d, i: ops.ring_gather_rowloop(d, i)),
     "rmsnorm": ([((4, 5, 16), BF16), ((16,), F32)],
                 lambda x, w: ops.rmsnorm(x, w)),
+    "rope": ([((2, 6, 4, 32), BF16), ((2, 6, 2, 32), BF16),
+              ((6,), I32, 0, 64), ((6,), I32, 0, 64)],
+             lambda q, k, pq, pk: ops.rope(q, k, pq, pk, 1e4)),
     "flash_attention": ([((2, 8, 4, 16), BF16), ((2, 12, 2, 16), BF16),
                          ((2, 12, 2, 16), BF16)],
                         lambda q, k, v: ops.flash_attention(
@@ -122,6 +127,9 @@ def _backward(fn, spec, device, seed=0):
 BACKWARD = {
     "rmsnorm_bwd": ([((6, 16), BF16), ((16,), F32)],
                     lambda x, w: rms.RMSNorm.apply(x, w, 1e-6)),
+    "rope_bwd": ([((2, 6, 4, 32), BF16), ((2, 6, 2, 32), BF16),
+                  ((6,), I32, 0, 64), ((6,), I32, 0, 64)],
+                 lambda q, k, pq, pk: rope.Rope.apply(q, k, pq, pk, 1e4)),
     "flash_attention_bwd": ([((2, 8, 4, 16), BF16), ((2, 8, 2, 16), BF16),
                              ((2, 8, 2, 16), BF16)],
                             lambda q, k, v: fa.FlashAttention.apply(
@@ -133,7 +141,8 @@ BACKWARD = {
                                                              4)),
 }
 FORWARD_OF = {"rmsnorm_bwd": "rmsnorm", "flash_attention_bwd":
-              "flash_attention", "ssd_scan_bwd": "ssd_scan"}
+              "flash_attention", "ssd_scan_bwd": "ssd_scan",
+              "rope_bwd": "rope"}
 
 
 @pytest.mark.parametrize("kernel", list(BACKWARD))
@@ -234,6 +243,7 @@ PERF_ROWS = [
      "operations"),
     (14, work.ssd_scan_bwd(8, 1024, 24, 64, 128, 256, BF16), 0.09062,
      "bytes"),
+    (15, work.rope(32, 1024, 1024, 15, 5, 64, BF16), 0.05009, "bytes"),
 ]
 
 
@@ -247,7 +257,8 @@ def test_work_reproduces_the_perf_table_bounds(row):
 
 
 def test_the_work_functions_cover_the_fourteen_kernels():
-    assert len(work.KERNELS) == 14 and len(set(work.KERNELS)) == 14
+    """The fourteen ported and backward kernels, and rope's pair."""
+    assert len(work.KERNELS) == 16 and len(set(work.KERNELS)) == 16
     for name in work.KERNELS:
         assert callable(getattr(work, name)) and callable(getattr(meta,
                                                                   name))
@@ -257,9 +268,12 @@ def test_the_work_functions_cover_the_fourteen_kernels():
         ("flash_attention_bwd", (1, 8, 8, 2, 1, 16, BF16)),
         ("decode_attention", (1, 8, 2, 1, 16, BF16)),
         ("ssd_scan", (1, 8, 1, 4, 4, 4, BF16)),
-        ("ssd_scan_bwd", (1, 8, 1, 4, 4, 4, BF16)))} == {
+        ("ssd_scan_bwd", (1, 8, 1, 4, 4, 4, BF16)),
+        ("rope", (1, 8, 8, 2, 1, 16, BF16)),
+        ("rope_bwd", (1, 8, 8, 2, 1, 16, BF16)))} == {
         "per_topk": 3, "rmsnorm_bwd": 2, "flash_attention_bwd": 3,
-        "decode_attention": 2, "ssd_scan": 3, "ssd_scan_bwd": 5}
+        "decode_attention": 2, "ssd_scan": 3, "ssd_scan_bwd": 5, "rope": 1,
+        "rope_bwd": 1}
 
 
 @pytest.mark.parametrize("Sq, Sk, causal, window, prefix", [

@@ -29,7 +29,7 @@ def test_linters_hold_on_the_card(dev):
     sys.path.insert(0, ROOT)
     import chip_smoke
     rows, launches = chip_smoke.run_linters(dev)
-    assert len([r for r in rows if "contract" in r]) == 12
+    assert len([r for r in rows if "contract" in r]) == 13
     assert launches["ring_gather"] > 0 and launches["decode_attention"] > 0
 
 

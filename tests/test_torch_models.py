@@ -32,6 +32,8 @@ from repro.models import transformer as jtf
 from repro_torch import interop
 from repro_torch._tree import tree_leaves
 from repro_torch.configs import ARCHS, get_config, get_shape
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import rope as trope
 from repro_torch.models import attention as tattn
 from repro_torch.models import factory as tfactory
 from repro_torch.models import layers as tlayers
@@ -185,15 +187,19 @@ def test_cast_params_keeps_norms_in_float32():
 
 @pytest.mark.parametrize("theta", [1e4, 1e6])
 def test_rope_matches_the_reference(theta):
+    """The port's rotary op (q alone and q with k, its plain version on
+    the CPU) against the reference's ``apply_rope``."""
     x = rand(1, 2, 9, 3, 64)
     pos = np.arange(90, 99)
-    close(tlayers.rope_frequencies(64, theta),
+    close(trope.rope_frequencies(64, theta),
           jlayers.rope_frequencies(64, theta))
-    close(tlayers.apply_rope(t(x), t(pos), theta),
-          jrun(jlayers.apply_rope, jnp.asarray(x), jnp.asarray(pos),
-               theta=theta))
+    want = jrun(jlayers.apply_rope, jnp.asarray(x), jnp.asarray(pos),
+                theta=theta)
+    close(kops.rope(t(x), None, t(pos), None, theta)[0], want)
+    close(kops.rope(t(x), t(x[:, :, :1]), t(pos), t(pos), theta)[1],
+          want[:, :, :1])
     one = np.array([57])                       # the decode step's form
-    close(tlayers.apply_rope(t(x[:, :1]), t(one), theta),
+    close(kops.rope(t(x[:, :1]), None, t(one), None, theta)[0],
           jrun(jlayers.apply_rope, jnp.asarray(x[:, :1]), jnp.asarray(one),
                theta=theta))
 

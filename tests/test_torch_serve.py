@@ -207,8 +207,8 @@ def count_model_op_calls(cfg, prompt, gen):
     LAUNCH_COUNTS.clear()
     mp = pytest.MonkeyPatch()
     with mp.context() as m:
-        for name in ("rmsnorm", "flash_attention", "decode_attention",
-                     "ssd_scan"):
+        for name in ("rmsnorm", "rope", "flash_attention",
+                     "decode_attention", "ssd_scan"):
             m.setattr(ops, name, counting(getattr(ops, name), name))
         toks = engine.greedy_generate(rc, params, batch, prompt, gen)
     assert sum(LAUNCH_COUNTS.values()) == 0
@@ -220,14 +220,14 @@ def count_model_op_calls(cfg, prompt, gen):
 def test_greedy_generate_counts_the_kernel_calls_per_step():
     """On the CPU the plain versions run and no kernel launches; the
     number of model-op calls per prefill and decode step is what the
-    card's launch counts assert (chip_smoke.py): 2L + 1 norms, L flash
-    and L decode attentions. Every tensor the path hands them is
+    card's launch counts assert (chip_smoke.py): 2L + 1 norms, L ropes,
+    L flash and L decode attentions. Every tensor the path hands them is
     contiguous, as the CUDA kernels require."""
     cfg = get_config("qwen2-0.5b").reduced()
     calls, toks = count_model_op_calls(cfg, 8, 3)
     L = cfg.num_layers
-    assert calls == {"rmsnorm": (2 * L + 1) * 4, "flash_attention": L,
-                     "decode_attention": L * 3}
+    assert calls == {"rmsnorm": (2 * L + 1) * 4, "rope": L * 4,
+                     "flash_attention": L, "decode_attention": L * 3}
 
 
 @pytest.mark.parametrize("arch,layers", [("mamba2-130m", 2),
@@ -235,8 +235,8 @@ def test_greedy_generate_counts_the_kernel_calls_per_step():
 def test_greedy_generate_counts_the_ssd_scan_and_norm_calls(arch, layers):
     """ssm: per forward, L pre-norms, L gated norms and ln_f; L scans in
     the prefill only. hybrid: the same for its L core layers, plus two
-    norms, one flash attention (prefill) or one decode attention (each
-    step) per shared-block call, one call per group. At full width that
+    norms, one rope, one flash attention (prefill) or one decode attention
+    (each step) per shared-block call, one call per group. At full width that
     is chip_smoke.py's 49 x 65 = 3185 and 91 x 65 = 5915 norms."""
     cfg = get_config(arch).reduced(num_layers=layers)
     calls, _ = count_model_op_calls(cfg, 32, 3)
@@ -244,7 +244,8 @@ def test_greedy_generate_counts_the_ssd_scan_and_norm_calls(arch, layers):
     n_inv = len(factory._hybrid_groups(cfg)) if arch == "zamba2-1.2b" else 0
     want = {"rmsnorm": (2 * L + 1 + 2 * n_inv) * 4, "ssd_scan": L}
     if n_inv:
-        want.update(flash_attention=n_inv, decode_attention=n_inv * 3)
+        want.update(rope=n_inv * 4, flash_attention=n_inv,
+                    decode_attention=n_inv * 3)
     assert calls == want
     full = get_config(arch)
     g = len(factory._hybrid_groups(full)) if arch == "zamba2-1.2b" else 0

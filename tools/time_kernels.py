@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """decode_attention, priority_scatter, the ring write, the ring gather,
-the SSD scan and the PER selection and score pass on the card: time
-against bound, plain version and library call, and where the host-bound
-calls' time goes.
+the SSD scan, the PER selection and score pass, and the rotary embedding
+on the card: time against bound, plain version and library call, and
+where the host-bound calls' time goes.
 
     python3 tools/time_kernels.py [--src DIR] [--label NAME]
                                   [--only decode_attention priority_scatter
                                           ring_write ring_gather ssd_scan
-                                          per_topk per_scores]
+                                          per_topk per_scores rope]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's); its kernels build into that checkout's
@@ -47,7 +47,11 @@ The PER blocks (``--only per_topk per_scores``) take
 three ways for the wrapper, the raw ``torch.ops.repro_torch.*`` op (with
 outputs and scratch made once where the timed tree's op takes them) and
 the library call, and list each launch of one call in order with its
-device microseconds.
+device microseconds. The rotary block (``--only rope``) times ``rope``
+and ``rope_bwd`` at smollm-360m's training shape (q (32, 1024, 15, 64)
+and k (32, 1024, 5, 64) at positions 0-1023), bf16 and float32, beside
+their byte bound and their plain versions on the card, each split the
+same three ways over 200 calls after 20.
 One JSON line a kernel, with the card's name and power limit. Needs a
 CUDA device.
 """
@@ -62,7 +66,7 @@ from device_profile import profiled
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CALLS = 200
 KERNELS = ("decode_attention", "priority_scatter", "ring_write",
-           "ring_gather", "ssd_scan", "per_topk", "per_scores")
+           "ring_gather", "ssd_scan", "per_topk", "per_scores", "rope")
 SCAN_CALLS = 20
 
 
@@ -304,6 +308,31 @@ def ring_gather_split(cs, rops, dev):
     return {name: split(cs, fn) for name, fn in arms.items()}
 
 
+def rope_split(cs, dev, dtype):
+    """``rope`` and ``rope_bwd`` at smollm-360m's training shape in
+    ``dtype`` beside their plain versions: ``split``'s three numbers an
+    arm, the byte bound, and the kernels' event ms as a share of it."""
+    import torch
+    from repro_torch.kernels import rope as R
+    from repro_torch.kernels import work
+    from repro_torch.launch.analysis import bound_ms
+    B, S, H, KV, d, theta = 32, 1024, 15, 5, 64, 1e4
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((B, S, H, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, KV, d), generator=g, device=dev).to(dtype)
+    pos = torch.arange(S, device=dev)
+    arms = {"rope": lambda: R.rope(q, k, pos, pos, theta),
+            "rope_bwd": lambda: R.rope_bwd(q, k, pos, pos, theta),
+            "plain": lambda: R.rope_ref(q, k, pos, pos, theta),
+            "plain_bwd": lambda: R.rope_bwd_ref(q, k, pos, pos, theta)}
+    out = {name: split(cs, fn) for name, fn in arms.items()}
+    bound, by = bound_ms(work.rope(B, S, S, H, KV, d, dtype))
+    return {"shape": [B, S, H, KV, d], "bound_ms": bound, "bound_by": by,
+            "share_of_bound": {n: bound / out[n]["event_ms"]
+                               for n in ("rope", "rope_bwd")},
+            **out}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
@@ -379,6 +408,13 @@ def main():
                               **ssd_scan_split(cs, dev, arch, dtype)}),
                   flush=True)
             torch.cuda.empty_cache()
+
+    for dtype in (torch.bfloat16, torch.float32) if "rope" in args.only \
+            else ():
+        print(json.dumps({**head, "kernel": "rope",
+                          "dtype": str(dtype).replace("torch.", ""),
+                          **rope_split(cs, dev, dtype)}), flush=True)
+        torch.cuda.empty_cache()
     return 0
 
 
