@@ -88,11 +88,13 @@ and prints no result line):
      of the plain result: 2**-7 relative, plus the float32 1e-5), then time
      kernel, plain version and the library call (``F.rms_norm``,
      ``F.scaled_dot_product_attention``), timing only, and flash's float32
-     SIMT kernel beside its bf16 tensor-core one; the same for
+     SIMT kernel beside its bf16 tensor-core one; rmsnorm at
+     granite-4.0-h-micro's rows (``GRANITE_NORM_SHAPES``); the same for
      ``ssd_scan`` at full-width mamba2-130m's and zamba2-1.2b's prefill
-     shapes, mamba2's width over 8 chunks, a ragged single chunk and a
-     small shape (float32 within 1e-5 of the largest |plain|, since the
-     scan's sums run over N and the chunk; bfloat16 one rounding step
+     shapes, granite-4.0-h-micro's arch update (B 32, 1024 tokens, H 64,
+     P 64, N 128), mamba2's width over 8 chunks, a ragged single chunk
+     and a small shape (float32 within 1e-5 of the largest |plain|, since
+     the scan's sums run over N and the chunk; bfloat16 one rounding step
      more), timed with no library call (no PyTorch call computes the
      scan), its float32 SIMT kernels beside its bf16 tensor-core ones;
   8. serve on the card against serving on the CPU, same parameters and
@@ -112,9 +114,11 @@ and prints no result line):
   10. the MoE, enc-dec and VLM families and qwen2.5-32b: flash attention
      at whisper-medium's encoder (non-causal, 1500 frames: a tail) and
      cross shapes, mixtral-8x7b's 4096-token window over 8192, kimi's
-     head_dim 112 and paligemma-3b's 256 patch prefix at head_dim 256,
-     and decode attention over paligemma's 1344-slot cache (head_dim
-     256) and whisper's 1500-slot cross cache, each against its plain
+     head_dim 112, paligemma-3b's 256 patch prefix at head_dim 256 and
+     granite-4.0-h-micro's NoPE GQA (B 32, 1024 tokens, 32 heads over 8,
+     q scaled by 0.125 first, ``FLASH_Q_SCALE``), and decode attention
+     over paligemma's 1344-slot cache (head_dim 256) and whisper's
+     1500-slot cross cache, each against its plain
      version in bf16 and float32 (as phase 7) and timed beside SDPA (an
      explicit boolean mask for the window and the prefix); serving on the
      card against the CPU (as phase 8) for reduced mixtral-8x7b,
@@ -132,7 +136,9 @@ and prints no result line):
      against their plain versions at qwen2-0.5b's training shape (B 8,
      1024 tokens, 14 heads over 2, d 64; norms of 8192 x 896), a window
      of 256, whisper-medium's encoder and cross shapes, kimi's d 112,
-     paligemma's 256-patch prefix at d 256 and rows that see no key, in
+     paligemma's 256-patch prefix at d 256, granite-4.0-h-micro's NoPE
+     GQA (q scaled first) and rows that see no key, norms at granite's
+     rows (``GRANITE_NORM_SHAPES``), in
      float32 (within 1e-4 of the largest gradient value) and bf16 (1e-2),
      then timed beside their bounds, their plain versions and the
      library's backward (``F.rms_norm``'s and SDPA's, by
@@ -154,7 +160,8 @@ and prints no result line):
      (``ssd_scan_bwd``) against its plain version on the chunk-start
      states of the forward kernel, at mamba2-130m's and zamba2-1.2b's
      training shapes (B 8, 1024 tokens, chunk 256; H 24, P 64, N 128 and
-     H 64, P 64, N 64), one ragged chunk of 80, and P 24, N 20 over
+     H 64, P 64, N 64), granite-4.0-h-micro's arch update (B 32, H 64,
+     P 64, N 128), one ragged chunk of 80, and P 24, N 20 over
      chunks of 32 from an initial state with a final state's gradient,
      in bf16 and float32, each gradient within ``GRAD_TOL`` of its
      largest value, and that forward (with its initial state and its
@@ -184,7 +191,12 @@ and prints no result line):
      (batch 32 x 1024, act_dim 16): ``make_arch_spreeze_update`` once,
      then 3 timed updates with exact launches (``arch_update_launches``),
      finite losses, parameters and Adam moments, ms an update, tokens,
-     peak memory and model FLOPs over the wall against 989 TFLOP/s;
+     peak memory and model FLOPs over the wall against 989 TFLOP/s; the
+     same for granite-4.0-h-micro's towers (the benchmark's granite cell:
+     one period of its ``layer_types``, 9 Mamba-2 layers and one NoPE
+     GQA layer at the published widths, ``granite_config``), with the
+     interleaved family's exact launches
+     (``interleaved_update_launches``), no model FLOPs;
   14. the dry run (``repro_torch.launch.dryrun``'s census,
      ``launch.analysis.OpCensus``) on the meta device against the card,
      for each of ``DRY_STEPS``: qwen2-0.5b's train step (8 x 1024), its
@@ -243,9 +255,21 @@ HEADS, KV_HEADS, HEAD_DIM, D_MODEL = 14, 2, 64, 896
 ZAMBA_HEADS = 32                     # zamba2-1.2b's shared attention: 32 / 32
 DECODE_LONG = 32_768                 # the decode_32k cache length
 SSM_ARCHS = ("mamba2-130m", "zamba2-1.2b")
-# (B, S, H, P, N, chunk) of each SSM's prefill scan at the serving shape
+# granite-4.0-h-micro: the benchmark's granite cell's backbone, whose arch
+# update (phase 13) runs its scan, flash attention and norms at the shapes
+# below: batch 32 x 1024, the Mamba-2 mixers' 64 heads of 64 with N 128
+# and chunk 256, GQA 32 / 8 of 64 with q scaled by its attention
+# multiplier times sqrt(64), 0.125, before the kernel
+GRANITE_ARCH = "granite-4.0-h-micro"
+# (B, S, H, P, N, chunk) of each SSM's prefill scan at the serving shape,
+# and of granite's arch update
 SCAN_SHAPES = {"mamba2-130m": (SERVE_B, SERVE_PROMPT, 24, 64, 128, 256),
-               "zamba2-1.2b": (SERVE_B, SERVE_PROMPT, 64, 64, 64, 256)}
+               "zamba2-1.2b": (SERVE_B, SERVE_PROMPT, 64, 64, 64, 256),
+               GRANITE_ARCH: (32, 1024, 64, 64, 128, 256)}
+# granite's norms (eps 1e-5): (rows, width) of ln1 and ln2 (d 2048), the
+# Mamba-2 mixer's gated norm (d_inner 4096) and ln_f at the last position
+GRANITE_NORM_SHAPES = ((32 * 1024, 2048), (32 * 1024, 4096), (32, 2048))
+GRANITE_EPS = 1e-5
 # Exact launches of one greedy_generate at the serving shape (64 new
 # tokens: 65 forwards). dense: 2L + 1 norms a forward, L flash (prefill),
 # L decode attentions a step, a rope (q and k) before each attention. ssm:
@@ -291,7 +315,12 @@ NEW_FLASH_SHAPES = (
     ("mixtral-8x7b window", 1, 8192, 8192, 32, 8, 128, True, 4096, None),
     ("kimi-k2 d 112", 8, 1024, 1024, 64, 8, 112, True, None, None),
     ("paligemma-3b prefix", 8, 1280, 1280, 8, 1, 256, True, None, 256),
+    ("granite-4.0-h-micro arch update", 32, 1024, 1024, 32, 8, 64, True,
+     None, None),
 )
+# q's scale before the kernel, by shape label (1 elsewhere): granite's
+# attention multiplier times sqrt(head_dim), a power of two
+FLASH_Q_SCALE = {"granite-4.0-h-micro arch update": 0.125}
 # LM training: qwen2-0.5b, 8 x 1024 tokens a step, 8 steps
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen2-0.5b", 8, 1024, 8
 # Exact launches of one qwen2-0.5b train step (24 layers, remat on): the
@@ -313,6 +342,8 @@ BWD_FLASH_SHAPES = (
     ("kimi-k2 d 112", 2, 1024, 1024, 64, 8, 112, True, None, None),
     ("paligemma-3b prefix", 2, 1280, 1280, 8, 1, 256, True, None, 256),
     ("rows that see no key", 1, 70, 30, 4, 2, 64, True, None, None),
+    ("granite-4.0-h-micro arch update", 32, 1024, 1024, 32, 8, 64, True,
+     None, None),
 )
 # a backward kernel's largest error, relative to the largest gradient
 # value: its sums run over the sequence and the G heads in another order
@@ -356,6 +387,7 @@ BWD_SCAN_SHAPES = (
     ("zamba2-1.2b train", TRAIN_B, TRAIN_S, 64, 64, 64, 256, False),
     ("one ragged chunk of 80", 2, 80, 4, 32, 32, 256, True),
     ("P 24, N 20, chunks of 32", 2, 96, 4, 24, 20, 32, True),
+    ("granite-4.0-h-micro arch update", 32, 1024, 64, 64, 128, 256, False),
 )
 # The RL towers on LM backbones (phase 13). Card against CPU: (arch,
 # tokens a sequence, layers of the reduced config), float32, both arch
@@ -397,6 +429,34 @@ def arch_update_launches(layers):
             "rope": 8 * layers + 3 * layers, "rope_bwd": 3 * layers,
             "flash_attention": 8 * layers + 3 * layers,
             "flash_attention_bwd": 3 * layers}
+
+
+def interleaved_update_launches(layer_types):
+    """Exact launches of one arch update of an interleaved backbone
+    (``layer_types``, remat on), as ``arch_update_launches``: each of the
+    8 forwards runs, a Mamba-2 layer, ln1, the mixer's scan and gated
+    norm and ln2, and an attention layer (NoPE: no rope) its 2 norms and
+    a flash attention, then ``ln_f``; the 3 differentiated towers'
+    backward recomputes every checkpointed layer and runs one backward of
+    each norm, scan and attention."""
+    m = sum(t == "mamba" for t in layer_types)
+    a = len(layer_types) - m
+    n = 3 * m + 2 * a + 1
+    return {"rmsnorm": 8 * n + 3 * (n - 1), "rmsnorm_bwd": 3 * n,
+            "ssd_scan": 11 * m, "ssd_scan_bwd": 3 * m,
+            "flash_attention": 11 * a, "flash_attention_bwd": 3 * a}
+
+
+def granite_config():
+    """granite-4.0-h-micro cut to one period of its ``layer_types`` (9
+    Mamba-2 layers, one attention layer), every width as published: the
+    benchmark's granite cell's backbone."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(GRANITE_ARCH)
+    n = cfg.period()
+    return dataclasses.replace(cfg, num_layers=n,
+                               layer_types=cfg.layer_types[:n])
 
 
 def example_launches(layers, steps, warmup, every):
@@ -1905,7 +1965,8 @@ def model_inputs(dev, seed, dtype, *shapes):
 def check_model_kernels(dev):
     """Each LM kernel against its plain version at the serving path's
     shapes and around them, bf16 and f32 (``kops.rope`` at
-    ``ROPE_SHAPES``, ``torch.equal``). Returns the max abs error of each
+    ``ROPE_SHAPES``, ``torch.equal``; rmsnorm at ``GRANITE_NORM_SHAPES``
+    too). Returns the max abs error of each
     kernel over its cases."""
     import torch
     from repro_torch.kernels import decode_attention as dec
@@ -1937,6 +1998,12 @@ def check_model_kernels(dev):
             w, = model_inputs(dev, 1, torch.float32, (D_MODEL,))
             worst["rmsnorm"] = max(worst["rmsnorm"], kernel_close(
                 rms.rmsnorm(x, w), rms.rmsnorm_ref(x, w)))
+        for rows, width in GRANITE_NORM_SHAPES:
+            x, = model_inputs(dev, rows + width, dtype, (rows, width))
+            w, = model_inputs(dev, width, torch.float32, (width,))
+            worst["rmsnorm"] = max(worst["rmsnorm"], kernel_close(
+                rms.rmsnorm(x, w, eps=GRANITE_EPS),
+                rms.rmsnorm_ref(x, w, eps=GRANITE_EPS)))
         # (B, Sq, Sk, window, q scale): the prefill; q at the end of a
         # longer k; a sliding window; a tail that is not a tile multiple;
         # a long sequence (many rescales of the running sums); q times 8
@@ -2110,7 +2177,8 @@ def sdpa_mask(dev, Sq, Sk, causal, window, prefix):
 
 def check_new_attention(dev):
     """Flash and decode attention at the new families' shapes
-    (``NEW_FLASH_SHAPES``, ``NEW_DECODE_SHAPES``), bf16 and float32,
+    (``NEW_FLASH_SHAPES``, q scaled by ``FLASH_Q_SCALE`` first, and
+    ``NEW_DECODE_SHAPES``), bf16 and float32,
     against their plain versions (``kernel_close``), then timed in bf16
     beside SDPA (an explicit boolean mask for a window or a prefix).
     Bounds as phase 7's (``kernels/work.py``): the bytes (each operand
@@ -2127,9 +2195,11 @@ def check_new_attention(dev):
             NEW_FLASH_SHAPES:
         kw = dict(causal=causal, window=window, prefix_len=prefix)
         err = 0.0
+        q_scale = FLASH_Q_SCALE.get(label, 1)
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = model_inputs(dev, Sq + Sk + d, dtype, (B, Sq, H, d),
                                    (B, Sk, KV, d), (B, Sk, KV, d))
+            q = q * q_scale             # a power of two: exact in bf16
             err = max(err, kernel_close(fa.flash_attention(q, k, v, **kw),
                                         fa.attention_ref(q, k, v, **kw)))
             del q, k, v
@@ -2137,6 +2207,7 @@ def check_new_attention(dev):
         worst_fa = max(worst_fa, err)
         q, k, v = model_inputs(dev, 21, torch.bfloat16, (B, Sq, H, d),
                                (B, Sk, KV, d), (B, Sk, KV, d))
+        q = q * q_scale
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
         mask = sdpa_mask(dev, Sq, Sk, causal, window, prefix)
         b, by = bound_ms(kwork.flash_attention(
@@ -2535,9 +2606,10 @@ def grad_gap(got, want):
 
 
 def check_backward_kernels(dev):
-    """``rmsnorm_bwd`` at 8192 x 896 and ``flash_attention_bwd`` (with the
-    forward's LSE) at ``BWD_FLASH_SHAPES``, bf16 and float32, against
-    their plain versions on the same inputs, each gradient within
+    """``rmsnorm_bwd`` at 8192 x 896 and ``GRANITE_NORM_SHAPES`` and
+    ``flash_attention_bwd`` (with the forward's LSE) at
+    ``BWD_FLASH_SHAPES``, q scaled by ``FLASH_Q_SCALE``, bf16 and float32,
+    against their plain versions on the same inputs, each gradient within
     ``GRAD_TOL`` of its largest value; the forward's LSE is held against
     ``attention_ref``'s within ``LSE_TOL`` where finite, and the rows that
     see no key have a -inf LSE and zero gradients. ``Rope``'s backward
@@ -2575,6 +2647,14 @@ def check_backward_kernels(dev):
         w, = model_inputs(dev, 32, torch.float32, (D_MODEL,))
         hold("rmsnorm_bwd", dtype, "8192 x 896", rms.rmsnorm_bwd(x, w, dy),
              rms.rmsnorm_bwd_ref(x, w, dy))
+        for n, width in GRANITE_NORM_SHAPES:
+            x, dy = model_inputs(dev, n + width + 1, dtype, (n, width),
+                                 (n, width))
+            w, = model_inputs(dev, width + 1, torch.float32, (width,))
+            hold("rmsnorm_bwd", dtype, f"granite {n} x {width}",
+                 rms.rmsnorm_bwd(x, w, dy, eps=GRANITE_EPS),
+                 rms.rmsnorm_bwd_ref(x, w, dy, eps=GRANITE_EPS))
+            del x, dy
         for label, B, S, H, KV, d, theta, pdt, at in ROPE_SHAPES:
             q, k, dq, dk = model_inputs(dev, S + H + 1, dtype, (B, S, H, d),
                                         (B, S, KV, d), (B, S, H, d),
@@ -2597,6 +2677,7 @@ def check_backward_kernels(dev):
             q, k, v, dout = model_inputs(
                 dev, Sq + Sk + d + 1, dtype, (B, Sq, H, d), (B, Sk, KV, d),
                 (B, Sk, KV, d), (B, Sq, H, d))
+            q = q * FLASH_Q_SCALE.get(label, 1)
             out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
             _, want_lse = fa.attention_ref(q, k, v, return_lse=True, **kw)
             require(bool((torch.isneginf(lse) == torch.isneginf(
@@ -3086,9 +3167,10 @@ def run_arch_rl_example(dev):
     return [ln.strip() for ln in lines if ln.strip()], launches, wall, result
 
 
-def arch_rl_update_fn(dev, arch=ARCH_RL_ARCH):
-    """Full-width ``arch`` towers (an actor, two critics and their two
-    targets; float32 parameters from seed 0, bf16 compute, remat) and a
+def arch_rl_update_fn(dev, arch=ARCH_RL_ARCH, cfg=None):
+    """Full-width ``arch`` towers, or ``cfg``'s where given (an actor, two
+    critics and their two targets; float32 parameters from seed 0, bf16
+    compute, remat) and a
     batch at ``lower_spreeze_arch``'s shape -> (``update()``, one
     ``make_arch_spreeze_update`` call: the critic loss's gradient over
     the critics and the actor loss's over the actor, then Adam on each;
@@ -3101,7 +3183,7 @@ def arch_rl_update_fn(dev, arch=ARCH_RL_ARCH):
     from repro_torch.rl import networks as nets
     from repro_torch.rl.base import AlgoHP
     from repro_torch.train.optimizer import make_optimizer
-    cfg = get_config(arch)
+    cfg = get_config(arch) if cfg is None else cfg
     B, S, A = ARCH_RL_B, ARCH_RL_S, ARCH_RL_ACT
     dev = torch.device(dev)
     gen = torch.Generator(device="cpu" if dev.type == "meta" else dev
@@ -3129,23 +3211,26 @@ def arch_rl_update_fn(dev, arch=ARCH_RL_ARCH):
     return one, (actor, q, opt_actor.mu, opt_actor.nu, opt_q.mu, opt_q.nu)
 
 
-def run_arch_rl_update(dev):
-    """``arch_rl_update_fn``'s update: one warm-up, then
-    ``ARCH_RL_UPDATES`` timed ones, each synchronised, with the launches
-    zeroed just before and read just after (``arch_update_launches`` an
-    update). The losses, the parameters and the Adam moments (which sum
-    every gradient) must be finite. Model FLOPs: 8 backbone forwards and
-    the 3 differentiated towers' backward at twice a forward (the
-    recompute not counted). -> (stats, launches)."""
+def run_arch_rl_update(dev, cfg=None):
+    """``arch_rl_update_fn``'s update (smollm-360m's towers, or ``cfg``'s):
+    one warm-up, then ``ARCH_RL_UPDATES`` timed ones, each synchronised,
+    with the launches zeroed just before and read just after
+    (``arch_update_launches`` an update, an interleaved backbone's
+    ``interleaved_update_launches``). The losses, the parameters and the
+    Adam moments (which sum every gradient) must be finite. Model FLOPs,
+    of a dense backbone: 8 backbone forwards and the 3 differentiated
+    towers' backward at twice a forward (the recompute not counted).
+    -> (stats, launches)."""
     import torch
     from repro_torch._tree import tree_leaves
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
     from repro_torch.models import factory
-    cfg = get_config(ARCH_RL_ARCH)
+    cfg = get_config(ARCH_RL_ARCH) if cfg is None else cfg
+    dense = cfg.family == "dense"
     B, S = ARCH_RL_B, ARCH_RL_S
     torch.cuda.empty_cache()
-    one, trees = arch_rl_update_fn(dev)
+    one, trees = arch_rl_update_fn(dev, cfg=cfg)
     one()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3158,7 +3243,8 @@ def run_arch_rl_update(dev):
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append((float(cl), float(al)))
     launches = dict(LAUNCH_COUNTS)
-    per = arch_update_launches(cfg.num_layers)
+    per = (arch_update_launches(cfg.num_layers) if dense
+           else interleaved_update_launches(cfg.layer_types))
     expect = {k: v * ARCH_RL_UPDATES for k, v in per.items()}
     require(launches == expect,
             f"arch update launches {launches} != expected {expect}")
@@ -3166,22 +3252,23 @@ def run_arch_rl_update(dev):
             f"arch update losses {losses}")
     require(all(bool(torch.isfinite(a).all()) for a in tree_leaves(trees)),
             "arch update: a parameter or an Adam moment is not finite")
-    flops = (8 + 2 * 3) * backbone_flops(cfg, B, S)
     mean_ms = sum(ms) / len(ms)
-    stats = {"arch": ARCH_RL_ARCH, "batch": B, "seq": S,
-             "act_dim": ARCH_RL_ACT,
+    stats = {"arch": cfg.name, "layers": cfg.num_layers, "batch": B,
+             "seq": S, "act_dim": ARCH_RL_ACT,
              "backbone_params": factory.count_params_analytic(cfg),
              "towers": 5, "updates": ARCH_RL_UPDATES, "update_ms": ms,
              "mean_update_ms": mean_ms, "tokens_an_update": B * S,
              "backbone_forwards_an_update": 8,
              "tokens_per_s": B * S / (mean_ms / 1e3),
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-             "model_tflop_an_update": flops / 1e12,
-             "bound_ms": flops / BF16_FLOP_PER_S * 1e3,
-             "model_flops_share_of_989_tflops":
-                 flops / (mean_ms / 1e3) / BF16_FLOP_PER_S,
              "losses": losses, "launches": launches,
              "launches_an_update": per}
+    if dense:
+        flops = (8 + 2 * 3) * backbone_flops(cfg, B, S)
+        stats.update({"model_tflop_an_update": flops / 1e12,
+                      "bound_ms": flops / BF16_FLOP_PER_S * 1e3,
+                      "model_flops_share_of_989_tflops":
+                          flops / (mean_ms / 1e3) / BF16_FLOP_PER_S})
     del one, trees
     torch.cuda.empty_cache()
     return stats, launches
@@ -3695,7 +3782,7 @@ def main():
     errs.update(model_errs)
     timing.update(model_timing)
     errs["ssd_scan"] = check_ssd_scan(dev)
-    for arch in SSM_ARCHS:
+    for arch in SCAN_SHAPES:
         t = time_ssd_scan(dev, arch)
         print(f"ssd_scan ({arch}): max_abs_err {errs['ssd_scan']} " +
               " ".join(f"{k} {v:.5f}" if isinstance(v, float) else
@@ -3869,6 +3956,16 @@ def main():
     for k in ("mean_update_ms", "tokens_an_update", "tokens_per_s",
               "peak_mem_gb", "model_flops_share_of_989_tflops"):
         print(f"arch RL update {ARCH_RL_ARCH} {k} {stats[k]} ({card})",
+              flush=True)
+    cfg = granite_config()
+    stats, counts = run_arch_rl_update(dev, cfg)
+    add_launches(counts)
+    print(f"arch RL update ({GRANITE_ARCH}, one period: {cfg.num_layers} "
+          f"layers at full width, batch {ARCH_RL_B}, seq {ARCH_RL_S}, "
+          f"act_dim {ARCH_RL_ACT}): " +
+          json.dumps({**stats, "card": card}), flush=True)
+    for k in ("mean_update_ms", "tokens_per_s", "peak_mem_gb"):
+        print(f"arch RL update {GRANITE_ARCH} {k} {stats[k]} ({card})",
               flush=True)
     print(f"arch RL: {time.perf_counter() - t_arch:.1f} s", flush=True)
 

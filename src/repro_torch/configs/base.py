@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -40,6 +40,7 @@ class SSMConfig:
 class ModelConfig:
     name: str
     family: str                   # dense | moe | ssm | hybrid | encdec | vlm
+                                  # | interleaved (InterleavedConfig)
     num_layers: int
     d_model: int
     num_heads: int
@@ -132,6 +133,48 @@ class ModelConfig:
         if self.hybrid_attn_every:
             changes["hybrid_attn_every"] = 2
         return dataclasses.replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class InterleavedConfig(ModelConfig):
+    """A backbone whose layers follow ``layer_types``, each ``"mamba"``
+    (a Mamba-2 mixer) or ``"attention"`` (GQA), every mixer followed by
+    its own SwiGLU MLP (the ``interleaved`` family: granitemoehybrid with
+    no experts). The four scalars are granite's: the embedding times
+    ``embedding_multiplier``, ``attention_multiplier`` the softmax scale
+    in place of 1/sqrt(head_dim), both residual branches of a layer times
+    ``residual_multiplier``, the logits over ``logits_scaling``. A port
+    config of its own, so the reference's configs keep their fields."""
+    layer_types: Tuple[str, ...] = ()
+    embedding_multiplier: float = 1.0
+    attention_multiplier: Optional[float] = None
+    residual_multiplier: Optional[float] = None
+    logits_scaling: float = 1.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if len(self.layer_types) != self.num_layers or not set(
+                self.layer_types) <= {"mamba", "attention"}:
+            raise ValueError(f"{self.name}: layer_types must give "
+                             f"num_layers = {self.num_layers} kinds, each "
+                             f"'mamba' or 'attention'")
+
+    def period(self) -> int:
+        """The length of the shortest prefix of ``layer_types`` that,
+        repeated, gives all of it."""
+        types, n = self.layer_types, self.num_layers
+        return next(p for p in range(1, n + 1) if n % p == 0
+                    and types == types[:p] * (n // p))
+
+    def reduced(self, num_layers: Optional[int] = None,
+                **kw) -> "InterleavedConfig":
+        """``ModelConfig.reduced`` over the first ``num_layers`` of
+        ``layer_types`` (by default one whole period, ``period()``), the
+        multipliers kept."""
+        n = self.period() if num_layers is None else num_layers
+        cut = dataclasses.replace(self, num_layers=n,
+                                  layer_types=self.layer_types[:n])
+        return ModelConfig.reduced(cut, num_layers=n, **kw)
 
 
 @dataclass(frozen=True)

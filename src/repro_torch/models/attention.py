@@ -8,10 +8,15 @@ a jnp path and its Pallas kernels (``use_pallas``; its VLM prefill, with
 a ``prefix_len``, always took the jnp path); the port always goes through
 ``kernels.ops``: the hand-written kernels on a CUDA tensor, their plain
 versions on a CPU tensor, ``prefix_len`` included. Heads stay grouped
-(KV, G), so repeated KV is never materialised.
+(KV, G), so repeated KV is never materialised. The kernels scale the
+scores by 1/sqrt(head_dim); a config with an ``attention_multiplier``
+(granite's softmax scale) has q multiplied by ``attention_multiplier *
+sqrt(head_dim)`` first (0.125 for granite: a power of two, exact in
+bf16).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -44,6 +49,9 @@ def _project_q(p, x: torch.Tensor, cfg: ModelConfig, dtype: torch.dtype
     q = x @ p["wq"].to(dtype)
     if cfg.qkv_bias:
         q = q + p["bq"].to(dtype)
+    scale = getattr(cfg, "attention_multiplier", None)
+    if scale is not None:
+        q = q * (scale * math.sqrt(cfg.head_dim))
     return q.reshape(x.shape[:2] + (cfg.num_heads, cfg.head_dim))
 
 

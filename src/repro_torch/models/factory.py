@@ -6,7 +6,11 @@ embeddings, and a decoder with learned positions and cross attention),
 ssm (mamba2), VLM (paligemma: stubbed patch embeddings prepended to the
 text, which every text token sees) and hybrid (zamba2: mamba2 core
 layers and one shared-weight attention block run before every
-``hybrid_attn_every`` of them) families:
+``hybrid_attn_every`` of them) families, and the port's own interleaved
+family (granite-4.0-h-micro: ``InterleavedConfig.layer_types`` over a
+stack of Mamba-2 layers and a stack of attention layers, each layer with
+its own MLP; the embedding, residual and logit multipliers; no serving
+path):
 
   init_params(cfg, gen)                          -> param tree (f32)
   cast_params(params, dtype)                     -> the same, cast for compute
@@ -38,14 +42,30 @@ from repro_torch.models.layers import cross_entropy, embed_init
 WHISPER_DEC_MAX_POS = 32768   # sized for the decode_32k shape
 
 _KIND = {"dense": "dense", "vlm": "dense", "moe": "moe", "ssm": "ssm",
-         "hybrid": "ssm", "encdec": "dec"}
+         "hybrid": "ssm", "encdec": "dec", "interleaved": None}
 
 
-def _layer_kind(cfg: ModelConfig) -> str:
+def _layer_kind(cfg: ModelConfig) -> Optional[str]:
+    """The family's one layer kind (None for the interleaved family,
+    whose layers follow ``layer_types``)."""
     if cfg.family not in _KIND:
         raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}); "
                          f"known: {sorted(_KIND)}")
     return _KIND[cfg.family]
+
+
+def _no_serving(cfg: ModelConfig) -> None:
+    if cfg.family == "interleaved":
+        raise NotImplementedError(
+            f"{cfg.name}: the interleaved family has no serving path "
+            "(cache, prefill, decode); it trains through forward and "
+            "loss_fn")
+
+
+def _interleaved_counts(cfg: ModelConfig) -> Tuple[int, int]:
+    """(Mamba-2 layers, attention layers) of ``layer_types``."""
+    n = sum(t == "mamba" for t in cfg.layer_types)
+    return n, cfg.num_layers - n
 
 
 # ---------------------------------------------------------------------------
@@ -66,8 +86,16 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32,
                             device=device),
         "ln_f": tf.init_norm(cfg, device=device),
     }
-    p["layers"] = tf.init_stack(gen, cfg, cfg.num_layers, kind=kind,
-                                dtype=dtype, device=device)
+    if cfg.family == "interleaved":
+        n_mamba, n_attn = _interleaved_counts(cfg)
+        p["layers"] = {
+            "mamba": tf.init_stack(gen, cfg, n_mamba, kind="mamba",
+                                   dtype=dtype, device=device),
+            "attn": tf.init_stack(gen, cfg, n_attn, kind="dense",
+                                  dtype=dtype, device=device)}
+    else:
+        p["layers"] = tf.init_stack(gen, cfg, cfg.num_layers, kind=kind,
+                                    dtype=dtype, device=device)
     if cfg.family == "hybrid":
         p["shared_attn"] = tf.init_layer(gen, cfg, kind="dense", dtype=dtype,
                                          device=device)
@@ -114,14 +142,24 @@ def cast_params(params, dtype: torch.dtype):
 
 def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
            dtype: torch.dtype) -> torch.Tensor:
-    return params["embed"][tokens].to(dtype)
+    """The embedding rows in ``dtype``, times the interleaved family's
+    ``embedding_multiplier``."""
+    x = params["embed"][tokens].to(dtype)
+    if cfg.family == "interleaved":
+        x = x * cfg.embedding_multiplier
+    return x
 
 
 def _logits(params, x: torch.Tensor, cfg: ModelConfig,
             dtype: torch.dtype) -> torch.Tensor:
+    """The final norm and the (tied) head; the interleaved family's
+    logits over ``logits_scaling``."""
     x = tf.apply_norm(params["ln_f"], x, cfg)
     table = params["embed"] if cfg.tie_embeddings else params["head"]
-    return x @ table.to(dtype).T
+    logits = x @ table.to(dtype).T
+    if cfg.family == "interleaved":
+        logits = logits / cfg.logits_scaling
+    return logits
 
 
 def _sinusoid(S: int, D: int, dtype: torch.dtype, device=None
@@ -185,6 +223,11 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
         x = torch.cat([batch["patches"].to(dtype), x], dim=1)
         prefix_len = cfg.num_patch_tokens
     pos = torch.arange(x.shape[1], device=x.device)
+    if cfg.family == "interleaved":
+        x = tf.interleaved_forward(params["layers"], x, cfg, positions=pos,
+                                   dtype=dtype, remat=remat)
+        return (_logits(params, x, cfg, dtype),
+                torch.zeros((), dtype=torch.float32, device=x.device))
     if cfg.family == "hybrid":
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for s, e in _hybrid_groups(cfg):
@@ -228,6 +271,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device=None):
     """``seq_len`` sizes the attention caches (the VLM's counts its patch
     prefix); enc-dec adds the encoder memory's cross-attention cache."""
+    _no_serving(cfg)
     kind = _layer_kind(cfg)
     if cfg.family == "hybrid":
         core = tf.init_layer_cache(cfg, cfg.num_layers, batch, seq_len,
@@ -253,6 +297,7 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     ``patches`` (VLM). ``seq_len`` sizes the attention caches: when it is
     shorter than the sequence (the VLM's patches count), only the last
     ``seq_len`` keys are kept, as the reference's ring."""
+    _no_serving(cfg)
     kind = _layer_kind(cfg)
     tokens = batch["tokens"]
     ring = attn_lib.cache_len_for(cfg, seq_len)
@@ -299,6 +344,7 @@ def decode_step(params, token: torch.Tensor, cache, cache_pos: torch.Tensor,
     tensor on that device, the valid slots of the memory's cache (all of
     them when not given; a caller that steps many times makes it once).
     The cache is updated in place and returned."""
+    _no_serving(cfg)
     kind = _layer_kind(cfg)
     x = _embed(params, token, cfg, dtype)
     if cfg.family == "encdec":
@@ -370,6 +416,10 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False
         total += cfg.num_layers * (_ssm_params(cfg) + norm)
         if cfg.family == "hybrid":
             total += dense
+    elif cfg.family == "interleaved":
+        n_mamba, n_attn = _interleaved_counts(cfg)
+        total += (n_mamba * (_ssm_params(cfg) + 2 * norm + 3 * D * cfg.d_ff)
+                  + n_attn * dense)
     else:                                                  # encdec
         enc_mlp = 2 * D * cfg.d_ff + cfg.d_ff + D
         enc_per = _attn_params(cfg) + 2 * norm + enc_mlp

@@ -28,6 +28,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import dense_init, gated_rms_norm
@@ -115,12 +116,16 @@ def _split_xbc(xBC: torch.Tensor, cfg: ModelConfig, d_inner: int, H: int):
     return x_in, B_, C_
 
 
+@trace.spanned("model.ssm_mixer")
 def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, dtype=torch.bfloat16,
               initial_state: Optional[torch.Tensor] = None,
               return_cache: bool = False):
     """Full-sequence Mamba-2 block. x: (B,S,D) -> (out, final_ssm_state),
     or (out, {"ssm_state", "conv_state"}) when ``return_cache`` (the
-    prefill); the scan starts from ``initial_state`` (B,H,P,N) or zero."""
+    prefill); the scan starts from ``initial_state`` (B,H,P,N) or zero.
+    Each call, a checkpoint's recompute included, is one span
+    ``model.ssm_mixer`` and one count of ``model.ssm_mixers``."""
+    trace.count("model.ssm_mixers")
     B, S, _ = x.shape
     zxbcdt = x @ p["in_proj"].to(dtype)
     z, xBC_raw, dt, d_inner, H, s = _split_proj(zxbcdt, cfg)

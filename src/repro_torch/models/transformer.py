@@ -10,6 +10,9 @@ Counterpart of ``repro/models/transformer.py``. Layer kinds:
           ``xv``
   ssm     pre-norm Mamba-2 SSD block (the ssm family, and the hybrid
           family's core layers)
+  mamba   a Mamba-2 mixer followed by its own SwiGLU MLP, each pre-norm
+          (the interleaved family's Mamba-2 layers; its attention layers
+          are the dense kind)
 The layout is the reference's: parameters and caches are stacked
 ``(L, ...)`` so every leaf maps one to one; where JAX scans over the
 stack, the port loops over the layers in Python (``torch.unbind`` gives
@@ -23,6 +26,13 @@ False)``, the counterpart of the reference's ``jax.checkpoint`` of its
 scan body, so the backward recomputes each layer's forward (its norms
 and its attention or its scan once more) instead of keeping its
 activations.
+
+``interleaved_forward`` walks an ``InterleavedConfig``'s ``layer_types``
+over one stack a kind (``{"mamba": ..., "attn": ...}``), each layer
+checkpointed as ``stack_forward``'s. Where a config sets a
+``residual_multiplier``, both residual branches of a layer are scaled by
+it (one ``add`` with ``alpha``); a config without one adds them
+unscaled.
 """
 from __future__ import annotations
 
@@ -39,7 +49,7 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (gelu_mlp, init_gelu_mlp, init_mlp,
                                        layer_norm, mlp, rms_norm)
 
-_KINDS = ("dense", "moe", "enc", "dec", "ssm")
+_KINDS = ("dense", "moe", "enc", "dec", "ssm", "mamba")
 
 
 def _check_kind(kind: str) -> None:
@@ -54,6 +64,13 @@ def _depth(stacked) -> int:
 
 def _use_ln(cfg: ModelConfig) -> bool:
     return cfg.family == "encdec"     # whisper uses LayerNorm w/ bias
+
+
+def _residual(x: torch.Tensor, h: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+    """x + h, or x + residual_multiplier * h where the config sets one."""
+    r = getattr(cfg, "residual_multiplier", None)
+    return x + h if r is None else torch.add(x, h, alpha=r)
 
 
 def init_norm(cfg: ModelConfig, device=None):
@@ -80,10 +97,14 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, *, kind: str,
                dtype=torch.float32, device=None):
     _check_kind(kind)
     device = device or gen.device
-    if kind == "ssm":
-        return {"ln1": init_norm(cfg, device=device),
-                "ssm": ssm_lib.init_ssm(gen, cfg, dtype=dtype,
-                                        device=device)}
+    if kind in ("ssm", "mamba"):
+        p = {"ln1": init_norm(cfg, device=device),
+             "ssm": ssm_lib.init_ssm(gen, cfg, dtype=dtype, device=device)}
+        if kind == "mamba":
+            p["ln2"] = init_norm(cfg, device=device)
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dtype,
+                                device=device)
+        return p
     p = {"ln1": init_norm(cfg, device=device),
          "attn": attn_lib.init_attention(gen, cfg, dtype=dtype,
                                          device=device),
@@ -126,7 +147,7 @@ def _attn_layer(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
         p["attn"], apply_norm(p["ln1"], x, cfg), cfg, positions=positions,
         causal=causal, window=cfg.sliding_window if causal else None,
         prefix_len=prefix_len, dtype=dtype)
-    x = x + h
+    x = _residual(x, h, cfg)
     if kind == "dec":
         # the cross attention's K and V are project_kv(memory): the
         # memory's cache
@@ -144,7 +165,7 @@ def _attn_layer(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
         h = gelu_mlp(p["mlp"], y, dtype)
     else:
         h = mlp(p["mlp"], y, dtype)
-    return x + h, aux, kv, None
+    return _residual(x, h, cfg), aux, kv, None
 
 
 def layer_forward(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
@@ -153,15 +174,20 @@ def layer_forward(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
                   dtype=torch.bfloat16,
                   ssm_state: Optional[torch.Tensor] = None):
     """One layer over a whole sequence (training). Returns (x, aux_loss,
-    extra): extra is the ``ssm`` kind's final state (its scan starting
-    from ``ssm_state``, or zero), None for the attention kinds."""
+    extra): extra is the ``ssm`` and ``mamba`` kinds' final state (the
+    scan starting from ``ssm_state``, or zero), None for the attention
+    kinds."""
     _check_kind(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if kind == "ssm":
+    if kind in ("ssm", "mamba"):
         h, extra = ssm_lib.ssm_block(p["ssm"], apply_norm(p["ln1"], x, cfg),
                                      cfg, dtype=dtype,
                                      initial_state=ssm_state)
-        return x + h, aux, extra
+        x = _residual(x, h, cfg)
+        if kind == "mamba":
+            x = _residual(x, mlp(p["mlp"], apply_norm(p["ln2"], x, cfg),
+                                 dtype), cfg)
+        return x, aux, extra
     x, moe_aux, _, _ = _attn_layer(p, x, cfg, kind=kind,
                                    positions=positions,
                                    prefix_len=prefix_len, memory=memory,
@@ -192,6 +218,30 @@ def stack_forward(stacked, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
             x, a = body(layer_p, x)
         aux = aux + a
     return x, aux
+
+
+def interleaved_forward(layers, x: torch.Tensor, cfg: ModelConfig, *,
+                        positions: torch.Tensor, dtype=torch.bfloat16,
+                        remat: bool = True) -> torch.Tensor:
+    """The interleaved family's layers in ``cfg.layer_types`` order: a
+    ``"mamba"`` entry takes the next layer of ``layers["mamba"]`` (the
+    ``mamba`` kind), an ``"attention"`` entry the next of
+    ``layers["attn"]`` (the ``dense`` kind), each checkpointed under
+    ``remat``. Returns x."""
+    stacks = {k: iter(unstack_tree(v, _depth(v))) for k, v in layers.items()}
+    for t in cfg.layer_types:
+        kind, key = ("mamba", "mamba") if t == "mamba" else ("dense", "attn")
+
+        def body(layer_p, h, kind=kind):
+            return layer_forward(layer_p, h, cfg, kind=kind,
+                                 positions=positions, dtype=dtype)[0]
+        layer_p = next(stacks[key])
+        if remat:
+            x = checkpoint(body, layer_p, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = body(layer_p, x)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -282,7 +282,9 @@ def _backbone_hidden(params, tokens: torch.Tensor, cfg: ModelConfig, dtype,
                      remat: bool) -> torch.Tensor:
     """Final-position hidden state of the arch backbone (no LM head), as
     the reference's: enc-dec reads ``encoder_seq`` zero frames and the
-    VLM prepends ``num_patch_tokens`` zero patches; no ``prefix_len`` is
+    VLM prepends ``num_patch_tokens`` zero patches; the interleaved
+    family walks its ``layer_types`` (``tf.interleaved_forward``), its
+    embedding scaled by ``embedding_multiplier``; no ``prefix_len`` is
     passed, so the VLM runs causal over its patches (unlike
     ``factory.forward``); the MoE aux loss is dropped. ``ln_f`` is applied
     to the last position alone: a row-wise norm, so the same numbers as
@@ -304,6 +306,9 @@ def _backbone_hidden(params, tokens: torch.Tensor, cfg: ModelConfig, dtype,
         x, _ = tf.stack_forward(params["layers"], x, cfg, kind="dec",
                                 positions=pos, memory=memory, dtype=dtype,
                                 remat=remat)
+    elif cfg.family == "interleaved":
+        x = tf.interleaved_forward(params["layers"], x, cfg, positions=pos,
+                                   dtype=dtype, remat=remat)
     elif cfg.family == "hybrid":
         for s, e in factory._hybrid_groups(cfg):
             x, _, _ = tf.layer_forward(params["shared_attn"], x, cfg,
