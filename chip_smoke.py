@@ -418,23 +418,23 @@ ROPE_SHAPES = (
 
 def arch_update_launches(layers):
     """Exact launches of one arch update of a dense backbone (remat on):
-    8 backbone forwards (the critic loss's 2 critics, the actor and the 2
-    target critics; the actor loss's actor and the 2 critics' backbones),
-    each 2 norms, a rope and a flash attention a layer and ``ln_f``; then
-    the 3 differentiated towers' backward, which recomputes each
-    checkpointed layer (its 2 norms, its rope and its flash attention) and
-    runs one backward of every norm, rope and attention."""
+    5 backbone forwards (the critic loss's 2 critics, the actor and the 2
+    target critics; the actor loss takes the actor's and the critics'
+    from them), each 2 norms, a rope and a flash attention a layer and
+    ``ln_f``; then the 3 differentiated towers' backward, which recomputes
+    each checkpointed layer (its 2 norms, its rope and its flash
+    attention) and runs one backward of every norm, rope and attention."""
     n = 2 * layers + 1
-    return {"rmsnorm": 8 * n + 3 * 2 * layers, "rmsnorm_bwd": 3 * n,
-            "rope": 8 * layers + 3 * layers, "rope_bwd": 3 * layers,
-            "flash_attention": 8 * layers + 3 * layers,
+    return {"rmsnorm": 5 * n + 3 * 2 * layers, "rmsnorm_bwd": 3 * n,
+            "rope": 5 * layers + 3 * layers, "rope_bwd": 3 * layers,
+            "flash_attention": 5 * layers + 3 * layers,
             "flash_attention_bwd": 3 * layers}
 
 
 def interleaved_update_launches(layer_types):
     """Exact launches of one arch update of an interleaved backbone
     (``layer_types``, remat on), as ``arch_update_launches``: each of the
-    8 forwards runs, a Mamba-2 layer, ln1, the mixer's scan and gated
+    5 forwards runs, a Mamba-2 layer, ln1, the mixer's scan and gated
     norm and ln2, and an attention layer (NoPE: no rope) its 2 norms and
     a flash attention, then ``ln_f``; the 3 differentiated towers'
     backward recomputes every checkpointed layer and runs one backward of
@@ -442,9 +442,9 @@ def interleaved_update_launches(layer_types):
     m = sum(t == "mamba" for t in layer_types)
     a = len(layer_types) - m
     n = 3 * m + 2 * a + 1
-    return {"rmsnorm": 8 * n + 3 * (n - 1), "rmsnorm_bwd": 3 * n,
-            "ssd_scan": 11 * m, "ssd_scan_bwd": 3 * m,
-            "flash_attention": 11 * a, "flash_attention_bwd": 3 * a}
+    return {"rmsnorm": 5 * n + 3 * (n - 1), "rmsnorm_bwd": 3 * n,
+            "ssd_scan": 8 * m, "ssd_scan_bwd": 3 * m,
+            "flash_attention": 8 * a, "flash_attention_bwd": 3 * a}
 
 
 def granite_config():
@@ -3218,7 +3218,7 @@ def run_arch_rl_update(dev, cfg=None):
     (``arch_update_launches`` an update, an interleaved backbone's
     ``interleaved_update_launches``). The losses, the parameters and the
     Adam moments (which sum every gradient) must be finite. Model FLOPs,
-    of a dense backbone: 8 backbone forwards and the 3 differentiated
+    of a dense backbone: 5 backbone forwards and the 3 differentiated
     towers' backward at twice a forward (the recompute not counted).
     -> (stats, launches)."""
     import torch
@@ -3258,13 +3258,13 @@ def run_arch_rl_update(dev, cfg=None):
              "backbone_params": factory.count_params_analytic(cfg),
              "towers": 5, "updates": ARCH_RL_UPDATES, "update_ms": ms,
              "mean_update_ms": mean_ms, "tokens_an_update": B * S,
-             "backbone_forwards_an_update": 8,
+             "backbone_forwards_an_update": 5,
              "tokens_per_s": B * S / (mean_ms / 1e3),
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
              "losses": losses, "launches": launches,
              "launches_an_update": per}
     if dense:
-        flops = (8 + 2 * 3) * backbone_flops(cfg, B, S)
+        flops = (5 + 2 * 3) * backbone_flops(cfg, B, S)
         stats.update({"model_tflop_an_update": flops / 1e12,
                       "bound_ms": flops / BF16_FLOP_PER_S * 1e3,
                       "model_flops_share_of_989_tflops":

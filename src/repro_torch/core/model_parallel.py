@@ -380,7 +380,8 @@ class _TanhLogDet(torch.autograd.Function):
 
 def make_arch_spreeze_losses(cfg: ModelConfig, act_dim: int = 16,
                              dtype=torch.bfloat16,
-                             hp: Optional[AlgoHP] = None):
+                             hp: Optional[AlgoHP] = None,
+                             share_forwards: bool = False):
     """-> (actor_loss, critic_loss), whose towers are ``cfg`` backbones
     (``rl.networks``' arch towers; the critics a stacked pair).
 
@@ -397,29 +398,51 @@ def make_arch_spreeze_losses(cfg: ModelConfig, act_dim: int = 16,
     the target critics) is built without a graph, the reference's
     ``stop_gradient``: no gradient reaches the target critics or the
     actor. The reference's key is unused here, so the loss takes no draw.
+
+    Under ``share_forwards`` each call of the critic loss is followed by
+    one of the actor loss on the same actor, critics and tokens, and each
+    tower's backbone runs once for the two: the critic loss runs the actor
+    with a graph and leaves its ``(mean, log_std)`` and the critics'
+    detached backbone hidden states to the actor loss, which takes them
+    instead of running the actor and the critics' backbones again. The
+    losses and their gradients are the same.
     """
     hp = hp or AlgoHP()
     half_log_2pi = 0.5 * math.log(2 * math.pi)
+    shared = {}       # the critic loss's forwards, until the actor loss
 
     def actor_loss(actor_params, q_params, tokens, eps):
-        mean, log_std = nets.arch_policy_dist(actor_params, tokens, cfg,
-                                              dtype=dtype)
+        if share_forwards:
+            mean, log_std = shared.pop("policy")
+            hidden = shared.pop("q_hidden")
+        else:
+            mean, log_std = nets.arch_policy_dist(actor_params, tokens, cfg,
+                                                  dtype=dtype)
+            hidden = None
         pre = mean + torch.exp(log_std) * eps
         a = torch.tanh(pre)
         logp = (-0.5 * eps ** 2 - log_std - half_log_2pi).sum(-1)
         logp = logp - _TanhLogDet.apply(pre).sum(-1)
-        q = nets.arch_min_q_of_action(q_params, tokens, a, cfg, dtype=dtype)
+        q = nets.arch_min_q_of_action(q_params, tokens, a, cfg, dtype=dtype,
+                                      hidden=hidden)
         return torch.mean(0.2 * logp - q)
 
     def critic_loss(q_params, q_target_params, actor_params, tokens, act,
                     rew, done):
+        hidden = [] if share_forwards else None
         q_pred = nets.arch_ensemble_q_values(q_params, tokens, act, cfg,
-                                             dtype=dtype)
+                                             dtype=dtype, hidden=hidden)
+        if share_forwards:
+            mean, log_std = nets.arch_policy_dist(actor_params, tokens, cfg,
+                                                  dtype=dtype)
+            shared.update(policy=(mean, log_std), q_hidden=hidden)
+        else:
+            with torch.no_grad():
+                mean, _ = nets.arch_policy_dist(actor_params, tokens, cfg,
+                                                dtype=dtype)
         with torch.no_grad():
-            mean, _ = nets.arch_policy_dist(actor_params, tokens, cfg,
-                                            dtype=dtype)
             q_next = nets.arch_ensemble_q_values(
-                q_target_params, tokens, torch.tanh(mean), cfg,
+                q_target_params, tokens, torch.tanh(mean.detach()), cfg,
                 dtype=dtype).min(dim=0).values
             target = rew + hp.gamma * (1 - done) * q_next
         return torch.mean((q_pred - target[None]) ** 2)
@@ -436,8 +459,11 @@ def make_arch_spreeze_update(cfg: ModelConfig, opt: Optimizer,
     reference's ``lower_spreeze_arch`` update), then one step of ``opt``
     (whose ``init`` made ``opt_actor`` and ``opt_q``) on each, in place.
     The actor's and critics' leaves must require grad. The losses stay
-    device scalars."""
-    actor_loss, critic_loss = make_arch_spreeze_losses(cfg, act_dim, dtype)
+    device scalars. The two losses share their forwards
+    (``share_forwards``), so each of the three differentiated towers and
+    the two target critics runs its backbone once an update: 5 forwards."""
+    actor_loss, critic_loss = make_arch_spreeze_losses(
+        cfg, act_dim, dtype, share_forwards=True)
 
     def update(actor, q, q_target, opt_actor: OptState, opt_q: OptState,
                tokens, act, rew, done, eps):

@@ -20,7 +20,7 @@ same way, so no weight and no weight gradient crosses between ac rows.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -253,26 +253,43 @@ def _towers(stacked):
 
 def arch_ensemble_q_values(stacked, tokens: torch.Tensor,
                            act: torch.Tensor, cfg: ModelConfig,
-                           dtype=torch.bfloat16, remat: bool = True
+                           dtype=torch.bfloat16, remat: bool = True,
+                           hidden: Optional[List[torch.Tensor]] = None
                            ) -> torch.Tensor:
-    """-> (n, B) Q values of every tower of a stacked ensemble."""
-    return torch.stack([arch_q_value(tower, tokens, act, cfg, dtype, remat)
-                        for tower in _towers(stacked)])
+    """-> (n, B) Q values of every tower of a stacked ensemble. Given a
+    list ``hidden``, each tower's backbone hidden state (B, D) is appended
+    to it, detached: what ``arch_min_q_of_action`` takes in place of
+    running the backbones again."""
+    qs = []
+    for tower in _towers(stacked):
+        h = _backbone_hidden(tower["backbone"], tokens, cfg, dtype, remat)
+        if hidden is not None:
+            hidden.append(h.detach())
+        qs.append(_arch_q_head(tower, h, act, dtype))
+    return torch.stack(qs)
 
 
 def arch_min_q_of_action(stacked, tokens: torch.Tensor, act: torch.Tensor,
                          cfg: ModelConfig, dtype=torch.bfloat16,
-                         remat: bool = True) -> torch.Tensor:
+                         remat: bool = True,
+                         hidden: Optional[Sequence[torch.Tensor]] = None
+                         ) -> torch.Tensor:
     """min over the ensemble of Q(tokens, act) -> (B,), differentiable in
     ``act`` only: the towers are held constant. The action enters after
     the backbone, so each backbone runs without a graph, and only the
-    heads keep one (to carry the gradient to ``act``). The value is the
-    ensemble's min as ``arch_ensemble_q_values`` gives it."""
+    heads keep one (to carry the gradient to ``act``). Given ``hidden``,
+    the towers' backbone hidden states on these tokens (as
+    ``arch_ensemble_q_values`` hands them back), the backbones do not run
+    at all. The value is the ensemble's min as ``arch_ensemble_q_values``
+    gives it."""
     qs = []
-    for tower in _towers(stacked):
-        with torch.no_grad():
-            h = _backbone_hidden(tower["backbone"], tokens, cfg, dtype,
-                                 remat)
+    for i, tower in enumerate(_towers(stacked)):
+        if hidden is None:
+            with torch.no_grad():
+                h = _backbone_hidden(tower["backbone"], tokens, cfg, dtype,
+                                     remat)
+        else:
+            h = hidden[i]
         qs.append(_arch_q_head(tree_map(torch.Tensor.detach, tower), h,
                                act, dtype))
     return torch.stack(qs).min(dim=0).values

@@ -24,8 +24,8 @@ granite scalars) against plain float32 references, on the CPU.
   (``interleaved_update_launches``), which the card's granite update is
   held to, equals the meta census's kernel calls of that update, at
   granite's one-period cut and at a reduced config of another pattern.
-- The parameter counts on ``meta``; the mixer counter (11 calls a Mamba-2
-  layer an update: 8 tower forwards and 3 recomputes); and a config
+- The parameter counts on ``meta``; the mixer counter (8 calls a Mamba-2
+  layer an update: 5 tower forwards and 3 recomputes); and a config
   without the multipliers building the graph it built before they came:
   the op counts of a reduced smollm forward, loss and arch tower, taken
   before the family existed (torch 2.13, CPU).
@@ -332,8 +332,8 @@ def test_arch_towers_and_losses_match_the_bench_reference():
                               flat["critic1"][k].grad]), 2e-5)
 
 
-def test_the_mixer_counter_reads_11_a_mamba_layer_an_update():
-    """8 tower forwards and the 3 differentiated towers' recomputes, each
+def test_the_mixer_counter_reads_8_a_mamba_layer_an_update():
+    """5 tower forwards and the 3 differentiated towers' recomputes, each
     running every Mamba-2 mixer once."""
     cfg = model_config(TINY)
     actor, q = _program_towers(3)
@@ -347,8 +347,8 @@ def test_the_mixer_counter_reads_11_a_mamba_layer_an_update():
     update(actor, q, q_target, *args, **_tiny_batch())
     counters = trace.snapshot()["counters"]
     assert counters["arch.updates"] == 1
-    assert counters["model.backbone_forwards"] == 8
-    assert counters["model.ssm_mixers"] == 11 * 9
+    assert counters["model.backbone_forwards"] == 5
+    assert counters["model.ssm_mixers"] == 8 * 9
 
 
 @pytest.mark.parametrize("which", ["granite", "another pattern"])
