@@ -3028,12 +3028,13 @@ def time_ssd_scan_bwd(dev):
 
 def check_arch_rl_device_vs_cpu(dev, arch, seq, layers=2, act_dim=4):
     """Reduced ``arch`` (``layers`` deep), float32 compute: the gradients
-    of both arch losses (``make_arch_spreeze_losses``; the actor's over
-    the actor, the critics' over the stacked critics) on the card and on
-    the CPU from the same towers and inputs, each leaf within
-    ``ARCH_RL_TOL`` of its largest value, the losses within 1e-5
-    relative. The MoE's routing is the CPU's, replayed (``RouteLog``).
-    Returns {loss: {"loss_rel", "grad_rel"}}."""
+    of both arch losses (``make_arch_spreeze_losses``; the critics' over
+    the stacked critics, then the actor's, which takes the critic loss's
+    forwards, over the actor) on the card and on the CPU from the same
+    towers and inputs, each leaf within ``ARCH_RL_TOL`` of its largest
+    value, the losses within 1e-5 relative. The MoE's routing is the
+    CPU's, replayed (``RouteLog``). Returns {loss: {"loss_rel",
+    "grad_rel"}}."""
     import torch
     from repro_torch._tree import tree_map
     from repro_torch.configs import get_config
@@ -3060,13 +3061,13 @@ def check_arch_rl_device_vs_cpu(dev, arch, seq, layers=2, act_dim=4):
         x = to_device(inputs, where)
         out = {}
         with log:
-            al = actor_loss(t["actor"], t["q"], x["tokens"], x["eps"])
-            out["actor"] = (float(al.detach()), [g.cpu() for g in
-                                        mp.tower_grads(al, t["actor"])])
             cl = critic_loss(t["q"], t["target"], t["actor"], x["tokens"],
                              x["act"], x["rew"], x["done"])
             out["critic"] = (float(cl.detach()), [g.cpu() for g in
                                          mp.tower_grads(cl, t["q"])])
+            al = actor_loss(t["actor"], t["q"], x["tokens"], x["eps"])
+            out["actor"] = (float(al.detach()), [g.cpu() for g in
+                                        mp.tower_grads(al, t["actor"])])
         return out
 
     moe = cfg.family == "moe"

@@ -380,45 +380,42 @@ class _TanhLogDet(torch.autograd.Function):
 
 def make_arch_spreeze_losses(cfg: ModelConfig, act_dim: int = 16,
                              dtype=torch.bfloat16,
-                             hp: Optional[AlgoHP] = None,
-                             share_forwards: bool = False):
+                             hp: Optional[AlgoHP] = None):
     """-> (actor_loss, critic_loss), whose towers are ``cfg`` backbones
-    (``rl.networks``' arch towers; the critics a stacked pair).
-
-    ``actor_loss(actor, q, tokens, eps)``: the tanh-Gaussian action from
-    the standard-normal draw ``eps`` (B, act_dim), its log-prob with the
-    ``log(clamp(1 - a^2, 1e-6))`` correction, and ``mean(0.2 * logp -
-    min_i Q_i(s, a))`` at the fixed temperature 0.2. It is differentiated
-    with respect to the actor: the critics enter as constants, their
-    backbones without a graph (``arch_min_q_of_action``).
+    (``rl.networks``' arch towers; the critics a stacked pair). Each
+    tower's backbone runs once for the two losses: each actor-loss call
+    takes the forwards of the critic-loss call before it, which must be
+    on the same actor, critics and tokens.
 
     ``critic_loss(q, q_target, actor, tokens, act, rew, done)``: both
     critics' Q(s, act) regressed onto ``rew + hp.gamma * (1 - done) *
-    min_i Q_target_i(s, tanh(mean))``. The target (the actor's forward and
-    the target critics) is built without a graph, the reference's
-    ``stop_gradient``: no gradient reaches the target critics or the
-    actor. The reference's key is unused here, so the loss takes no draw.
+    min_i Q_target_i(s, tanh(mean))``. The target (the target critics, and
+    the actor's mean, detached) carries no gradient, the reference's
+    ``stop_gradient``: none reaches the target critics or the actor. The
+    reference's key is unused here, so the loss takes no draw. It runs
+    the actor with a graph and keeps its ``(mean, log_std)`` and the
+    critics' detached backbone hidden states for the actor loss.
 
-    Under ``share_forwards`` each call of the critic loss is followed by
-    one of the actor loss on the same actor, critics and tokens, and each
-    tower's backbone runs once for the two: the critic loss runs the actor
-    with a graph and leaves its ``(mean, log_std)`` and the critics'
-    detached backbone hidden states to the actor loss, which takes them
-    instead of running the actor and the critics' backbones again. The
-    losses and their gradients are the same.
+    ``actor_loss(actor, q, tokens, eps)``: from the critic loss's
+    ``(mean, log_std)``, the tanh-Gaussian action of the standard-normal
+    draw ``eps`` (B, act_dim), its log-prob with the ``log(clamp(1 - a^2,
+    1e-6))`` correction, and ``mean(0.2 * logp - min_i Q_i(s, a))`` at the
+    fixed temperature 0.2. It is differentiated with respect to the
+    actor: the critics enter as constants, their heads over the handed
+    hidden states (``arch_min_q_of_action``). Called with no critic-loss
+    forwards waiting, it raises ``ValueError``.
     """
     hp = hp or AlgoHP()
     half_log_2pi = 0.5 * math.log(2 * math.pi)
     shared = {}       # the critic loss's forwards, until the actor loss
 
     def actor_loss(actor_params, q_params, tokens, eps):
-        if share_forwards:
-            mean, log_std = shared.pop("policy")
-            hidden = shared.pop("q_hidden")
-        else:
-            mean, log_std = nets.arch_policy_dist(actor_params, tokens, cfg,
-                                                  dtype=dtype)
-            hidden = None
+        if not shared:
+            raise ValueError("the arch actor loss takes the critic loss's "
+                             "forwards: call critic_loss first, on the "
+                             "same towers and tokens")
+        mean, log_std = shared.pop("policy")
+        hidden = shared.pop("q_hidden")
         pre = mean + torch.exp(log_std) * eps
         a = torch.tanh(pre)
         logp = (-0.5 * eps ** 2 - log_std - half_log_2pi).sum(-1)
@@ -429,17 +426,12 @@ def make_arch_spreeze_losses(cfg: ModelConfig, act_dim: int = 16,
 
     def critic_loss(q_params, q_target_params, actor_params, tokens, act,
                     rew, done):
-        hidden = [] if share_forwards else None
+        hidden = []
         q_pred = nets.arch_ensemble_q_values(q_params, tokens, act, cfg,
                                              dtype=dtype, hidden=hidden)
-        if share_forwards:
-            mean, log_std = nets.arch_policy_dist(actor_params, tokens, cfg,
-                                                  dtype=dtype)
-            shared.update(policy=(mean, log_std), q_hidden=hidden)
-        else:
-            with torch.no_grad():
-                mean, _ = nets.arch_policy_dist(actor_params, tokens, cfg,
-                                                dtype=dtype)
+        mean, log_std = nets.arch_policy_dist(actor_params, tokens, cfg,
+                                              dtype=dtype)
+        shared.update(policy=(mean, log_std), q_hidden=hidden)
         with torch.no_grad():
             q_next = nets.arch_ensemble_q_values(
                 q_target_params, tokens, torch.tanh(mean.detach()), cfg,
@@ -459,11 +451,10 @@ def make_arch_spreeze_update(cfg: ModelConfig, opt: Optimizer,
     reference's ``lower_spreeze_arch`` update), then one step of ``opt``
     (whose ``init`` made ``opt_actor`` and ``opt_q``) on each, in place.
     The actor's and critics' leaves must require grad. The losses stay
-    device scalars. The two losses share their forwards
-    (``share_forwards``), so each of the three differentiated towers and
-    the two target critics runs its backbone once an update: 5 forwards."""
-    actor_loss, critic_loss = make_arch_spreeze_losses(
-        cfg, act_dim, dtype, share_forwards=True)
+    device scalars. The actor loss takes the critic loss's forwards, so
+    each of the three differentiated towers and the two target critics
+    runs its backbone once an update: 5 forwards."""
+    actor_loss, critic_loss = make_arch_spreeze_losses(cfg, act_dim, dtype)
 
     def update(actor, q, q_target, opt_actor: OptState, opt_q: OptState,
                tokens, act, rew, done, eps):

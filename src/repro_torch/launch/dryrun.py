@@ -305,7 +305,7 @@ def lower_spreeze_arch(arch: str, *, batch: int = 32, seq: int = 1024,
     """RLHF-scale Spreeze: ``arch`` as the actor and critic backbone; one
     ``make_arch_spreeze_update`` (the critic loss's gradient over the two
     critics, the actor loss's over the actor, Adam on each; 5 backbone
-    forwards, the actor loss taking the critic loss's) on the meta
+    forwards, as the actor loss takes the critic loss's) on the meta
     device, bf16 towers as the reference's. The port runs the five towers
     on one card; ``state_bytes_per_device`` is a device's share under the
     reference's 2x16x16 ``spreeze_rules`` (the actor split over (data,

@@ -18,6 +18,8 @@ path):
   prefill(params, batch, cfg, seq_len)           -> (cache, last_logits)
   decode_step(params, token, cache, pos, cfg)    -> (logits, cache)
   count_params_analytic(cfg, active_only)        -> int
+  hidden_states(params, batch, cfg, remat,
+                prefix_len)                      -> (last layer's output, aux)
   forward(params, batch, cfg, remat)             -> (logits, aux_loss)
   loss_fn(params, batch, cfg, remat)             -> (loss, {"ce", "aux"})
 
@@ -200,36 +202,33 @@ def _slice_layers(stacked, s: int, e: int):
 # train forward
 # ---------------------------------------------------------------------------
 
-def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-            dtype=torch.bfloat16, remat: bool = True
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (logits (B, S, V), aux_loss). ``batch`` holds tokens (and
-    frames or patches); the VLM's logits cover its patch prefix too."""
+def hidden_states(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  *, dtype=torch.bfloat16, remat: bool = True,
+                  prefix_len: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The backbone's walk -> (the last layer's output (B, S, D) at every
+    position, before ``ln_f``; the aux loss, None for the interleaved and
+    hybrid families, which have none). ``batch`` holds tokens (and frames
+    or patches, prepended to the text); ``prefix_len`` makes the VLM's
+    first positions see each other (``tf.stack_forward``)."""
     kind = _layer_kind(cfg)
     tokens = batch["tokens"]
     if cfg.family == "encdec":
         memory = _encode(params, batch["frames"], cfg, dtype, remat)
-        x = _embed(params, tokens, cfg, dtype)
-        x = x + params["dec_pos"][:tokens.shape[1]].to(dtype)
-        pos = torch.arange(tokens.shape[1], device=x.device)
-        x, aux = tf.stack_forward(params["layers"], x, cfg, kind="dec",
-                                  positions=pos, memory=memory, dtype=dtype,
-                                  remat=remat)
-        return _logits(params, x, cfg, dtype), aux
-
     x = _embed(params, tokens, cfg, dtype)
-    prefix_len = None
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"].to(dtype), x], dim=1)
-        prefix_len = cfg.num_patch_tokens
     pos = torch.arange(x.shape[1], device=x.device)
+    if cfg.family == "encdec":
+        x = x + params["dec_pos"][:tokens.shape[1]].to(dtype)
+        return tf.stack_forward(params["layers"], x, cfg, kind="dec",
+                                positions=pos, memory=memory, dtype=dtype,
+                                remat=remat)
     if cfg.family == "interleaved":
-        x = tf.interleaved_forward(params["layers"], x, cfg, positions=pos,
-                                   dtype=dtype, remat=remat)
-        return (_logits(params, x, cfg, dtype),
-                torch.zeros((), dtype=torch.float32, device=x.device))
+        return tf.interleaved_forward(params["layers"], x, cfg,
+                                      positions=pos, dtype=dtype,
+                                      remat=remat), None
     if cfg.family == "hybrid":
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for s, e in _hybrid_groups(cfg):
             x, _, _ = tf.layer_forward(params["shared_attn"], x, cfg,
                                        kind="dense", positions=pos,
@@ -237,11 +236,25 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
             x, _ = tf.stack_forward(_slice_layers(params["layers"], s, e),
                                     x, cfg, kind="ssm", positions=pos,
                                     dtype=dtype, remat=remat)
-        return _logits(params, x, cfg, dtype), aux
-    x, aux = tf.stack_forward(params["layers"], x, cfg, kind=kind,
-                              positions=pos, prefix_len=prefix_len,
-                              dtype=dtype, remat=remat)
-    return _logits(params, x, cfg, dtype), aux
+        return x, None
+    return tf.stack_forward(params["layers"], x, cfg, kind=kind,
+                            positions=pos, prefix_len=prefix_len,
+                            dtype=dtype, remat=remat)
+
+
+def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            dtype=torch.bfloat16, remat: bool = True
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (logits (B, S, V), aux_loss). ``batch`` holds tokens (and
+    frames or patches); the VLM's logits cover its patch prefix too,
+    which every text token sees."""
+    prefix = cfg.num_patch_tokens if cfg.family == "vlm" else None
+    x, aux = hidden_states(params, batch, cfg, dtype=dtype, remat=remat,
+                           prefix_len=prefix)
+    logits = _logits(params, x, cfg, dtype)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,

@@ -298,45 +298,24 @@ def arch_min_q_of_action(stacked, tokens: torch.Tensor, act: torch.Tensor,
 def _backbone_hidden(params, tokens: torch.Tensor, cfg: ModelConfig, dtype,
                      remat: bool) -> torch.Tensor:
     """Final-position hidden state of the arch backbone (no LM head), as
-    the reference's: enc-dec reads ``encoder_seq`` zero frames and the
-    VLM prepends ``num_patch_tokens`` zero patches; the interleaved
-    family walks its ``layer_types`` (``tf.interleaved_forward``), its
-    embedding scaled by ``embedding_multiplier``; no ``prefix_len`` is
-    passed, so the VLM runs causal over its patches (unlike
-    ``factory.forward``); the MoE aux loss is dropped. ``ln_f`` is applied
-    to the last position alone: a row-wise norm, so the same numbers as
-    the reference's norm of every position read at the last. Each call is
-    one tower forward (``model.backbone_forwards``)."""
+    the reference's: ``factory.hidden_states`` over the tokens, with
+    ``encoder_seq`` zero frames for enc-dec and ``num_patch_tokens`` zero
+    patches for the VLM, and no ``prefix_len``, so the VLM runs causal
+    over its patches (unlike ``factory.forward``); the aux loss is
+    dropped. ``ln_f`` is applied to the last position alone: a row-wise
+    norm, so the same numbers as the reference's norm of every position
+    read at the last. Each call is one tower forward
+    (``model.backbone_forwards``)."""
     trace.count("model.backbone_forwards")
     B = tokens.shape[0]
-    x = factory._embed(params, tokens, cfg, dtype)
-    if cfg.family == "vlm":
-        patches = torch.zeros((B, cfg.num_patch_tokens, cfg.d_model),
-                              dtype=dtype, device=x.device)
-        x = torch.cat([patches, x], dim=1)
-    pos = torch.arange(x.shape[1], device=x.device)
+    batch = {"tokens": tokens}
     if cfg.family == "encdec":
-        frames = torch.zeros((B, cfg.encoder_seq, cfg.d_model), dtype=dtype,
-                             device=x.device)
-        memory = factory._encode(params, frames, cfg, dtype, remat)
-        x = x + params["dec_pos"][:tokens.shape[1]].to(dtype)
-        x, _ = tf.stack_forward(params["layers"], x, cfg, kind="dec",
-                                positions=pos, memory=memory, dtype=dtype,
-                                remat=remat)
-    elif cfg.family == "interleaved":
-        x = tf.interleaved_forward(params["layers"], x, cfg, positions=pos,
-                                   dtype=dtype, remat=remat)
-    elif cfg.family == "hybrid":
-        for s, e in factory._hybrid_groups(cfg):
-            x, _, _ = tf.layer_forward(params["shared_attn"], x, cfg,
-                                       kind="dense", positions=pos,
-                                       dtype=dtype)
-            x, _ = tf.stack_forward(factory._slice_layers(params["layers"],
-                                                          s, e),
-                                    x, cfg, kind="ssm", positions=pos,
-                                    dtype=dtype, remat=remat)
-    else:
-        x, _ = tf.stack_forward(params["layers"], x, cfg,
-                                kind=factory._layer_kind(cfg),
-                                positions=pos, dtype=dtype, remat=remat)
+        batch["frames"] = torch.zeros((B, cfg.encoder_seq, cfg.d_model),
+                                      dtype=dtype, device=tokens.device)
+    elif cfg.family == "vlm":
+        batch["patches"] = torch.zeros((B, cfg.num_patch_tokens,
+                                        cfg.d_model), dtype=dtype,
+                                       device=tokens.device)
+    x, _ = factory.hidden_states(params, batch, cfg, dtype=dtype,
+                                 remat=remat)
     return tf.apply_norm(params["ln_f"], x[:, -1].contiguous(), cfg)

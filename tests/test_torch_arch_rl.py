@@ -1,7 +1,8 @@
 """The port's RL towers on LM backbones against the JAX package, on the CPU.
 
 ``rl.networks``' arch towers (``arch_policy_dist``, ``arch_q_value``)
-and ``core.model_parallel.make_arch_spreeze_losses`` against the
+and ``core.model_parallel.make_arch_spreeze_losses`` (the actor loss
+after the critic loss, whose forwards it takes) against the
 reference's, for a reduced config of each family (dense, MoE, enc-dec,
 VLM, ssm, hybrid) at float32 compute (the reference's jnp path, under
 ``jax.jit``): the reference's parameters, carried across through
@@ -172,13 +173,13 @@ def test_loss_grads_match_the_reference(arch, loss):
     actor_loss, critic_loss = mp.make_arch_spreeze_losses(
         cfg, A, dtype=torch.float32)
     pa, pq = to_port(actor), to_port(critics)
+    # the actor loss takes the critic loss's forwards, as in the update
+    got = critic_loss(pq, to_port(target), pa, x["tokens"], x["act"],
+                      x["rew"], x["done"])
+    wrt = pq
     if loss == "actor":
         got = actor_loss(pa, pq, x["tokens"], torch.from_numpy(eps))
         wrt = pa
-    else:
-        got = critic_loss(pq, to_port(target), pa, x["tokens"], x["act"],
-                          x["rew"], x["done"])
-        wrt = pq
     np.testing.assert_allclose(float(got), float(want_loss), rtol=1e-4)
     trees_close(as_tree(wrt, mp.tower_grads(got, wrt)), want_grads, 2e-5)
 

@@ -5,15 +5,18 @@ forwards (the critics' backbone hidden states and the actor's ``(mean,
 log_std)``) to the actor loss, so each tower's backbone runs once an
 update. One update of a reduced dense backbone (smollm-360m) and of one
 period of the interleaved granite-4.0-h-micro against the same step
-composed from the two losses called alone (the critic loss, its
-``tower_grads``, the actor loss, its ``tower_grads``, then Adam on each):
-both losses, every gradient leaf, every updated parameter and every Adam
-moment are equal, bit for bit. Then ``rl.networks``' ensemble functions
-give the same values, and the same gradient to the action, with the
-hidden states handed over as without them. Last, ``chip_smoke.py``'s
-launch table of the dense arch update (``arch_update_launches``, which
-the card's update is held to) equals the meta census's kernel calls.
+composed in the test from ``rl.networks``' public tower functions, each
+tower run where its loss needs it (the critic loss and its
+``tower_grads``, the actor loss and its ``tower_grads``, then Adam on
+each): both losses, every gradient leaf, every updated parameter and
+every Adam moment are equal, bit for bit. An actor loss called with no
+critic loss before it raises. Then the ensemble functions give the same
+values, and the same gradient to the action, with the hidden states
+handed over as without them. Last, ``chip_smoke.py``'s launch table of
+the dense arch update (``arch_update_launches``, which the card's update
+is held to) equals the meta census's kernel calls.
 """
+import math
 import os
 import sys
 
@@ -26,6 +29,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import model_parallel as mp
 from repro_torch.launch import analysis
 from repro_torch.rl import networks as nets
+from repro_torch.rl.base import AlgoHP
 from repro_torch.train.optimizer import make_optimizer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -87,21 +91,49 @@ def _equal(got, want, what):
         assert torch.equal(g, w), (what, i)
 
 
+def _critic_loss(cfg, actor, q, q_target, batch):
+    """The reference's arch critic loss from the public tower functions:
+    5 backbone forwards (the critics, the actor, the target critics)."""
+    tokens = batch["tokens"]
+    q_pred = nets.arch_ensemble_q_values(q, tokens, batch["act"], cfg,
+                                         dtype=F32)
+    with torch.no_grad():
+        mean, _ = nets.arch_policy_dist(actor, tokens, cfg, dtype=F32)
+        q_next = nets.arch_ensemble_q_values(
+            q_target, tokens, torch.tanh(mean), cfg,
+            dtype=F32).min(dim=0).values
+        target = (batch["rew"]
+                  + AlgoHP().gamma * (1 - batch["done"]) * q_next)
+    return torch.mean((q_pred - target[None]) ** 2)
+
+
+def _actor_loss(cfg, actor, q, batch):
+    """The reference's arch actor loss, as ``_critic_loss``: 3 backbone
+    forwards (the actor, then the critics without a graph)."""
+    tokens, eps = batch["tokens"], batch["eps"]
+    mean, log_std = nets.arch_policy_dist(actor, tokens, cfg, dtype=F32)
+    pre = mean + torch.exp(log_std) * eps
+    logp = (-0.5 * eps ** 2 - log_std - 0.5 * math.log(2 * math.pi)).sum(-1)
+    logp = logp - mp._TanhLogDet.apply(pre).sum(-1)
+    q_a = nets.arch_min_q_of_action(q, tokens, torch.tanh(pre), cfg,
+                                    dtype=F32)
+    return torch.mean(0.2 * logp - q_a)
+
+
 @pytest.mark.parametrize("which", list(CONFIGS))
-def test_the_update_equals_the_unshared_composition(which, monkeypatch):
+def test_the_update_equals_the_step_composed_from_the_towers(which,
+                                                             monkeypatch):
     cfg, seq = _config(which)
     towers, batch = _towers_and_batch(cfg, seq)
     opt = make_optimizer("adam", 3e-4)
 
-    # the step composed from the losses called alone
+    # the step composed from the public tower functions
     actor, q, q_target = _fresh(towers)
     oa, oq = opt.init(actor), opt.init(q)
-    actor_loss, critic_loss = mp.make_arch_spreeze_losses(cfg, A, dtype=F32)
     trace.reset()
-    want_cl = critic_loss(q, q_target, actor, batch["tokens"], batch["act"],
-                          batch["rew"], batch["done"])
+    want_cl = _critic_loss(cfg, actor, q, q_target, batch)
     want_gq = mp.tower_grads(want_cl, q)
-    want_al = actor_loss(actor, q, batch["tokens"], batch["eps"])
+    want_al = _actor_loss(cfg, actor, q, batch)
     want_ga = mp.tower_grads(want_al, actor)
     opt.update(want_gq, oq, q)
     opt.update(want_ga, oa, actor)
@@ -129,6 +161,21 @@ def test_the_update_equals_the_unshared_composition(which, monkeypatch):
     for name, got, w in zip(("actor", "q", "actor Adam", "q Adam"),
                             (actor, q, oa, oq), want):
         _equal(got, w, name)
+
+
+def test_the_actor_loss_without_a_critic_loss_before_it_raises():
+    cfg, seq = _config("dense")
+    towers, batch = _towers_and_batch(cfg, seq)
+    actor, q, q_target = _fresh(towers)
+    actor_loss, critic_loss = mp.make_arch_spreeze_losses(cfg, A, dtype=F32)
+    with pytest.raises(ValueError, match="call critic_loss first"):
+        actor_loss(actor, q, batch["tokens"], batch["eps"])
+    critic_loss(q, q_target, actor, batch["tokens"], batch["act"],
+                batch["rew"], batch["done"])
+    actor_loss(actor, q, batch["tokens"], batch["eps"])
+    # the hand-over is taken once
+    with pytest.raises(ValueError, match="call critic_loss first"):
+        actor_loss(actor, q, batch["tokens"], batch["eps"])
 
 
 @pytest.mark.parametrize("which", list(CONFIGS))
